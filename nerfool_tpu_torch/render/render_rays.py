@@ -1,0 +1,176 @@
+"""Ray renderer (port of the IBRNet half of
+``nerfool_tpu/render/render_rays.py``): coarse and fine passes over a batch
+of rays, on the per-tap route (``F.grid_sample`` per sample and view) or on
+the block segment-patch route (``ops/bspg.py``) when the config carries BSPG
+specs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from nerfool_tpu_torch.render.compositor import raw2outputs
+from nerfool_tpu_torch.render.projection import (
+    compute_angle_planes,
+    epipolar_gather_components,
+    inbound_mask_planes,
+    project_points_planes,
+)
+from nerfool_tpu_torch.render.sampling import (
+    sample_along_camera_ray,
+    sample_fine_zvals,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rendering configuration (IBRNet, deterministic, float32)."""
+
+    n_samples: int = 64
+    n_importance: int = 0
+    inv_uniform: bool = False
+    white_bkgd: bool = False
+    # (spec_feat, spec_rgb) BSPGSpec pair from the host planner: rays arrive
+    # block-major and taps are rebuilt from per-(block, view) patch rows;
+    # None keeps the per-tap gather
+    bspg_specs: Optional[tuple] = None
+
+
+def make_bspg_tables(src_rgbs, featmaps, bspg_specs):
+    """Patch tables for the block gather, packed once per frame:
+    {'rgb': [V, P, row], 'feat': (coarse, fine)}."""
+    from nerfool_tpu_torch.ops.spg import pack_patch_table
+
+    spec_f, spec_r = bspg_specs
+    return {
+        "rgb": pack_patch_table(src_rgbs, spec_r.p),
+        "feat": tuple(pack_patch_table(f, spec_f.p) for f in featmaps),
+    }
+
+
+def _finalize(cfg, raw, z_vals, pixel_mask):
+    return raw2outputs(raw, z_vals, pixel_mask, white_bkgd=cfg.white_bkgd)
+
+
+def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
+                src_cameras, tables=None):
+    """Render a batch of rays (coarse + optional fine pass).
+
+    :param nets: {'net_coarse', 'net_fine'} aggregator modules
+    :param ray_batch: ray_o [R,3], ray_d [R,3], depth_range [1,2], camera
+        [1,34]; block-major rays when cfg.bspg_specs is set
+    :param featmaps: (coarse, fine) each [V, Hf, Wf, C]
+    :param src_rgbs: [V, H, W, 3]; src_cameras: [V, 34]
+    :param tables: BSPG patch tables from make_bspg_tables (built here when
+        None and the config asks for BSPG)
+    :return: {'outputs_coarse': {...}, 'outputs_fine': {...} | None}
+    """
+    pts, z_vals = sample_along_camera_ray(
+        ray_batch["ray_o"], ray_batch["ray_d"], ray_batch["depth_range"],
+        cfg.n_samples, inv_uniform=cfg.inv_uniform)
+    if cfg.bspg_specs is not None:
+        if tables is None:
+            tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs)
+        return _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables,
+                                 pts, z_vals)
+
+    cam = ray_batch["camera"].reshape(-1)[:34]
+
+    def run_level(pts_l, z_l, li, net):
+        rgb, feat, ray_diff, mask = epipolar_gather_components(
+            pts_l, cam, src_rgbs, src_cameras, featmaps[li])
+        raw = net(torch.cat([rgb, feat], dim=-1), ray_diff, mask)
+        pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
+        return _finalize(cfg, raw, z_l, pixel_mask)
+
+    coarse = run_level(pts, z_vals, 0, nets["net_coarse"])
+    ret = {"outputs_coarse": coarse, "outputs_fine": None}
+    if cfg.n_importance > 0:
+        z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
+                                  inv_uniform=cfg.inv_uniform)
+        pts_fine = (z_all[..., None] * ray_batch["ray_d"][:, None, :]
+                    + ray_batch["ray_o"][:, None, :])
+        ret["outputs_fine"] = run_level(pts_fine, z_all, 1, nets["net_fine"])
+    return ret
+
+
+def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
+    """Coarse + fine rendering through the block segment-patch gather.
+
+    Rays arrive BLOCK-MAJOR (render_image reorders raster rays into bh x bw
+    pixel blocks). One slot walk and one patch-row gather per (block, view)
+    serve both passes: fine depths stay inside [near, far], which the block
+    tube covers by construction.
+    """
+    from nerfool_tpu_torch.ops.bspg import (
+        build_block_slots,
+        gather_block_patches,
+        select_block_samples,
+    )
+    from nerfool_tpu_torch.ops.spg import project_endpoints
+
+    spec_f, spec_r = cfg.bspg_specs
+    bh, bw = spec_f.block
+    npb = bh * bw
+    r = pts.shape[0]
+    if r % npb:
+        raise ValueError(f"BSPG needs block-major rays: {r} % {npb} != 0")
+    b = r // npb
+    v = src_cameras.shape[0]
+    for spec in cfg.bspg_specs:
+        if sorted(i for views, _ in spec.groups for i in views) != list(range(v)):
+            raise ValueError(f"BSPG plan covers views {spec.groups}, the "
+                             f"render has {v} source views")
+    cam = ray_batch["camera"].reshape(-1)[:34]
+    h = src_cameras[0, 0]
+    w = src_cameras[0, 1]
+
+    ray_o, ray_d = ray_batch["ray_o"], ray_batch["ray_d"]
+    near = ray_batch["depth_range"].reshape(-1)[0]
+    far = ray_batch["depth_range"].reshape(-1)[1]
+
+    def corners(x):  # [b*npb, 3] -> the 4 block-corner rays [b, 4, 3]
+        x = x.reshape(b, bh, bw, 3)
+        return torch.stack([x[:, 0, 0], x[:, 0, bw - 1], x[:, bh - 1, 0],
+                            x[:, bh - 1, bw - 1]], dim=1)
+
+    ro_c, rd_c = corners(ray_o), corners(ray_d)
+    pa, pb = project_endpoints((ro_c + rd_c * near).reshape(-1, 3),
+                               (ro_c + rd_c * far).reshape(-1, 3), src_cameras)
+    pa = pa.reshape(v, b, 4, 3)
+    pb = pb.reshape(v, b, 4, 3)
+
+    slots_f = build_block_slots(pa, pb, spec_f)
+    slots_r = build_block_slots(pa, pb, spec_r)
+    g_rgb = gather_block_patches(tables["rgb"], slots_r, spec_r)
+    c_feat = tables["feat"][0].shape[-1] // (spec_f.p + 1) ** 2
+
+    def run_level(pts_l, z_l, li, net):
+        s = pts_l.shape[1]
+        flat = pts_l.reshape(-1, 3)
+        px, py, front = project_points_planes(flat, src_cameras)
+        gxb = (2.0 * px / (w - 1.0) - 1.0).reshape(v, b, npb, s)
+        gyb = (2.0 * py / (h - 1.0) - 1.0).reshape(v, b, npb, s)
+        g_f = gather_block_patches(tables["feat"][li], slots_f, spec_f)
+        feat = select_block_samples(g_f, slots_f, gxb, gyb, spec_f, c_feat)
+        rgb = select_block_samples(g_rgb, slots_r, gxb, gyb, spec_r, 3)
+        dxp, dyp, dzp, dot = compute_angle_planes(flat, cam, src_cameras)
+        ray_diff = torch.stack([dxp, dyp, dzp, dot], dim=-1).reshape(v, r, s, 4)
+        mask = (inbound_mask_planes(px, py, h, w) & front).to(
+            rgb.dtype).reshape(v, r, s, 1)
+        rgb_feat = torch.cat([rgb.reshape(v, r, s, 3),
+                              feat.reshape(v, r, s, c_feat)], dim=-1)
+        raw = net(rgb_feat, ray_diff, mask)
+        pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
+        return _finalize(cfg, raw, z_l, pixel_mask)
+
+    coarse = run_level(pts, z_vals, 0, nets["net_coarse"])
+    ret = {"outputs_coarse": coarse, "outputs_fine": None}
+    if cfg.n_importance > 0:
+        z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
+                                  inv_uniform=cfg.inv_uniform)
+        pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
+        ret["outputs_fine"] = run_level(pts_fine, z_all, 1, nets["net_fine"])
+    return ret
