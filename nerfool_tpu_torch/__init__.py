@@ -10,18 +10,23 @@ Layout:
   device.py  device resolution
   utils/     camera codec and ray generation
   render/    projection, sampling, compositing, per-ray and whole-frame render
-  models/    ResUNet, IBRNet aggregator, model bundle, flax-weight conversion
-  ops/       BSPG planner, slot walk and the hand-written CUDA selection kernel
-  metrics/   PSNR and SSIM (TF protocol)
+  models/    ResUNet, IBRNet and GNT aggregators, model bundle, flax-weight
+             conversion
+  ops/       BSPG planner and slot walk, the hand-written CUDA kernels (BSPG
+             selection, the whole-chain GNT aggregation) and their nvcc build
+  metrics/   PSNR and SSIM (TF protocol and GNT's windowed protocol)
   engine.py  clean whole-frame evaluator; eval.py is its command line
 
 Precision is pinned here, at package entry: f32 matrix products and cuDNN
 convolutions run in full f32, never TF32. cuDNN's TF32 convolutions would
 otherwise move the ResUNet away from the f32 reference by about 1e-3 relative.
+bf16 matrix products reduce in f32 (no reduced-precision reduction), so a
+bf16 product rounds once, at its output, as XLA's bf16 dot does.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"

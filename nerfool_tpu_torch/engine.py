@@ -1,7 +1,14 @@
 """Clean whole-frame evaluator (port of the no-attack, view-specific path of
 ``nerfool_tpu/attack/engine.py`` ``AdvEvaluator``): every test view is
-rendered whole-frame with IBRNet from its own source views, then measured
-with PSNR and SSIM (TF protocol). LPIPS is not ported and reads NaN.
+rendered whole-frame with IBRNet or GNT from its own source views, then
+measured with PSNR and SSIM in the backbone's protocol (TF's for IBRNet,
+``img2psnr`` and windowed SSIM for GNT). LPIPS is not ported and reads NaN.
+
+GNT renders in float32 or bfloat16 (``--compute_dtype``); IBRNet in float32
+only. ``--gnt_fused_chain`` resolves as in the JAX evaluator: ``auto`` runs
+bf16 whole-frame GNT renders on a CUDA device through the whole-chain kernel
+(``ops/chain.py``), ``on`` forces the chain (its plain version on the CPU),
+``off`` keeps the module path. f32 renders take the module path either way.
 
 Whole-frame renders take the block segment-patch gather by default
 (``--use_bspg``): it is planned once over every camera the dataset can emit,
@@ -21,7 +28,7 @@ import torch
 
 from nerfool_tpu.data import dataset_dict
 from nerfool_tpu_torch.device import resolve_device
-from nerfool_tpu_torch.metrics.image import psnr, ssim
+from nerfool_tpu_torch.metrics.image import img2psnr, psnr, ssim, ssim_windowed
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.resunet import feature_hw
 from nerfool_tpu_torch.render.render_image import render_single_image
@@ -30,15 +37,23 @@ from nerfool_tpu_torch.utils.cameras import get_rays
 
 
 def render_config_from_args(args) -> RenderConfig:
-    if args.backbone != "ibrnet":
-        raise ValueError("the port covers the ibrnet backbone only")
-    if args.compute_dtype != "float32":
-        raise ValueError("the port renders in float32 only "
+    if args.backbone not in ("ibrnet", "gnt"):
+        raise ValueError(f"unknown backbone {args.backbone!r}")
+    if args.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"--compute_dtype {args.compute_dtype} (float32 or "
+                         "bfloat16)")
+    gnt = args.backbone == "gnt"
+    if args.compute_dtype != "float32" and not gnt:
+        raise ValueError("the port renders IBRNet in float32 only "
                          f"(--compute_dtype {args.compute_dtype})")
     return RenderConfig(n_samples=args.N_samples,
                         n_importance=args.N_importance,
                         inv_uniform=bool(args.inv_uniform),
-                        white_bkgd=bool(args.white_bkgd))
+                        white_bkgd=bool(args.white_bkgd),
+                        backbone=args.backbone,
+                        single_net=gnt and bool(args.single_net),
+                        ret_alpha=not gnt or bool(args.ret_alpha),
+                        compute_dtype=args.compute_dtype)
 
 
 class Evaluator:
@@ -62,12 +77,21 @@ class Evaluator:
         return {"rgbs": self._tensor(data["src_rgbs"]),
                 "cameras": self._tensor(data["src_cameras"]).reshape(-1, 34)}
 
+    def _fused_chain(self):
+        """``--gnt_fused_chain`` for whole-frame renders: auto = on a CUDA
+        device."""
+        mode = getattr(self.args, "gnt_fused_chain", "auto")
+        return self.args.backbone == "gnt" and (
+            mode == "on" or (mode == "auto" and self.device.type == "cuda"))
+
     def view_render_cfg(self, n_src):
         """Render config for whole-frame renders with ``n_src`` source views;
         plans BSPG on first use (numpy, host)."""
         args = self.args
+        base = dataclasses.replace(self.render_cfg,
+                                   gnt_fused_chain=self._fused_chain())
         if not getattr(args, "use_bspg", True):
-            return self.render_cfg
+            return base
         if n_src in self._bspg_cfg:
             return self._bspg_cfg[n_src]
         from nerfool_tpu_torch.ops.bspg import plan_render_specs
@@ -98,8 +122,7 @@ class Evaluator:
                 sp, groups=((tuple(range(n_src)), max(k for _, k in sp.groups)),))
             for sp in specs)
         self._bspg_hw = (h, w)
-        self._bspg_cfg[n_src] = dataclasses.replace(self.render_cfg,
-                                                    bspg_specs=specs)
+        self._bspg_cfg[n_src] = dataclasses.replace(base, bspg_specs=specs)
         return self._bspg_cfg[n_src]
 
     def render_view(self, data, src):
@@ -142,6 +165,8 @@ class Evaluator:
                 "the port evaluates the clean per-view path only "
                 "(no_attack with view_specific)")
         scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
+        psnr_fn, ssim_fn = ((img2psnr, ssim_windowed)
+                            if args.backbone == "gnt" else (psnr, ssim))
         results = {scene: {}}
         rows_acc = []
         n_views = len(self.test_dataset)
@@ -167,8 +192,8 @@ class Evaluator:
                     row[f"{name}_psnr"] = row[f"{name}_ssim"] = float("nan")
                     continue
                 pred = torch.clamp(ret[level]["rgb"], 0, 1)
-                row[f"{name}_psnr"] = float(psnr(pred, gt))
-                row[f"{name}_ssim"] = float(ssim(pred, gt))
+                row[f"{name}_psnr"] = float(psnr_fn(pred, gt))
+                row[f"{name}_ssim"] = float(ssim_fn(pred, gt))
             results[scene][file_id] = row
             rows_acc.append([row["coarse_psnr"], row["fine_psnr"],
                              row["coarse_ssim"], row["fine_ssim"],

@@ -1,6 +1,6 @@
-"""Model bundle (port of the IBRNet half of ``nerfool_tpu/models/bundle.py``):
-builds the modules, random-initializes them from a seeded ``torch.Generator``
-or loads reference-layout state_dicts, and runs the feature extraction.
+"""Model bundle (port of ``nerfool_tpu/models/bundle.py``): builds the IBRNet
+or GNT modules, random-initializes them from a seeded ``torch.Generator`` or
+loads reference-layout state_dicts, and runs the feature extraction.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from nerfool_tpu_torch.models.gnt import GNTAggregator
 from nerfool_tpu_torch.models.ibrnet import IBRNetAggregator
 from nerfool_tpu_torch.models.resunet import ResUNet
 
@@ -19,14 +20,14 @@ from nerfool_tpu_torch.models.resunet import ResUNet
 @dataclasses.dataclass
 class ModelBundle:
     feature_net: ResUNet
-    net_coarse: IBRNetAggregator
-    net_fine: Optional[IBRNetAggregator]
+    net_coarse: nn.Module
+    net_fine: Optional[nn.Module]
     device: torch.device
 
     @property
     def nets(self):
         """{'net_coarse', 'net_fine'}; the fine net falls back to the coarse
-        one in coarse-only setups."""
+        one in coarse-only and single_net setups."""
         return {"net_coarse": self.net_coarse,
                 "net_fine": self.net_fine if self.net_fine is not None
                 else self.net_coarse}
@@ -41,8 +42,8 @@ class ModelBundle:
 
 def _seeded_init_(module: nn.Module, generator: torch.Generator):
     """PyTorch's default Linear/Conv init, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    for weights and biases, drawn from ``generator``. Norm layers keep
-    ones/zeros and the anti-alias ``s`` its 0.2."""
+    for weights and biases, drawn from ``generator``. Norm layers (GNT's
+    LayerNorms included) keep ones/zeros and the anti-alias ``s`` its 0.2."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -53,10 +54,12 @@ def _seeded_init_(module: nn.Module, generator: torch.Generator):
                     m.bias.uniform_(-bound, bound, generator=generator)
 
 
-def create_model(args=None, coarse_feat_dim=32, fine_feat_dim=32,
-                 anti_alias_pooling=True, coarse_only=False, ckpt_path=None,
-                 state_dicts=None, seed=0, device="cpu") -> ModelBundle:
-    """Build the IBRNet modules on ``device``.
+def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
+                 fine_feat_dim=32, anti_alias_pooling=True, coarse_only=False,
+                 netwidth=64, trans_depth=8, single_net=False, ret_alpha=True,
+                 ckpt_path=None, state_dicts=None, seed=0,
+                 device="cpu") -> ModelBundle:
+    """Build the IBRNet or GNT modules on ``device``.
 
     Weights come from, in order of precedence: ``state_dicts``
     ({'feature_net', 'net_coarse'[, 'net_fine']} in the reference key
@@ -67,19 +70,35 @@ def create_model(args=None, coarse_feat_dim=32, fine_feat_dim=32,
     fields by their flag names.
     """
     if args is not None:
-        if getattr(args, "backbone", "ibrnet") != "ibrnet":
-            raise ValueError("the port covers the ibrnet backbone only")
+        backbone = getattr(args, "backbone", backbone)
         coarse_feat_dim = args.coarse_feat_dim
         fine_feat_dim = args.fine_feat_dim
         anti_alias_pooling = bool(args.anti_alias_pooling)
         coarse_only = args.coarse_only
         ckpt_path = args.ckpt_path or ckpt_path
+        if backbone == "gnt":  # single_net is a GNT-stack concept
+            netwidth = args.netwidth
+            trans_depth = args.trans_depth
+            single_net = bool(args.single_net)
+            ret_alpha = bool(args.ret_alpha)
+    if backbone not in ("ibrnet", "gnt"):
+        raise ValueError(f"unknown backbone {backbone!r}")
+    single_net = single_net and backbone == "gnt"
 
     with torch.random.fork_rng(devices=[]):  # module defaults draw globally
-        feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only)
-        net_coarse = IBRNetAggregator(coarse_feat_dim, anti_alias_pooling)
-        net_fine = (None if coarse_only
-                    else IBRNetAggregator(fine_feat_dim, anti_alias_pooling))
+        feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only,
+                              single_net)
+        if backbone == "ibrnet":
+            net_coarse = IBRNetAggregator(coarse_feat_dim, anti_alias_pooling)
+            net_fine = (None if coarse_only
+                        else IBRNetAggregator(fine_feat_dim,
+                                              anti_alias_pooling))
+        else:
+            net_coarse = GNTAggregator(coarse_feat_dim, netwidth, trans_depth,
+                                       ret_alpha=ret_alpha)
+            net_fine = (None if single_net
+                        else GNTAggregator(fine_feat_dim, netwidth,
+                                           trans_depth, ret_alpha=True))
     nets = {"feature_net": feature_net, "net_coarse": net_coarse,
             "net_fine": net_fine}
 

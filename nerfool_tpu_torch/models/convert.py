@@ -2,7 +2,9 @@
 
 The inverse of ``nerfool_tpu/models/torch_port.py``: conv kernels HWIO ->
 OIHW, dense kernels [in, out] -> [out, in], norm scale/bias -> weight/bias,
-MLP ``fc{j}`` -> ``nn.Sequential`` index. It takes plain numpy arrays (the
+MLP ``fc{j}`` -> ``nn.Sequential`` index, GNT's ``view_trans_{i}`` /
+``ray_trans_{i}`` / ``q_fc_{i}_{j}`` -> ``view_crosstrans`` /
+``view_selftrans`` / ``q_fcs``. It takes plain numpy arrays (the
 JAX bundle's ``params`` after ``np.asarray``), so this module needs no JAX;
 the tests use it to run both packages on the same weights.
 """
@@ -82,14 +84,53 @@ def ibrnet_state_dict(p):
     return sd
 
 
+def _linear(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _dense(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def gnt_state_dict(p):
+    """GNTAggregator flax params -> reference ``net_coarse``/``net_fine``
+    (the inverse of ``torch_port.gnt_params_from_torch``)."""
+    sd = {}
+    _linear(sd, "rgbfeat_fc.0", p["rgbfeat_fc0"])
+    _linear(sd, "rgbfeat_fc.2", p["rgbfeat_fc1"])
+    depth = sum(1 for k in p if k.startswith("view_trans_"))
+    for i in range(depth):
+        vt, rt = p[f"view_trans_{i}"], p[f"ray_trans_{i}"]
+        for pre, blk in ((f"view_crosstrans.{i}", vt),
+                         (f"view_selftrans.{i}", rt)):
+            _norm(sd, f"{pre}.attn_norm", blk["attn_norm"])
+            _norm(sd, f"{pre}.ff_norm", blk["ff_norm"])
+            for fc in ("fc1", "fc2"):
+                _linear(sd, f"{pre}.ff.{fc}", blk["ff"][fc])
+            for fc in ("q_fc", "k_fc", "v_fc", "out_fc"):
+                _linear(sd, f"{pre}.attn.{fc}", blk["attn"][fc])
+        va = f"view_crosstrans.{i}.attn"
+        for name, (a, b) in (("pos_fc", ("pos_fc0", "pos_fc1")),
+                             ("attn_fc", ("attn_fc0", "attn_fc1"))):
+            _linear(sd, f"{va}.{name}.0", vt["attn"][a])
+            _linear(sd, f"{va}.{name}.2", vt["attn"][b])
+        if i % 2 == 0:
+            _linear(sd, f"q_fcs.{i}.0", p[f"q_fc_{i}_0"])
+            _linear(sd, f"q_fcs.{i}.2", p[f"q_fc_{i}_1"])
+    _norm(sd, "norm", p["norm"])
+    _linear(sd, "rgb_fc", p["rgb_fc"])
+    return sd
+
+
 def params_from_flax(params_np):
     """The JAX bundle's ``params`` ({'feature_net', 'net_coarse'[,
-    'net_fine']}, numpy leaves) -> the port's state_dicts under the same keys,
-    in the reference checkpoint layout."""
+    'net_fine']}, numpy leaves; IBRNet or GNT) -> the port's state_dicts
+    under the same keys, in the reference checkpoint layout. A GNT bundle
+    under ``single_net`` has no ``net_fine``."""
+    agg = (gnt_state_dict if "rgbfeat_fc0" in params_np["net_coarse"]
+           else ibrnet_state_dict)
     out = {
         "feature_net": resunet_state_dict(params_np["feature_net"]),
-        "net_coarse": ibrnet_state_dict(params_np["net_coarse"]),
+        "net_coarse": agg(params_np["net_coarse"]),
     }
     if "net_fine" in params_np:
-        out["net_fine"] = ibrnet_state_dict(params_np["net_fine"])
+        out["net_fine"] = agg(params_np["net_fine"])
     return out

@@ -4,7 +4,9 @@ The reference's ResNet34-encoder U-Net: a 7x7/s2 reflect-padded stem, three
 BasicBlock stages (3/4/6 blocks, stride 2 each, affine InstanceNorm), and a
 two-stage bilinear(align_corners) + conv decoder with skip concats, ending in
 a 1x1 conv that yields the coarse and fine channel groups at about 1/4 of the
-input size. NCHW inside; NHWC at the boundary, as in the JAX package.
+input size. GNT's ``single_net`` variant has one head of ``coarse_out_ch``
+channels that serves both levels. NCHW inside; NHWC at the boundary, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -80,12 +82,17 @@ def _skip_concat(up, enc):
 
 
 class ResUNet(nn.Module):
-    def __init__(self, coarse_out_ch=32, fine_out_ch=32, coarse_only=False):
+    def __init__(self, coarse_out_ch=32, fine_out_ch=32, coarse_only=False,
+                 single_net=False):
         super().__init__()
         self.coarse_out_ch = coarse_out_ch
         self.fine_out_ch = fine_out_ch
         self.coarse_only = coarse_only
-        out_ch = coarse_out_ch + (0 if coarse_only else fine_out_ch)
+        self.single_net = single_net
+        if single_net:
+            out_ch = coarse_out_ch
+        else:
+            out_ch = coarse_out_ch + (0 if coarse_only else fine_out_ch)
 
         self.conv1 = conv_reflect(3, 64, 7, 2, padding=3)
         self.bn1 = InstanceNorm(64)
@@ -106,7 +113,8 @@ class ResUNet(nn.Module):
 
     def forward(self, x):
         """:param x: [V, H, W, 3] source images
-        :return: (coarse [V, H/4, W/4, Cc], fine [V, H/4, W/4, Cf] or None)
+        :return: (coarse [V, H/4, W/4, Cc], fine [V, H/4, W/4, Cf] or None);
+            under ``single_net`` the one head twice, as the same tensor
         """
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
@@ -119,5 +127,8 @@ class ResUNet(nn.Module):
         out = self.out_conv(u).permute(0, 2, 3, 1)
         if self.coarse_only:
             return out.contiguous(), None
+        if self.single_net:
+            out = out.contiguous()
+            return out, out
         return (out[..., :self.coarse_out_ch].contiguous(),
                 out[..., -self.fine_out_ch:].contiguous())

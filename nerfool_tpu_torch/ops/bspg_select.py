@@ -20,18 +20,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 import torch.nn.functional as F
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc")
-_SOURCE = os.path.join(_CSRC, "bspg_select.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
+from nerfool_tpu_torch.ops.build import load_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # threads per block, as launched in the .cu source
@@ -39,37 +32,11 @@ _MAX_GRID_Y = 65535
 _MAX_SLOTS = 12288  # 48 KB of int32 slot ids in default shared memory
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); it is "
-                       "needed to build csrc/bspg_select.cu")
-
-
 @functools.lru_cache(maxsize=None)
 def build():
-    """Compile ``csrc/bspg_select.cu`` for sm_90a into ``csrc/build/`` (once
-    per source version) and return its ctypes entry point."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libbspg_select_{digest}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, _SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, lib_path)
-    fn = ctypes.CDLL(lib_path).bspg_select
+    """Build ``csrc/bspg_select.cu`` (``ops/build.py``) and return its ctypes
+    entry point."""
+    fn = load_library("bspg_select").bspg_select
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -38,8 +38,9 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                         render_stride=1):
     """Render a full frame; outputs reshaped to (H', W', ...).
 
-    The coarse rgb is painted white where the ray mask is empty (the
-    reference's contract); the fine rgb is not.
+    IBRNet's coarse rgb is painted white where the ray mask is empty (the
+    reference's contract); its fine rgb is not. GNT outputs carry no mask
+    and are not painted.
     """
     hs = len(range(0, h, render_stride))
     ws = len(range(0, w, render_stride))
@@ -55,7 +56,8 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
         perm = torch.as_tensor(perm, device=ray_o.device)
         inv = torch.as_tensor(inv, device=ray_o.device)
         ray_o, ray_d = ray_o[perm], ray_d[perm]
-        tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs)
+        tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs,
+                                  cfg.dtype)
 
     chunks = []
     for i in range(0, ray_o.shape[0], chunk_size):
@@ -76,7 +78,7 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
             if inv is not None:
                 x = x[inv]  # block-major -> raster
             imgs[k] = x.reshape((hs, ws) + x.shape[1:])
-        if level == "outputs_coarse":
+        if cfg.backbone == "ibrnet" and level == "outputs_coarse":
             imgs["rgb"] = torch.where(imgs["mask"][..., None], imgs["rgb"],
                                       torch.ones_like(imgs["rgb"]))
         ret[level] = imgs

@@ -1,8 +1,17 @@
-"""Ray renderer (port of the IBRNet half of
-``nerfool_tpu/render/render_rays.py``): coarse and fine passes over a batch
-of rays, on the per-tap route (``F.grid_sample`` per sample and view) or on
-the block segment-patch route (``ops/bspg.py``) when the config carries BSPG
-specs.
+"""Ray renderer (port of ``nerfool_tpu/render/render_rays.py``): coarse and
+fine passes over a batch of rays, on the per-tap route (``F.grid_sample`` per
+sample and view) or on the block segment-patch route (``ops/bspg.py``) when
+the config carries BSPG specs. The two backbones share the pipeline and
+differ in the aggregator and in how its raw output becomes radiance:
+
+  * ibrnet: aggregator -> [R, S, 4] raw, alpha-composited by raw2outputs
+  * gnt:    aggregator -> [R, 3 (+ S)] rgb (+ attention weights as density)
+
+In bfloat16 (``compute_dtype``) the aggregator and its inputs run in bf16:
+the BSPG patch tables are cast before packing, and the gathered taps, ray
+differences, mask, points and ray directions before the aggregator, whose
+output is promoted back to f32. Geometry, projection and compositing stay
+f32. Per-tap renders gather in f32 and cast the taps.
 """
 from __future__ import annotations
 
@@ -26,32 +35,73 @@ from nerfool_tpu_torch.render.sampling import (
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration (IBRNet, deterministic, float32)."""
+    """Static rendering configuration (deterministic sampling)."""
 
     n_samples: int = 64
     n_importance: int = 0
     inv_uniform: bool = False
     white_bkgd: bool = False
+    backbone: str = "ibrnet"  # 'ibrnet' | 'gnt'
+    single_net: bool = False  # gnt: net_coarse also renders the fine pass
+    ret_alpha: bool = True  # gnt: return attention weights as density
+    # aggregator dtype: 'float32' or 'bfloat16'
+    compute_dtype: str = "float32"
+    # gnt in bfloat16: run the aggregation through the whole-chain kernel
+    # (ops/chain.py); f32 renders keep the module path
+    gnt_fused_chain: bool = False
     # (spec_feat, spec_rgb) BSPGSpec pair from the host planner: rays arrive
     # block-major and taps are rebuilt from per-(block, view) patch rows;
     # None keeps the per-tap gather
     bspg_specs: Optional[tuple] = None
 
+    @property
+    def dtype(self):
+        return {"float32": torch.float32,
+                "bfloat16": torch.bfloat16}[self.compute_dtype]
 
-def make_bspg_tables(src_rgbs, featmaps, bspg_specs):
-    """Patch tables for the block gather, packed once per frame:
-    {'rgb': [V, P, row], 'feat': (coarse, fine)}."""
+
+def make_bspg_tables(src_rgbs, featmaps, bspg_specs, dtype=torch.float32):
+    """Patch tables for the block gather, cast to ``dtype`` and packed once
+    per frame: {'rgb': [V, P, row], 'feat': (coarse, fine)}."""
     from nerfool_tpu_torch.ops.spg import pack_patch_table
 
     spec_f, spec_r = bspg_specs
     return {
-        "rgb": pack_patch_table(src_rgbs, spec_r.p),
-        "feat": tuple(pack_patch_table(f, spec_f.p) for f in featmaps),
+        "rgb": pack_patch_table(src_rgbs.to(dtype), spec_r.p),
+        "feat": tuple(pack_patch_table(f.to(dtype), spec_f.p)
+                      for f in featmaps),
     }
 
 
+def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d):
+    """Run the level's aggregator on gathered taps; raw output in f32."""
+    dt = cfg.dtype
+    if dt != torch.float32:
+        rgb_feat, ray_diff, mask = (rgb_feat.to(dt), ray_diff.to(dt),
+                                    mask.to(dt))
+        pts, ray_d = pts.to(dt), ray_d.to(dt)
+    net = nets["net_coarse" if level == 0 or cfg.single_net else "net_fine"]
+    if cfg.backbone == "ibrnet":
+        raw = net(rgb_feat, ray_diff, mask)
+    elif cfg.gnt_fused_chain and rgb_feat.dtype == torch.bfloat16:
+        from nerfool_tpu_torch.ops.chain import fused_chain_aggregate
+
+        raw = fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d)
+    else:
+        raw = net(rgb_feat, ray_diff, mask, pts, ray_d)
+    return raw.float()
+
+
 def _finalize(cfg, raw, z_vals, pixel_mask):
-    return raw2outputs(raw, z_vals, pixel_mask, white_bkgd=cfg.white_bkgd)
+    """Raw aggregator output -> per-ray outputs. GNT: rgb directly, the
+    attention row as compositing weights, no validity mask."""
+    if cfg.backbone == "ibrnet":
+        return raw2outputs(raw, z_vals, pixel_mask, white_bkgd=cfg.white_bkgd)
+    if not cfg.ret_alpha:
+        return {"rgb": raw}
+    weights = raw[:, 3:]
+    return {"rgb": raw[:, :3], "weights": weights,
+            "depth": torch.sum(weights * z_vals, dim=-1)}
 
 
 def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
@@ -72,27 +122,29 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
         cfg.n_samples, inv_uniform=cfg.inv_uniform)
     if cfg.bspg_specs is not None:
         if tables is None:
-            tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs)
+            tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs,
+                                      cfg.dtype)
         return _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables,
                                  pts, z_vals)
 
     cam = ray_batch["camera"].reshape(-1)[:34]
 
-    def run_level(pts_l, z_l, li, net):
+    def run_level(pts_l, z_l, li):
         rgb, feat, ray_diff, mask = epipolar_gather_components(
             pts_l, cam, src_rgbs, src_cameras, featmaps[li])
-        raw = net(torch.cat([rgb, feat], dim=-1), ray_diff, mask)
+        raw = _shade(cfg, nets, li, torch.cat([rgb, feat], dim=-1), ray_diff,
+                     mask, pts_l, ray_batch["ray_d"])
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
         return _finalize(cfg, raw, z_l, pixel_mask)
 
-    coarse = run_level(pts, z_vals, 0, nets["net_coarse"])
+    coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
         z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
                                   inv_uniform=cfg.inv_uniform)
         pts_fine = (z_all[..., None] * ray_batch["ray_d"][:, None, :]
                     + ray_batch["ray_o"][:, None, :])
-        ret["outputs_fine"] = run_level(pts_fine, z_all, 1, nets["net_fine"])
+        ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
     return ret
 
 
@@ -147,7 +199,7 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
     g_rgb = gather_block_patches(tables["rgb"], slots_r, spec_r)
     c_feat = tables["feat"][0].shape[-1] // (spec_f.p + 1) ** 2
 
-    def run_level(pts_l, z_l, li, net):
+    def run_level(pts_l, z_l, li):
         s = pts_l.shape[1]
         flat = pts_l.reshape(-1, 3)
         px, py, front = project_points_planes(flat, src_cameras)
@@ -162,15 +214,15 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
             rgb.dtype).reshape(v, r, s, 1)
         rgb_feat = torch.cat([rgb.reshape(v, r, s, 3),
                               feat.reshape(v, r, s, c_feat)], dim=-1)
-        raw = net(rgb_feat, ray_diff, mask)
+        raw = _shade(cfg, nets, li, rgb_feat, ray_diff, mask, pts_l, ray_d)
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
         return _finalize(cfg, raw, z_l, pixel_mask)
 
-    coarse = run_level(pts, z_vals, 0, nets["net_coarse"])
+    coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
         z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
                                   inv_uniform=cfg.inv_uniform)
         pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
-        ret["outputs_fine"] = run_level(pts_fine, z_all, 1, nets["net_fine"])
+        ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
     return ret

@@ -1,18 +1,24 @@
-"""The BSPG selection wrapper (``ops/bspg_select.py``) and its CUDA kernel.
+"""The kernel wrappers and their CUDA kernels: BSPG selection
+(``ops/bspg_select.py``) and the whole GNT chain (``ops/chain.py``).
 
 This file imports no JAX, so it also runs on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-On the CPU the plain version is held to the selection contract written as
-loops (float64): 1e-5 relative / 1e-6 absolute at float32. The CUDA-marked
-tests skip without a card.
+On the CPU the plain selection is held to its contract written as loops
+(float64): 1e-5 relative / 1e-6 absolute at float32; the chain wrapper's CPU
+path and input checks are tested here, its parity with JAX in
+test_torch_gnt. The CUDA-marked tests (kernel against plain version) skip
+without a card.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from nerfool_tpu_torch.ops import bspg_select
+from nerfool_tpu_torch.models.bundle import create_model
+from nerfool_tpu_torch.ops import bspg_select, chain
 
 
 def _taps_inputs(rng, n_rv=6, ks=21, ns=40, p=4, c=3, dtype=torch.float32,
@@ -112,3 +118,135 @@ def test_kernel_raises_on_bad_layout():
     with pytest.raises(ValueError, match="contiguous"):
         bspg_select.select_taps(args[0].transpose(0, 1).contiguous()
                                 .transpose(0, 1), *args[1:])
+
+
+# ---- the whole-chain GNT aggregation (ops/chain.py, csrc/gnt_chain.cu) ----
+
+def _chain_case(depth=2, v=4, r=6, s=24, seed=0, device="cpu",
+                masked_ray=False):
+    """A seeded GNT net and chain operands (rgb_feat ~ N(0, 1), ray_diff with
+    its dot in [-1, 1], ~20% of the views masked; ``masked_ray``: every view
+    of ray 0 masked)."""
+    net = create_model(backbone="gnt", trans_depth=depth, seed=seed,
+                       device=device).net_coarse
+    rng = np.random.RandomState(seed)
+    f = lambda x: torch.as_tensor(x.astype(np.float32), device=device)
+    rd = rng.randn(v, r, s, 4)
+    rd[..., 3] = np.tanh(rd[..., 3])
+    mask = (rng.rand(v, r, s, 1) > 0.2).astype(np.float32)
+    if masked_ray:
+        mask[:, 0] = 0.0
+    merged, emb = chain.chain_inputs(
+        net, f(rng.randn(v, r, s, 35)), f(rd), f(mask), f(rng.randn(r, s, 3)),
+        f(rng.randn(r, 3)))
+    return net, merged, emb
+
+
+def _rounded(net, dtype):
+    """A copy of ``net`` whose weights hold exactly their ``dtype`` values
+    (in float32): the f32 reference on the weights a ``dtype`` run uses."""
+    out = copy.deepcopy(net)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.copy_(p.to(dtype).float())
+    return out
+
+
+def test_chain_plain_on_cpu_launches_nothing():
+    net, merged, emb = _chain_case(depth=3, r=5, s=13)
+    before = chain.gnt_chain.launches
+    q, attn0 = chain.gnt_chain(net, merged, emb)
+    assert chain.gnt_chain.launches == before
+    assert q.shape == (5, 13, 64) and attn0.shape == (5, 13)
+    # the plain version is the module's own chain
+    rq, ra = net.chain(merged[..., :35], merged[..., 35:39], merged[..., 39:],
+                       emb[..., :63], emb[..., 63:])
+    torch.testing.assert_close(q, rq, rtol=0, atol=0)
+    torch.testing.assert_close(attn0, ra, rtol=0, atol=0)
+    # attn0 is a head-mean softmax row: each ray's weights sum to 1
+    torch.testing.assert_close(attn0.sum(-1), torch.ones(5), rtol=0,
+                               atol=1e-5)
+
+
+def test_stack_weights_follow_weight_updates():
+    """The kernel's weight blobs are stacked once per net, dtype and weight
+    version: reused while the weights stand, made anew after
+    ``load_state_dict`` or an in-place update; bf16 blobs hold bf16 values."""
+    net = create_model(backbone="gnt", trans_depth=3, seed=0).net_coarse
+    w = chain.stack_weights(net, torch.float32)
+    assert chain.stack_weights(net, torch.float32) is w  # stacked once
+    wb = chain.stack_weights(net, torch.bfloat16)
+    for a, b in zip(w, wb):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(b, b.bfloat16().float(), rtol=0, atol=0)
+        assert float((a - b).abs().max()) <= 2.0 ** -7 * float(a.abs().max())
+    other = create_model(backbone="gnt", trans_depth=3, seed=1).net_coarse
+    net.load_state_dict(other.state_dict())
+    w2 = chain.stack_weights(net, torch.float32)
+    assert w2 is not w
+    for a, b in zip(w2, chain.stack_weights(other, torch.float32)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.no_grad():
+        net.rgb_fc.bias.add_(1.0)
+    assert chain.stack_weights(net, torch.float32) is not w2
+    assert chain.stack_weights(net, torch.bfloat16) is not wb
+
+
+def test_chain_rejects_bad_inputs():
+    net, merged, emb = _chain_case()
+    with pytest.raises(ValueError, match="dtype"):
+        chain.gnt_chain(net, merged.double(), emb.double())
+    with pytest.raises(ValueError, match="dtype"):
+        chain.gnt_chain(net, merged.bfloat16(), emb)
+    with pytest.raises(ValueError, match="emb"):
+        chain.gnt_chain(net, merged, emb[:, :-1])
+    with pytest.raises(ValueError, match="channels"):
+        chain.gnt_chain(net, merged[..., 1:], emb)
+    with pytest.raises(ValueError, match="devices"):
+        chain.gnt_chain(net, merged.to("meta"), emb.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,r,s,masked", [(2, 6, 24, False),
+                                              (3, 5, 13, True),
+                                              (8, 40, 192, False)])
+def test_chain_kernel_matches_plain_f32(depth, r, s, masked):
+    """f32: kernel and plain differ in summation order only (~1e-6 of the
+    output per product); the LayerNorms of every block re-normalise, so the
+    difference stays near that. Held to 1e-4 of the output scale. Covers R
+    not a multiple of anything, S not a multiple of the 8-sample tile, and a
+    ray with every view masked (uniform view weights, finite)."""
+    _require_cuda()
+    net, merged, emb = _chain_case(depth=depth, v=10 if depth == 8 else 4,
+                                   r=r, s=s, device="cuda", masked_ray=masked)
+    before = chain.gnt_chain.launches
+    with torch.no_grad():
+        q, attn0 = chain.gnt_chain(net, merged, emb)
+        torch.cuda.synchronize()
+        assert chain.gnt_chain.launches == before + 1
+        rq, ra = chain.gnt_chain_plain(net, merged, emb)
+    assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(attn0).all())
+    for got, ref in ((q, rq), (attn0, ra)):
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_chain_kernel_bf16_within_derived_bound():
+    """bf16: the kernel and the plain chain both in bf16, against the plain
+    chain in f32 on the same bf16 inputs and bf16-valued weights. The plain
+    chain rounds every product and LayerNorm to bf16; the kernel rounds only
+    x and its outputs, so its error must not exceed the plain chain's."""
+    _require_cuda()
+    net, merged, emb = _chain_case(depth=8, v=10, r=24, s=192, device="cuda")
+    mb, eb = merged.bfloat16(), emb.bfloat16()
+    with torch.no_grad():
+        ref = chain.gnt_chain_plain(_rounded(net, torch.bfloat16), mb.float(),
+                                    eb.float())
+        got = chain.gnt_chain(net, mb, eb)
+        plain = chain.gnt_chain_plain(net, mb, eb)
+    torch.cuda.synchronize()
+    for k in range(2):
+        err_k = float((got[k].float() - ref[k]).abs().max())
+        err_p = float((plain[k].float() - ref[k]).abs().max())
+        assert err_k <= err_p, (k, err_k, err_p)

@@ -32,6 +32,8 @@ def state_dicts(jbundle):
 def test_precision_pinned():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            is False)
 
 
 def test_state_dicts_round_trip_through_torch_port(jbundle, state_dicts):
