@@ -6,8 +6,9 @@
 Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card is required (no CPU fallback); prints
      ``nvidia-smi --query-gpu=name,power.limit``
-  2. build: compiles ``csrc/bspg_select.cu`` (K1) and ``csrc/gnt_chain.cu``
-     (K2) from the checkout, one nvcc each, started together (sm_90a)
+  2. build: compiles ``csrc/bspg_select.cu`` (K1), ``csrc/gnt_chain.cu``
+     (K2) and ``csrc/ray_attention.cu`` (K3) from the checkout, one nvcc
+     each, started together (sm_90a)
   3. plan: the IBRNet slice's BSPG plan (synthetic scene, 15 views at
      378x504)
   4. kernel vs plain: ``bspg_select`` against its plain PyTorch version at the
@@ -35,10 +36,36 @@ Phases, each printing a line; any failure raises and exits non-zero:
      ret_alpha) in bf16 at 378x504 (render_stride 2), 10 source views,
      through K1 and K2, after one warm-up render; K2's launch count must
      equal chunks x levels x views and K1's tables x levels x chunks x views
-Then the card line, a JSON line of kernel results, and as the last line
-``{"ok": true, "device": {...}}``.
+ 10. K3 vs plain: the ray-attention kernels, forward and backward, through
+     their ``autograd.Function`` against ``ray_attention_plain`` and
+     ``ray_attention_bwd_plain`` (out, attn0, dx, dWqkv, dWo, dbo) at the
+     attack slice's shape (800 rays, 192 samples, f32), at an odd shape
+     (3 rays, 10 samples) and in bf16, under a cotangent that feeds both
+     outputs and one that feeds ``out`` only; the forward alone in f32 at
+     the two shapes the attacked GNT render gives it (a whole chunk of rays
+     and the shorter last chunk); CUDA-event timings of both kernels, both
+     plain versions and the unfused module path with autograd
+ 11. the GNT attack slice: ``configs/gnt/gnt_full.txt`` in f32, 10 source
+     views, ``--view_specific --use_adam --adam_lr 1e-3 --adv_lr 1 --epsilon
+     8 --gnt_fused_attack True``: ``Evaluator.attack_view_specific`` on one
+     test view, 2 warm-up iterations then 10 timed (K3 forward and backward
+     launches must each equal iterations x depth), the constraints on
+     ``delta``, one step of the fused route against the unfused module path
+     from the same ``delta`` and rays, then the attacked whole-frame render
+     with ``--gnt_fused_attn on`` (K1 for the taps, K3 forward launches =
+     chunks x depth) on the BSPG plan of phase 9, held against the same
+     render through the unfused module path (``--gnt_fused_attn off``)
+ 12. the IBRNet attack: ``configs/ibrnet/eval_llff.txt`` with the same
+     attack flags (N_rand 512) on the model and plan of phase 6: 2 warm-up
+     iterations then 10 timed, the constraints on ``delta``, then the
+     attacked render through BSPG (K1)
+Then the card line, a JSON line of kernel results (for each kernel its
+launches on the main paths, its error and time against its plain version,
+and the least time the card could take for the same work), and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -84,6 +111,25 @@ GNT_SMALL_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
                   "--N_samples", "32", "--render_stride", "1",
                   "--chunk_size", "1024"]
 
+# the attack slices: the flagship attack (README: --view_specific --use_adam
+# --adam_lr 1e-3 --adv_lr 1 --epsilon 8), a few iterations of its 1000
+ATTACK_FLAGS = ["--view_specific", "--use_adam", "--adam_lr", "1e-3",
+                "--adv_lr", "1", "--epsilon", "8"]
+ATTACK_WARMUP, ATTACK_ITERS = 2, 10
+# GNT in f32 (attacks run in f32), N_rand 800 from the config, the fused ray
+# attention on the differentiated step and on the attacked render
+GNT_ATTACK_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype",
+                                                    "bfloat16")] + [
+    *ATTACK_FLAGS, "--gnt_fused_attack", "True", "--gnt_fused_attn", "on"]
+IBR_ATTACK_ARGV = SLICE_ARGV + ATTACK_FLAGS
+RA_SHAPE = (800, 192)  # K3 at the attack slice's shape: N_rand x N_samples
+RA_ODD_SHAPE = (3, 10)
+
+# published peaks of one H100 SXM (dense): device memory bytes/s, f32 on the
+# CUDA cores, bf16 on the tensor cores (FLOP/s)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+
 # f32 tables: kernel and plain differ only in summation order
 TOL_F32_ABS = 1e-6
 # bf16 tables: both accumulate in f32 and round once to bf16, so they differ
@@ -101,6 +147,44 @@ TOL_CHAIN_F32_REL = 1e-4
 # kernel only x and its outputs, so the kernel's error may be no larger than
 # the plain chain's
 CHAIN_BF16_FACTOR = 1.0
+# K3 in f32: summation order only (online softmax against a two-pass one,
+# 4x4-tiled products against cuBLAS): 1e-5 of each tensor's scale
+TOL_RA_F32_REL = 1e-5
+# K3 in bf16, as K2: against the plain f32 version on the same bf16 inputs
+# and bf16-valued weights the kernels, which keep f32 inside and round only
+# their outputs, may err no more than the plain bf16 version
+RA_BF16_FACTOR = 1.0
+# the fused attack step against the unfused module path, one step from the
+# same delta and rays: the bounds of tests/test_ra_vjp.py, loss 1e-5
+# relative and the delta update 2e-5. The two routes differ in summation
+# order in the ray attention only (~1e-7 relative), which the ResUNet's deep
+# InstanceNorm backward spreads over delta's gradient g as absolute noise
+# (measured on an H100 at the slice's size: max 0.5-1.9e-8 = 0.5-1.8e-4 of
+# the largest entry, rms 2.5-2.8e-10 against g's rms of 4.7e-6). Adam's
+# first step is lr * g / (|g| + 1e-8): where |g| is near 1e-8 that noise
+# becomes a step of up to lr, so the update is ill conditioned there and the
+# routes are compared on g itself (read from Adam's first moment):
+# - at every entry to 1e-3 of g's largest entry; over all entries to 1e-3 in
+#   relative L2 (5.2-7.9e-5 measured) and a cosine of 0.9999;
+# - over the entries with |g| <= STEP_GRAD_FLOOR (100 x Adam's eps; 28-29%
+#   of them, at most half may be) to 1e-2 in relative L2 of that subset
+#   (3.4-4.8e-4 measured): a fault confined to small gradients fails here;
+# - the update to 2e-5 wherever |g| exceeds the floor (1e-7 measured), and
+#   at least 0.999 of ALL entries within 2e-5 (0.9998-0.99993 measured)
+TOL_STEP_LOSS_REL = 1e-5
+TOL_STEP_DELTA_ABS = 2e-5
+STEP_GRAD_FLOOR = 1e-6
+STEP_FLOOR_SHARE = 0.5
+TOL_STEP_SHARE = 0.999
+TOL_STEP_GRAD_REL = 1e-3
+TOL_STEP_GRAD_L2 = 1e-3
+TOL_STEP_SMALL_GRAD_L2 = 1e-2
+TOL_STEP_GRAD_COS = 0.9999
+# the attacked f32 GNT render with the fused ray attention against the same
+# render through the unfused module path, on the card: summation order in
+# the ray attention only (measured rgb 4.2e-7, depth 7.2e-7 at depths of
+# 2-6, compositing weights 3.3e-9)
+TOL_FUSED_RENDER = {"rgb": 1e-5, "depth": 2e-5, "weights": 1e-6}
 # GNT bf16 renders: the card's K2 render may sit at most this multiple of
 # the plain bf16 path's own card-to-CPU spread from the CPU render (see
 # gnt_cross_device); the K2 render rounds less than the plain path, so its
@@ -358,6 +442,436 @@ def gnt_cross_device(card):
     return errs
 
 
+def bound_ms(n_bytes, flops, dtype):
+    """The least time the card could take: each input read and each output
+    written once at the memory rate, or the operations at the peak rate of
+    their type, whichever is larger. Returns (ms, 'bytes' | 'operations')."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def select_bound(row):
+    """K1 at one check's shapes: the patch rows G, the per-sample patch id,
+    two offsets and four weights in, the taps out; 4 multiply-adds per
+    output value."""
+    size = 4 if row["dtype"] == "f32" else 2
+    n_rv, ks, p, c, ns = (row[k] for k in ("n_rv", "ks", "p", "c", "ns"))
+    n_bytes = (n_rv * ks * (p + 1) ** 2 * c * size + n_rv * ks * 4
+               + n_rv * ns * 7 * 4 + n_rv * ns * c * size)
+    return bound_ms(n_bytes, 8 * n_rv * ns * c, row["dtype"])
+
+
+def chain_bound(row, ci=35, d=64, pe=63):
+    """K2 at one check's shapes: merged and the embeddings in, q and attn0
+    out; the products of the depth blocks by shape."""
+    size = 4 if row["dtype"] == "f32" else 2
+    v, r, s, depth = (row[k] for k in ("views", "rays", "samples", "depth"))
+    per_depth = (2 * d * d + v * 2 * d * 2 * d            # q, kv
+                 + v * 2 * (4 * 8 + 8 * d)                # pos MLP
+                 + v * 2 * (d * 8 + 8 * d)                # attention MLP
+                 + 2 * d * d + 2 * 2 * d * 4 * d          # out_fc, FF
+                 + 2 * d * 3 * d + 4 * s * d + 2 * d * d  # ray attention
+                 + 2 * 2 * d * 4 * d)                     # FF
+    q_fc = 2 * (d + 2 * pe) * d + 2 * d * d               # on even depths
+    entry = v * 2 * (ci * d + d * d)
+    flops = r * s * (depth * per_depth + -(-depth // 2) * q_fc + entry)
+    n_bytes = size * (v * r * s * (ci + 5) + r * s * 2 * pe + r * s * d
+                      + r * s)
+    return bound_ms(n_bytes, flops, row["dtype"])
+
+
+def ra_bounds(r, s, dtype, d=64):
+    """K3 at [r, s, d]: (forward, backward) bounds. Forward: qkv, scores,
+    AV and the output product. Backward: the qkv, score and AV products
+    again (nothing is saved) plus two products for each of the four."""
+    size = 4 if dtype == "f32" else 2
+    fwd = r * s * (2 * d * 3 * d + 4 * s * d + 2 * d * d)
+    bwd = 2 * fwd + r * s * (2 * d * 3 * d + 4 * s * d)
+    w_bytes = 4 * (d * 3 * d + d * d + d)
+    fwd_bytes = size * (2 * r * s * d + r * s) + w_bytes
+    bwd_bytes = size * (3 * r * s * d + r * s) + 2 * w_bytes
+    return bound_ms(fwd_bytes, fwd, dtype), bound_ms(bwd_bytes, bwd, dtype)
+
+
+def ra_operands(r, s, dtype, seed, d=64):
+    """K3 operands on the card: x ~ N(0, 1) as after a LayerNorm, weights
+    ~ U(-1/sqrt(d), 1/sqrt(d)) as a Linear's init, cotangents ~ N(0, 1)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, device="cuda", generator=g)
+    u = lambda *shape: (torch.rand(*shape, device="cuda", generator=g) * 2
+                        - 1) / d ** 0.5
+    return (n(r, s, d).to(dtype), u(d, 3 * d), u(d, d), u(d),
+            n(r, s, d).to(dtype), n(r, s).to(dtype))
+
+
+def ra_through_function(fn, x, wqkv, wo, bo, gout, gattn0):
+    """(out, attn0, dx, dwqkv, dwo, dbo) of ``fn`` under the cotangents
+    ``gout`` and ``gattn0`` (None: the cotangent feeds ``out`` only)."""
+    import torch
+
+    leaves = [t.clone().requires_grad_() for t in (x, wqkv, wo, bo)]
+    out, attn0 = fn(*leaves)
+    loss = (out.float() * gout.float()).sum()
+    if gattn0 is not None:
+        loss = loss + (attn0.float() * gattn0.float()).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return tuple(t.detach() for t in (out, attn0, *grads))
+
+
+RA_NAMES = ("out", "attn0", "dx", "dwqkv", "dwo", "dbo")
+
+
+def ra_plain(x, wqkv, wo, bo, gout, gattn0):
+    """The same six tensors from the two plain versions."""
+    import torch
+    from nerfool_tpu_torch.ops import ray_attention as ra
+
+    ga = torch.zeros_like(x[..., 0]) if gattn0 is None else gattn0
+    return (*ra.ray_attention_plain(x, wqkv, wo, bo),
+            *ra.ray_attention_bwd_plain(x, wqkv, wo, gout, ga),
+            gout.sum((0, 1), dtype=torch.float32))
+
+
+def check_ray_attention(card, render_rays):
+    """Phase 10: K3 forward and backward against their plain versions;
+    ``render_rays``: the ray counts of the attacked render's chunks."""
+    import torch
+    from nerfool_tpu_torch.models.gnt import RayAttention
+    from nerfool_tpu_torch.ops import ray_attention as ra
+
+    rows = []
+    for label, (r, s) in (("slice", RA_SHAPE), ("odd", RA_ODD_SHAPE)):
+        for both in (True, False):
+            ops = ra_operands(r, s, torch.float32, seed=r + both)
+            if not both:
+                ops = ops[:5] + (None,)
+            before = (ra.ray_attention_fwd.launches,
+                      ra.ray_attention_bwd.launches)
+            got = ra_through_function(ra.ray_attention, *ops)
+            torch.cuda.synchronize()
+            if (ra.ray_attention_fwd.launches, ra.ray_attention_bwd.launches
+                    ) != (before[0] + 1, before[1] + 1):
+                raise AssertionError("the Function did not launch both "
+                                     "kernels once")
+            ref = ra_plain(*ops)
+            errs = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(RA_NAMES, got, ref)}
+            tols = {n: TOL_RA_F32_REL * max(1.0, float(b.abs().max()))
+                    for n, b in zip(RA_NAMES, ref)}
+            rows.append(dict(shape=label, dtype="f32", rays=r, samples=s,
+                             cotangent="out+attn0" if both else "out",
+                             errs=errs, tols=tols))
+            log("K3", f"f32 [R={r} S={s}] cotangent "
+                f"{rows[-1]['cotangent']}: max abs err " + ", ".join(
+                    f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})"
+                    for n in RA_NAMES) + f"; {card}")
+            if not (all(errs[n] <= tols[n] for n in RA_NAMES) and all(
+                    bool(torch.isfinite(t).all()) for t in got)):
+                raise AssertionError(f"ray_attention f32 disagrees with its "
+                                     f"plain versions: {rows[-1]}")
+            del got, ref, ops
+
+    # the forward alone at the shapes the attacked f32 render launches it at
+    # (no autograd there): far more rays than blocks of the persistent grid
+    s = RA_SHAPE[1]
+    for r in render_rays:
+        x, wqkv, wo, bo = ra_operands(r, s, torch.float32, seed=r)[:4]
+        with torch.inference_mode():
+            got = ra.ray_attention_fwd(x, wqkv, wo, bo)
+            torch.cuda.synchronize()
+            ref = ra.ray_attention_plain(x, wqkv, wo, bo)
+        errs = {n: float((a - b).abs().max())
+                for n, a, b in zip(RA_NAMES, got, ref)}
+        tols = {n: TOL_RA_F32_REL * max(1.0, float(b.abs().max()))
+                for n, b in zip(RA_NAMES, ref)}
+        rows.append(dict(shape="render chunk", dtype="f32", rays=r, samples=s,
+                         cotangent=None, errs=errs, tols=tols))
+        log("K3", f"f32 [R={r} S={s}] forward only (render chunk): max abs "
+            "err " + ", ".join(f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})"
+                               for n in errs) + f"; {card}")
+        if not (all(errs[n] <= tols[n] for n in errs) and all(
+                bool(torch.isfinite(t).all()) for t in got)):
+            raise AssertionError(f"ray_attention_fwd disagrees with its "
+                                 f"plain version: {rows[-1]}")
+        del got, ref, x
+
+    # bf16 at the slice's shape: kernel and plain bf16 against plain f32 on
+    # the same bf16 inputs and bf16-valued weights
+    r, s = RA_SHAPE
+    ops = ra_operands(r, s, torch.bfloat16, seed=11)
+    f32_ops = tuple(t.bfloat16().float() for t in ops)
+    ref = ra_plain(*f32_ops)
+    got = ra_through_function(ra.ray_attention, *ops)
+    plain = ra_plain(*ops)
+    torch.cuda.synchronize()
+    err_k = {n: float((a.float() - b).abs().max())
+             for n, a, b in zip(RA_NAMES, got, ref)}
+    err_p = {n: float((a.float() - b).abs().max())
+             for n, a, b in zip(RA_NAMES, plain, ref)}
+    rows.append(dict(shape="slice", dtype="bf16", rays=r, samples=s,
+                     cotangent="out+attn0", errs=err_k, plain_errs=err_p,
+                     factor=RA_BF16_FACTOR))
+    log("K3", f"bf16 [R={r} S={s}]: vs f32 plain, kernel / plain bf16 err "
+        + ", ".join(f"{n} {err_k[n]:.3g} / {err_p[n]:.3g}" for n in RA_NAMES)
+        + f" (bound: kernel <= {RA_BF16_FACTOR:g} x plain); {card}")
+    if not all(err_k[n] <= RA_BF16_FACTOR * err_p[n] + 1e-12
+               for n in RA_NAMES):
+        raise AssertionError(f"ray_attention bf16 outside its bound: "
+                             f"{rows[-1]}")
+    del got, ref, plain, ops, f32_ops
+
+    # timings at the slice's shape, f32 (the attack's dtype) and bf16
+    times = {}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, wqkv, wo, bo, gout, gattn0 = ra_operands(r, s, dtype, seed=12)
+        t = dict(
+            fwd_ms=time_ms(lambda: ra.ray_attention_fwd(x, wqkv, wo, bo), 10),
+            bwd_ms=time_ms(lambda: ra.ray_attention_bwd(
+                x, wqkv, wo, gout, gattn0), 10),
+            bwd_no_dw_ms=time_ms(lambda: ra.ray_attention_bwd(
+                x, wqkv, wo, gout, gattn0, want_dw=False), 10),
+            plain_fwd_ms=time_ms(lambda: ra.ray_attention_plain(
+                x, wqkv, wo, bo), 5),
+            plain_bwd_ms=time_ms(lambda: ra.ray_attention_bwd_plain(
+                x, wqkv, wo, gout, gattn0), 5))
+        # the unfused module path, forward and backward through autograd,
+        # beside the Function's forward and backward (x differentiated,
+        # weights frozen, as in the attack)
+        mod = RayAttention(64).cuda().requires_grad_(False)
+
+        def module_step(fused):
+            xx = x.clone().requires_grad_()
+            out, attn = mod(xx, fused=fused)
+            a0 = attn if fused else attn.mean(1)[:, 0]
+            loss = (out.float() * gout.float()).sum() + (
+                a0.float() * gattn0.float()).sum()
+            return torch.autograd.grad(loss, xx)
+
+        t["module_fwd_bwd_ms"] = time_ms(lambda: module_step(False), 5)
+        t["fused_fwd_bwd_ms"] = time_ms(lambda: module_step(True), 5)
+        (fb, fby), (bb, bby) = ra_bounds(r, s, dt)
+        t.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+                 bwd_bound_by=bby)
+        times[dt] = t
+        log("K3", f"{dt} [R={r} S={s}] forward kernel {t['fwd_ms']:.3f} ms "
+            f"(plain {t['plain_fwd_ms']:.3f}, bound {fb:.3f} by {fby}); "
+            f"backward kernel {t['bwd_ms']:.3f} ms, {t['bwd_no_dw_ms']:.3f} "
+            f"without weight gradients (plain {t['plain_bwd_ms']:.3f}, bound "
+            f"{bb:.3f} by {bby}); forward+backward to x: fused Function "
+            f"{t['fused_fwd_bwd_ms']:.3f} ms, unfused module with autograd "
+            f"{t['module_fwd_bwd_ms']:.3f} ms; {card}")
+        del x, gout, gattn0
+    return rows, times
+
+
+def check_delta(name, delta, delta0, src_rgbs, eps):
+    """The attack's constraints: inside the eps-ball and the image box, and
+    moved from its start."""
+    import torch
+
+    worst = float(delta.abs().max())
+    lo = float((src_rgbs + delta).min())
+    hi = float((src_rgbs + delta).max())
+    moved = float((delta - delta0).abs().max())
+    if not (worst <= eps + 1e-7 and lo >= -1e-7 and hi <= 1 + 1e-7
+            and moved > 0 and bool(torch.isfinite(delta).all())):
+        raise AssertionError(f"{name}: max|delta| {worst} (eps {eps}), "
+                             f"src + delta in [{lo}, {hi}], moved {moved}")
+    return dict(max_abs_delta=worst, eps=eps, min_image=lo, max_image=hi,
+                moved=moved)
+
+
+def run_attack(name, ev, data, card):
+    """Warm-up then timed attack iterations on one view through
+    ``Evaluator.attack_view_specific``; the launch counters are zeroed
+    before the timed run and read after it. Returns (delta, src, stats)."""
+    import torch
+    from nerfool_tpu_torch.attack.perturb import init_delta
+    from nerfool_tpu_torch.ops import ray_attention as ra
+
+    eps = ev.args.epsilon / 255.0
+    ev.args.adv_iters = ATTACK_WARMUP
+    ev.attack_view_specific(data)
+    warm = ev.last_attack
+    if not bool(torch.isfinite(warm["losses"]).all()):
+        raise AssertionError(f"{name}: non-finite warm-up loss")
+    src_rgbs = ev._make_src(data)["rgbs"]
+    delta0 = init_delta(ev.generator, src_rgbs, eps)
+    torch.cuda.reset_peak_memory_stats()
+    ra.ray_attention_fwd.launches = ra.ray_attention_bwd.launches = 0
+    ev.args.adv_iters = ATTACK_ITERS
+    delta, src, _ = ev.attack_view_specific(data, delta=delta0)
+    run = ev.last_attack
+    stats = dict(
+        ms_per_iter=run["seconds"] / ATTACK_ITERS * 1e3,
+        warmup_ms_per_iter=warm["seconds"] / ATTACK_WARMUP * 1e3,
+        losses=[float(x) for x in run["losses"]],
+        fwd_launches=ra.ray_attention_fwd.launches,
+        bwd_launches=ra.ray_attention_bwd.launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        **check_delta(name, delta, delta0, src["rgbs"], eps))
+    if not all(map(math.isfinite, stats["losses"])) or len(
+            stats["losses"]) != ATTACK_ITERS:
+        raise AssertionError(f"{name}: losses {stats['losses']}")
+    log(name, f"{ATTACK_ITERS} iterations after {ATTACK_WARMUP} warm-up, "
+        f"N_rand {ev.args.N_rand}, {src['rgbs'].shape[0]} source views at "
+        f"{tuple(src['rgbs'].shape[1:3])}: {stats['ms_per_iter']:.2f} "
+        f"ms/iteration (warm-up {stats['warmup_ms_per_iter']:.2f}); loss "
+        f"{stats['losses'][0]:.5f} -> {stats['losses'][-1]:.5f}, all "
+        f"finite; max|delta| {stats['max_abs_delta']:.6f} <= {eps:.6f}, "
+        f"src + delta in [{stats['min_image']:.4f}, "
+        f"{stats['max_image']:.4f}], moved {stats['moved']:.3g}; "
+        f"ray_attention launches forward {stats['fwd_launches']}, backward "
+        f"{stats['bwd_launches']}; peak device memory "
+        f"{stats['peak_gib']:.2f} GiB; {card}")
+    return delta, src, stats
+
+
+def frame_psnr(ev, ret, data):
+    """The evaluator's own PSNR of a rendered frame (coarse level)."""
+    import numpy as np
+    import torch
+    from nerfool_tpu_torch.metrics.image import img2psnr, psnr
+
+    stride = ev.args.render_stride
+    gt = ev._tensor(np.asarray(data["rgb"])[::stride, ::stride])
+    fn = img2psnr if ev.args.backbone == "gnt" else psnr
+    return float(fn(torch.clamp(ret["outputs_coarse"]["rgb"], 0, 1), gt))
+
+
+def attacked_render(name, ev, data, src, delta, card):
+    """Clean and attacked whole-frame renders of one view; the launch
+    counters are zeroed before the attacked render and read after it."""
+    import torch
+    from nerfool_tpu_torch.ops import bspg_select, ray_attention as ra
+
+    with torch.inference_mode():
+        clean = frame_psnr(ev, ev.render_view(data, src), data)
+        torch.cuda.synchronize()
+        bspg_select.select_taps.launches = 0
+        ra.ray_attention_fwd.launches = ra.ray_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        ret = ev.render_view(data, src, delta)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    levels = [k for k in ("outputs_coarse", "outputs_fine")
+              if ret[k] is not None]
+    for level in levels:
+        for k in ("rgb", "depth", "weights"):
+            if not bool(torch.isfinite(ret[level][k]).all()):
+                raise AssertionError(f"{name}: non-finite {level}/{k}")
+    hs, ws = ret["outputs_coarse"]["rgb"].shape[:2]
+    stats = dict(clean_psnr=clean, attacked_psnr=frame_psnr(ev, ret, data),
+                 seconds=seconds, rays_per_s=hs * ws / seconds,
+                 k1_launches=bspg_select.select_taps.launches,
+                 k3_fwd_launches=ra.ray_attention_fwd.launches,
+                 k3_bwd_launches=ra.ray_attention_bwd.launches)
+    if getattr(ev.args, "gnt_fused_attn", "auto") == "on":
+        # the same render through the unfused module path (launches read
+        # above: this one must add none of the ray attention's)
+        ev.args.gnt_fused_attn = "off"
+        with torch.inference_mode():
+            plain = ev.render_view(data, src, delta)["outputs_coarse"]
+        ev.args.gnt_fused_attn = "on"
+        if ra.ray_attention_fwd.launches != stats["k3_fwd_launches"]:
+            raise AssertionError(f"{name}: the unfused render launched the "
+                                 "ray attention kernel")
+        errs = {k: float((ret["outputs_coarse"][k] - plain[k]).abs().max())
+                for k in ("rgb", "depth", "weights")}
+        tols = TOL_FUSED_RENDER
+        stats["vs_unfused"] = errs
+        log(name, "attacked render, fused ray attention against the unfused "
+            "module path: max abs diff " + ", ".join(
+                f"{k} {errs[k]:.3g} (tol {tols[k]:g})" for k in errs)
+            + f"; {card}")
+        if not all(errs[k] <= tols[k] for k in errs):
+            raise AssertionError(f"{name}: the fused render disagrees with "
+                                 f"the unfused one: {errs}")
+        del plain
+    log(name, f"attacked render {hs}x{ws} rays in {seconds:.3f} s "
+        f"({stats['rays_per_s']:.1f} rays/s), outputs finite; coarse PSNR "
+        f"clean {clean:.4f} dB, attacked {stats['attacked_psnr']:.4f} dB; "
+        f"launches bspg_select {stats['k1_launches']}, ray_attention forward "
+        f"{stats['k3_fwd_launches']}, backward {stats['k3_bwd_launches']}; "
+        f"{card}")
+    return stats
+
+
+def fused_against_unfused_step(ev, data, delta, card):
+    """One attack step from the same ``delta`` and rays through the fused
+    route (K3 forward and backward) and through the unfused module path
+    with autograd."""
+    import dataclasses
+    import torch
+    from nerfool_tpu_torch.attack.attack import (init_attack_state,
+                                                 make_attack_step,
+                                                 select_ray_indices)
+    from nerfool_tpu_torch.engine import build_attack_config
+
+    target, (h, w) = ev._make_target(data)
+    src = ev._make_src(data)
+    cfg = build_attack_config(ev.args, h, w)
+    sel = select_ray_indices(ev.generator, cfg, ev.device)
+    outs = {}
+    for fused in (True, False):
+        rcfg = dataclasses.replace(ev._grad_render_cfg(),
+                                   gnt_fused_attn=fused)
+        torch.cuda.reset_peak_memory_stats()
+        state0 = init_attack_state(None, cfg, src["rgbs"], delta=delta)
+        state, aux = make_attack_step(ev.bundle, rcfg, cfg)(
+            state0, target, src, sel=sel)
+        torch.cuda.synchronize()
+        # Adam's first moment after one step is -0.1 * gradient
+        outs[fused] = (float(aux["loss"]), state["delta"] - delta,
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                       state["m"] / -0.1)
+        del state, state0, aux
+    loss_rel = abs(outs[True][0] - outs[False][0]) / abs(outs[False][0])
+    g_f, g_u = outs[True][3].double(), outs[False][3].double()
+    norm = torch.linalg.norm
+    grad_rel = float((g_f - g_u).abs().max() / g_u.abs().max())
+    grad_l2 = float(norm(g_f - g_u) / norm(g_u))
+    cosine = float(torch.sum(g_f * g_u) / (norm(g_f) * norm(g_u)))
+    small = g_u.abs() <= STEP_GRAD_FLOOR
+    under = float(small.float().mean())
+    small_l2 = float(norm((g_f - g_u)[small]) / norm(g_u[small]))
+    diff = (outs[True][1] - outs[False][1]).abs()
+    upd = float(diff.max())
+    upd_floor = float(diff[~small].max())
+    share = float((diff <= TOL_STEP_DELTA_ABS).float().mean())
+    log("GNT attack", f"one step, fused against unfused from the same delta "
+        f"and rays: loss {outs[True][0]:.6f} vs {outs[False][0]:.6f} (rel "
+        f"{loss_rel:.3g}, tol {TOL_STEP_LOSS_REL:g}); gradient max abs diff "
+        f"{grad_rel:.3g} of its largest entry {float(g_u.abs().max()):.3g} "
+        f"(tol {TOL_STEP_GRAD_REL:g}), relative L2 {grad_l2:.3g} (tol "
+        f"{TOL_STEP_GRAD_L2:g}), cosine {cosine:.10f} (min "
+        f"{TOL_STEP_GRAD_COS:g}); over the {under:.6f} of entries with |g| "
+        f"<= {STEP_GRAD_FLOOR:g} (max {STEP_FLOOR_SHARE:g}) relative L2 "
+        f"{small_l2:.3g} (tol {TOL_STEP_SMALL_GRAD_L2:g}); delta update max "
+        f"abs diff {upd_floor:.3g} where |g| > {STEP_GRAD_FLOOR:g} (tol "
+        f"{TOL_STEP_DELTA_ABS:g}), {upd:.3g} over all entries, {share:.6f} "
+        f"of them within {TOL_STEP_DELTA_ABS:g} (min {TOL_STEP_SHARE:g}); "
+        f"peak device memory {outs[True][2]:.2f} GiB fused, "
+        f"{outs[False][2]:.2f} GiB unfused; {card}")
+    if not (loss_rel <= TOL_STEP_LOSS_REL and grad_rel <= TOL_STEP_GRAD_REL
+            and grad_l2 <= TOL_STEP_GRAD_L2 and cosine >= TOL_STEP_GRAD_COS
+            and under <= STEP_FLOOR_SHARE
+            and small_l2 <= TOL_STEP_SMALL_GRAD_L2
+            and upd_floor <= TOL_STEP_DELTA_ABS and share >= TOL_STEP_SHARE):
+        raise AssertionError("the fused attack step disagrees with the "
+                             "unfused one")
+    return dict(loss_rel=loss_rel, grad_rel_diff=grad_rel,
+                grad_rel_l2=grad_l2, grad_cosine=cosine,
+                share_under_grad_floor=under, small_grad_rel_l2=small_l2,
+                delta_update_diff_above_floor=upd_floor,
+                delta_update_diff=upd, delta_update_share_within_tol=share,
+                peak_gib_fused=outs[True][2], peak_gib_unfused=outs[False][2])
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -376,14 +890,17 @@ def main():
 
     from nerfool_tpu_torch.engine import Evaluator
     from nerfool_tpu_torch.eval import parse_args
-    from nerfool_tpu_torch.ops import build, bspg_select, chain
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.ops import (build, bspg_select, chain,
+                                       ray_attention as ra)
 
-    # 2. build both kernels, one nvcc each, in parallel
+    # 2. build the three kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    build.build("bspg_select", "gnt_chain")
+    build.build("bspg_select", "gnt_chain", "ray_attention")
     bspg_select.build()
     chain.build()
-    log("build", f"bspg_select and gnt_chain built in "
+    ra.build()
+    log("build", f"bspg_select, gnt_chain and ray_attention built in "
         f"{time.perf_counter() - t0:.2f} s into "
         f"{os.path.relpath(build.BUILD_DIR, ROOT)}")
 
@@ -496,7 +1013,6 @@ def main():
     if not np.isfinite(metrics).all():
         raise AssertionError(f"non-finite metrics {metrics}")
     ibr_launches = launches
-    del ev
 
     # 7. K2 against its plain version at the GNT slice's shapes
     gargs = parse_args(GNT_ARGV)
@@ -578,31 +1094,126 @@ def main():
     if not np.isfinite([gres["coarse_mean_psnr"],
                         gres["coarse_mean_ssim"]]).all():
         raise AssertionError(f"non-finite GNT metrics {gres}")
-    if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
-        raise AssertionError("jax was imported")
+
+    # 10. K3 against its plain versions
+    g_rays_padded = -(-hs // gbh) * gbh * -(-ws // gbw) * gbw
+    ra_rows, ra_times = check_ray_attention(card, sorted({
+        gargs.chunk_size,
+        g_rays_padded - (g_chunks - 1) * gargs.chunk_size}, reverse=True))
+
+    # 11. the GNT attack slice, on the plan of phase 9
+    aargs = eval_adv.parse_args(GNT_ATTACK_ARGV)
+    aev = Evaluator(aargs, dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
+    aev.adopt_plan(gev)
+    del gev
+    depth = aargs.trans_depth
+    data = aev.test_dataset[0]
+    delta, src, gnt_attack = run_attack("GNT attack", aev, data, card)
+    exp_iter = ATTACK_ITERS * depth
+    if (gnt_attack["fwd_launches"], gnt_attack["bwd_launches"]) != (
+            exp_iter, exp_iter):
+        raise AssertionError(
+            f"GNT attack launches: forward {gnt_attack['fwd_launches']}, "
+            f"backward {gnt_attack['bwd_launches']}, expected {exp_iter} each")
+    gnt_step = fused_against_unfused_step(aev, data, delta, card)
+    acfg = aev.view_render_cfg(int(src["cameras"].shape[0]))
+    if acfg.bspg_specs is None or not acfg.gnt_fused_attn:
+        raise RuntimeError("the attacked GNT render is not on BSPG with the "
+                           "fused ray attention")
+    gnt_adv = attacked_render("GNT attack", aev, data, src, delta, card)
+    exp_k3 = g_chunks * g_levels * depth
+    exp_k1 = sum(len(sp.groups) for sp in acfg.bspg_specs) * g_levels \
+        * g_chunks
+    if (gnt_adv["k3_fwd_launches"], gnt_adv["k3_bwd_launches"],
+            gnt_adv["k1_launches"]) != (exp_k3, 0, exp_k1):
+        raise AssertionError(f"attacked GNT render launches {gnt_adv}, "
+                             f"expected K3 {exp_k3}, K1 {exp_k1}")
+    del aev, delta, src
+
+    # 12. the IBRNet attack, on the model and the plan of phase 6
+    iargs = eval_adv.parse_args(IBR_ATTACK_ARGV)
+    iev = Evaluator(iargs, bundle=ev.bundle, dataset_kwargs=SLICE_DATA,
+                    device="cuda", seed=0)
+    iev.adopt_plan(ev)
+    del ev
+    data = iev.test_dataset[0]
+    delta, src, ibr_attack = run_attack("IBRNet attack", iev, data, card)
+    if ibr_attack["fwd_launches"] or ibr_attack["bwd_launches"]:
+        raise AssertionError("the IBRNet attack launched the ray attention")
+    ibr_adv = attacked_render("IBRNet attack", iev, data, src, delta, card)
+    exp_k1 = expected // SLICE_VIEWS
+    if ibr_adv["k1_launches"] != exp_k1:
+        raise AssertionError(f"attacked IBRNet render launches "
+                             f"{ibr_adv['k1_launches']} != {exp_k1}")
+    del iev, delta, src
+
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+           or m == "nerfool_tpu" or m.startswith("nerfool_tpu.")]
+    if bad:
+        raise AssertionError(f"modules of JAX or of the JAX package were "
+                             f"imported: {bad}")
 
     head = next(r for r in checks if r["path"] == "ibrnet" and r["table"]
                 == "feat" and r["level"] == "fine" and r["dtype"] == "f32")
     k2_head = next(r for r in chain_rows if r["dtype"] == "bf16")
+    for row in checks:
+        row["bound_ms"], row["bound_by"] = select_bound(row)
+    for row in chain_rows:
+        row["bound_ms"], row["bound_by"] = chain_bound(row)
+    k1_paths = {"ibrnet": ibr_launches, "gnt": k1_gnt,
+                "gnt_attacked_render": gnt_adv["k1_launches"],
+                "ibrnet_attacked_render": ibr_adv["k1_launches"]}
+    k3_fwd_paths = {"gnt_attack": gnt_attack["fwd_launches"],
+                    "gnt_attacked_render": gnt_adv["k3_fwd_launches"]}
+    ra_f32 = ra_times["f32"]
+    ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
+                   and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
+    ra_source = "nerfool_tpu_torch/csrc/ray_attention.cu"
+    # no single PyTorch call computes any of these functions (a one-hot
+    # gather of patch taps; a whole transformer chain; an attention that
+    # also returns a row of its softmax, and its backward): library_ms null
     print(card)
     print(json.dumps({"kernels": [{
         "name": "bspg_select", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/bspg_select.cu",
         "replaces": "nerfool_tpu/ops/bspg_kernel.py:387",
-        "launches": ibr_launches,
-        "launches_by_path": {"ibrnet": ibr_launches, "gnt": k1_gnt},
+        "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
         "max_abs_err": max(r["max_abs_err"] for r in checks
                            if r["dtype"] == "f32"),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "shapes": checks}, {
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "shapes": checks}, {
         "name": "gnt_chain", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/gnt_chain.cu",
         "replaces": "nerfool_tpu/ops/chain_kernel.py:220",
         "launches": k2_gnt,
         "max_abs_err": chain_rows[0]["max_abs_err"],
         "ms": k2_head["ms"], "plain_ms": k2_head["plain_ms"],
+        "bound_ms": k2_head["bound_ms"], "bound_by": k2_head["bound_by"],
+        "library_ms": None,
         "shapes": chain_rows, "render_errors": gnt_errs,
-        "slice_rays_per_s": g_rays / g_render_s}]}))
+        "slice_rays_per_s": g_rays / g_render_s}, {
+        "name": "ray_attention_fwd", "route": "cuda", "source": ra_source,
+        "replaces": "nerfool_tpu/ops/ra_kernel.py:80",
+        "launches": sum(k3_fwd_paths.values()),
+        "launches_by_path": k3_fwd_paths,
+        "max_abs_err": max(ra_errs["out"], ra_errs["attn0"]),
+        "ms": ra_f32["fwd_ms"], "plain_ms": ra_f32["plain_fwd_ms"],
+        "bound_ms": ra_f32["fwd_bound_ms"],
+        "bound_by": ra_f32["fwd_bound_by"], "library_ms": None,
+        "shapes": ra_rows, "times": ra_times}, {
+        "name": "ray_attention_bwd", "route": "cuda", "source": ra_source,
+        "replaces": "nerfool_tpu/ops/ra_kernel.py:198",
+        "launches": gnt_attack["bwd_launches"],
+        "launches_by_path": {"gnt_attack": gnt_attack["bwd_launches"]},
+        "max_abs_err": max(ra_errs[n] for n in ("dx", "dwqkv", "dwo", "dbo")),
+        "ms": ra_f32["bwd_ms"], "plain_ms": ra_f32["plain_bwd_ms"],
+        "bound_ms": ra_f32["bwd_bound_ms"],
+        "bound_by": ra_f32["bwd_bound_by"], "library_ms": None}],
+        "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
+                   "ibrnet": {**ibr_attack, "render": ibr_adv}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

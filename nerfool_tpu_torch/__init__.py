@@ -3,19 +3,26 @@
 The JAX package ``nerfool_tpu`` stays the numerical reference; every module
 here mirrors the module of the same path there, keeps its public layouts
 (NHWC images and feature maps, views-first ``[V, R, S, C]`` aggregator
-operands, 34-float cameras) and imports no JAX. The framework-free
-``nerfool_tpu.config`` and ``nerfool_tpu.data`` are reused as they are.
+operands, 34-float cameras). The package imports no JAX and nothing of
+``nerfool_tpu``: ``config.py`` and ``data/`` are its own copies of the
+framework-free flag parser and numpy loaders there.
 
 Layout:
   device.py  device resolution
+  config.py  the command-line flags (same names and defaults as the JAX
+             package's), plus the port's own
+  data/      numpy dataset loaders, the procedural ``synthetic`` scene
   utils/     camera codec and ray generation
   render/    projection, sampling, compositing, per-ray and whole-frame render
   models/    ResUNet, IBRNet and GNT aggregators, model bundle, flax-weight
              conversion
   ops/       BSPG planner and slot walk, the hand-written CUDA kernels (BSPG
-             selection, the whole-chain GNT aggregation) and their nvcc build
+             selection, the whole-chain GNT aggregation, the ray attention
+             forward and backward) and their nvcc build
+  attack/    perturbation, loss terms and the view-specific attack step
   metrics/   PSNR and SSIM (TF protocol and GNT's windowed protocol)
-  engine.py  clean whole-frame evaluator; eval.py is its command line
+  engine.py  attack and whole-frame evaluator; eval.py (clean) and
+             eval_adv.py (attacked) are its command lines
 
 Precision is pinned here, at package entry: f32 matrix products and cuDNN
 convolutions run in full f32, never TF32. cuDNN's TF32 convolutions would

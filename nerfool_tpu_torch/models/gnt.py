@@ -8,6 +8,10 @@ NeRF embeddings of the sample points and view direction injected through
 last ray attention's head-mean first-query row is returned as per-sample
 compositing weights.
 
+``fused_attn`` sends every ray attention through the hand-written kernel of
+``ops/ray_attention.py`` (forward and backward) instead of materialising
+the ``[R, H, S, S]`` map.
+
 Operands are views-first ``[V, R, S, C]``. Every product runs in the
 operand dtype with the weights cast to it, as the JAX module does, so a
 bf16 render rounds where the JAX package rounds. Parameter names follow the
@@ -124,7 +128,13 @@ class ViewTransformer(nn.Module):
 
 class RayAttention(nn.Module):
     """Multi-head self-attention along the sample axis; q, k and v come
-    from one ``[D, 3D]`` product."""
+    from one ``[D, 3D]`` product.
+
+    ``fused`` routes it through the ray-attention kernel
+    (``ops/ray_attention.py``: no ``[R, H, S, S]`` map, differentiable, a
+    recomputing backward) and returns the head-mean first-query row
+    ``[R, S]`` in place of the full map. float64 input keeps the module
+    path."""
 
     def __init__(self, dim, n_heads=4):
         super().__init__()
@@ -134,15 +144,22 @@ class RayAttention(nn.Module):
         self.v_fc = nn.Linear(dim, dim, bias=False)
         self.out_fc = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, fused=False):
         """:param x: [R, S, D]
-        :return: (out [R, S, D], attention [R, H, S, S])
+        :return: (out [R, S, D], attention [R, H, S, S]), or with ``fused``
+            (out, first-query attention row averaged over heads [R, S])
         """
         r, s, d = x.shape
         nh = self.n_heads
         hd = d // nh
         wqkv = torch.cat([self.q_fc.weight, self.k_fc.weight,
-                          self.v_fc.weight], dim=0).t().to(x.dtype)
+                          self.v_fc.weight], dim=0).t()
+        if fused and x.dtype != torch.float64:
+            from nerfool_tpu_torch.ops.ray_attention import ray_attention
+
+            return ray_attention(x, wqkv, self.out_fc.weight.t(),
+                                 self.out_fc.bias, nh)
+        wqkv = wqkv.to(x.dtype)
         q, k, v = (x @ wqkv).reshape(r, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
         out = (attn @ v).transpose(1, 2).reshape(r, s, d)
@@ -160,11 +177,13 @@ class RayTransformer(nn.Module):
         self.ff = FeedForward(dim, 4 * dim)
         self.attn = RayAttention(dim, n_heads)
 
-    def forward(self, x):
-        y, attn = self.attn(layer_norm(x, self.attn_norm))
+    def forward(self, x, fused_attn=False):
+        fused = fused_attn and x.dtype != torch.float64
+        y, attn = self.attn(layer_norm(x, self.attn_norm), fused=fused)
         x = y + x
         x = self.ff(layer_norm(x, self.ff_norm)) + x
-        return x, torch.mean(attn, dim=1)[:, 0]
+        # the kernel already returns the [R, S] row mean
+        return x, attn if fused else torch.mean(attn, dim=1)[:, 0]
 
 
 class GNTAggregator(nn.Module):
@@ -206,9 +225,10 @@ class GNTAggregator(nn.Module):
         rgb = linear(torch.mean(layer_norm(q, self.norm), dim=1), self.rgb_fc)
         return torch.cat([rgb, attn], dim=1) if self.ret_alpha else rgb
 
-    def chain(self, rgb_feat, ray_diff, mask, pts_emb, views_emb):
+    def chain(self, rgb_feat, ray_diff, mask, pts_emb, views_emb,
+              fused_attn=False):
         """The ``trans_depth`` blocks: what the chain kernel (``ops/chain.py``)
-        computes, and its plain version.
+        computes, and its plain version (``fused_attn`` off).
 
         :return: (q [R, S, D] before the final LayerNorm, attn0 [R, S] the
             last ray attention's head-mean first-query row)
@@ -221,16 +241,18 @@ class GNTAggregator(nn.Module):
             if i % 2 == 0:  # replaces q, no residual
                 q = mlp2(torch.cat([q, pts_emb, views_emb], dim=-1),
                          self.q_fcs[i])
-            q, attn = self.view_selftrans[i](q)
+            q, attn = self.view_selftrans[i](q, fused_attn=fused_attn)
         return q, attn
 
-    def forward(self, rgb_feat, ray_diff, mask, pts, ray_d):
+    def forward(self, rgb_feat, ray_diff, mask, pts, ray_d, fused_attn=False):
         """
         :param rgb_feat: [V, R, S, 3 + in_feat_ch]; ray_diff: [V, R, S, 4];
             mask: [V, R, S, 1]
         :param pts: [R, S, 3] sample points; ray_d: [R, 3]
+        :param fused_attn: every ray attention through the fused kernel
+            (``RenderConfig.gnt_fused_attn``)
         :return: [R, 3], or [R, 3 + S] under ``ret_alpha``
         """
         pts_emb, views_emb = self.embeddings(pts, ray_d)
         return self.head(*self.chain(rgb_feat, ray_diff, mask, pts_emb,
-                                     views_emb))
+                                     views_emb, fused_attn=fused_attn))

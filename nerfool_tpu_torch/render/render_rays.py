@@ -49,6 +49,11 @@ class RenderConfig:
     # gnt in bfloat16: run the aggregation through the whole-chain kernel
     # (ops/chain.py); f32 renders keep the module path
     gnt_fused_chain: bool = False
+    # gnt: run every ray attention through the fused kernel
+    # (ops/ray_attention.py), which is differentiable (a recomputing backward
+    # kernel), so it serves no-grad renders and the attack step alike;
+    # float64 inputs keep the module path
+    gnt_fused_attn: bool = False
     # (spec_feat, spec_rgb) BSPGSpec pair from the host planner: rays arrive
     # block-major and taps are rebuilt from per-(block, view) patch rows;
     # None keeps the per-tap gather
@@ -88,7 +93,8 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d):
 
         raw = fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d)
     else:
-        raw = net(rgb_feat, ray_diff, mask, pts, ray_d)
+        raw = net(rgb_feat, ray_diff, mask, pts, ray_d,
+                  fused_attn=cfg.gnt_fused_attn)
     return raw.float()
 
 
@@ -140,7 +146,8 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
     coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
-        z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
+        z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
+                                  cfg.n_importance,
                                   inv_uniform=cfg.inv_uniform)
         pts_fine = (z_all[..., None] * ray_batch["ray_d"][:, None, :]
                     + ray_batch["ray_o"][:, None, :])
@@ -221,7 +228,8 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
     coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
-        z_all = sample_fine_zvals(z_vals, coarse["weights"], cfg.n_importance,
+        z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
+                                  cfg.n_importance,
                                   inv_uniform=cfg.inv_uniform)
         pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
         ret["outputs_fine"] = run_level(pts_fine, z_all, 1)

@@ -35,3 +35,22 @@ def get_rays(h, w, intrinsics, c2w, render_stride=1):
     rays_d = (c2w[:3, :3] @ (k_inv @ pixels)).T.contiguous()  # [N, 3]
     rays_o = c2w[:3, 3].expand_as(rays_d)
     return rays_o, rays_d
+
+
+def get_rays_at(sel, w, intrinsics, c2w):
+    """Rays for a subset of pixels, equal to ``get_rays(...)[sel]``: the
+    attack step samples ``n_rand`` of the H*W pixels every iteration and
+    builds only their rays.
+
+    :param sel: [N] integer row-major pixel indices (v * w + u)
+    :param w: image width
+    :param intrinsics, c2w: [4, 4] float32 tensors
+    :return: (rays_o [N, 3], rays_d [N, 3])
+    """
+    u = (sel % w).to(torch.float32)
+    v = torch.div(sel, w, rounding_mode="floor").to(torch.float32)
+    pixels = torch.stack([u, v, torch.ones_like(u)], dim=0)
+    k_inv = torch.linalg.inv(intrinsics[:3, :3])
+    rays_d = (c2w[:3, :3] @ (k_inv @ pixels)).T.contiguous()
+    rays_o = c2w[:3, 3].expand_as(rays_d)
+    return rays_o, rays_d

@@ -1,5 +1,5 @@
-"""The port's clean-eval command line against the JAX evaluator, and the
-port's independence from JAX.
+"""The port's eval command lines (clean and attacked) against the JAX
+evaluator, and the port's independence from JAX and from the JAX package.
 
 ``python -m nerfool_tpu_torch.eval`` runs on the procedural ``synthetic``
 scene (6 views at 48x64, the fixture the BSPG planner accepts) with the JAX
@@ -10,8 +10,17 @@ over a whole frame is too slow for the CPU tier). Coarse PSNR is held to
 1e-3 dB and SSIM to 1e-4: the rendered rgb agrees to ~1e-5 (see
 test_torch_render), which moves either metric far less. The GNT cases hold
 the port to the same bounds with GNT's protocol (img2psnr, windowed SSIM).
+
+The attacked evaluator (``python -m nerfool_tpu_torch.eval_adv``) is driven
+on the CPU for both backbones: finite rows after 2 iterations, the clean
+rows exactly under a zero perturbation (``--epsilon 0``), the transfer
+attack, and a clear error for every option that is not ported. Attacked
+metrics are not compared with JAX's: trajectories diverge chaotically after
+a few iterations; tests/test_torch_attack.py compares single steps.
 """
+import ast
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -28,7 +37,13 @@ from tests.test_engine import _engine_args
 from nerfool_tpu.attack.engine import AdvEvaluator
 from nerfool_tpu.models.bundle import create_model as j_create_model
 
+from nerfool_tpu.config import config_parser as j_config_parser
+from nerfool_tpu.data import dataset_dict as j_dataset_dict
+
 from nerfool_tpu_torch import eval as port_eval
+from nerfool_tpu_torch import eval_adv as port_eval_adv
+from nerfool_tpu_torch.config import config_parser, port_parser
+from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.convert import params_from_flax
 
@@ -147,10 +162,19 @@ def test_gnt_bf16_route_within_derived_bound(tmp_path, monkeypatch,
         assert 0 < err_t <= 2.0 * err_j, (k, err_t, err_j)
 
 
+def _adv_argv(tmp_path, *extra):
+    """The attacked evaluator at a small size: 2 Adam iterations on 32 rays
+    per view, the flagship's attack flags."""
+    return _port_argv(tmp_path, "--view_specific", "--use_adam", "--adam_lr",
+                      "1e-3", "--adv_lr", "1", "--epsilon", "8",
+                      "--adv_iters", "2", "--N_rand", "32", *extra)
+
+
 def test_cli_runs_without_jax(tmp_path):
-    """Importing every port module and running the CLI (seeded random
+    """Importing every port module and running the CLIs (seeded random
     weights, BSPG plan, one view; IBRNet, then GNT in bf16 through the
-    chain) leaves jax and flax out of sys.modules."""
+    chain, then an attacked IBRNet view) leaves jax, flax, optax and the JAX
+    package out of sys.modules."""
     gnt_argv = _port_argv(tmp_path, '--max_views', '1', *GNT_FLAGS,
                           '--compute_dtype', 'bfloat16',
                           '--gnt_fused_chain', 'on')
@@ -163,8 +187,11 @@ def test_cli_runs_without_jax(tmp_path):
         "assert res['synthetic']['coarse_mean_psnr'] > 0\n"
         f"res = main({gnt_argv!r})\n"
         "assert res['synthetic']['coarse_mean_psnr'] > 0\n"
+        "from nerfool_tpu_torch.eval_adv import main as adv_main\n"
+        f"res = adv_main({_adv_argv(tmp_path, '--max_views', '1')!r})\n"
+        "assert res['synthetic']['coarse_mean_psnr'] > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
-        "'jaxlib')]\n"
+        "'jaxlib', 'optax', 'nerfool_tpu')]\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -181,3 +208,136 @@ def test_cli_rejects_missing_card_and_unported_options(tmp_path):
         port_eval.main(_port_argv(tmp_path, "--device", "cuda"))
     with pytest.raises(ValueError, match="float32"):
         port_eval.main(_port_argv(tmp_path, "--compute_dtype", "bfloat16"))
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    """Every ``.py`` under ``nerfool_tpu_torch/`` and ``chip_smoke.py``,
+    parsed: no import of ``nerfool_tpu``, ``jax``, ``jaxlib``, ``flax`` or
+    ``optax``, at any depth of the file."""
+    files = glob.glob(os.path.join(REPO, "nerfool_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 40
+    banned = {"nerfool_tpu", "jax", "jaxlib", "flax", "optax"}
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, name)
+
+
+def test_port_config_defaults_equal_the_jax_packages(tmp_path):
+    """The port's own flag parser: every flag of the JAX package's parser
+    with the same default, from no arguments and from both slice configs;
+    ``port_parser`` adds only the port's four flags."""
+    for argv in ([], ["--config", os.path.join(REPO, "configs/gnt/gnt_full.txt")],
+                 ["--config", os.path.join(REPO, "configs/ibrnet/eval_llff.txt"),
+                  "--view_specific", "--adv_iters", "1000", "--epsilon", "8",
+                  "--use_adam", "--adam_lr", "1e-3", "--adv_lr", "1"]):
+        ref = vars(j_config_parser().parse_args(argv))
+        assert vars(config_parser().parse_args(argv)) == ref
+        got = vars(port_parser().parse_args(argv))
+        assert set(got) - set(ref) == {"device", "seed", "max_views",
+                                       "dataset_kwargs"}
+        assert {k: got[k] for k in ref} == ref
+
+
+def test_port_synthetic_dataset_equals_the_jax_packages(tmp_path):
+    """The port's copy of the data package: the same dataset keys, and the
+    procedural scene yields the same arrays."""
+    assert set(dataset_dict) == set(j_dataset_dict)
+    args = port_parser().parse_args(_port_argv(tmp_path))
+    a = dataset_dict["synthetic"](args, "test", scenes=[], **SMALL)
+    b = j_dataset_dict["synthetic"](args, "test", scenes=[], **SMALL)
+    assert len(a) == len(b) > 0
+    for i in range(len(a)):
+        da, db = a[i], b[i]
+        assert set(da) == set(db)
+        for k in da:
+            if isinstance(da[k], np.ndarray):
+                np.testing.assert_array_equal(da[k], db[k], err_msg=k)
+            else:
+                assert da[k] == db[k], k
+    for x, y in zip(a.target_cameras(), b.target_cameras()):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("backbone", ["ibrnet", "gnt"])
+def test_attacked_eval_cli_runs(tmp_path, monkeypatch, backbone):
+    """``eval_adv`` on the CPU: 2 attack iterations per view, then the
+    attacked whole-frame render: finite rows, an attack time per view, the
+    results file; GNT through the fused route (the kernel's plain versions
+    on the CPU), on the differentiated step and on the render."""
+    monkeypatch.chdir(tmp_path)
+    extra = (GNT_FLAGS + ("--gnt_fused_attack", "True", "--gnt_fused_attn",
+                          "on") if backbone == "gnt" else ())
+    res = port_eval_adv.main(_adv_argv(tmp_path, "--max_views", "2",
+                                       *extra))["synthetic"]
+    rows = [v for v in res.values() if isinstance(v, dict)]
+    assert len(rows) == 2
+    for row in rows:
+        assert np.isfinite([row["coarse_psnr"], row["coarse_ssim"]]).all()
+        assert row["attack_seconds"] > 0 and row["render_seconds"] > 0
+    assert np.isfinite(res["coarse_mean_psnr"])
+    out = tmp_path / "synthetic" / "exp" / "synthetic" / "psnr_synthetic.txt"
+    assert "coarse_mean_psnr" in out.read_text()
+
+
+@pytest.mark.parametrize("backbone", ["ibrnet", "gnt"])
+def test_zero_perturbation_reproduces_clean_rows(tmp_path, monkeypatch,
+                                                 backbone):
+    """``--epsilon 0`` projects delta to zero after every step: the attacked
+    evaluator then renders the clean sources, and its rows equal the clean
+    evaluator's exactly."""
+    monkeypatch.chdir(tmp_path)
+    extra = GNT_FLAGS if backbone == "gnt" else ()
+    clean = port_eval.main(_port_argv(tmp_path, "--max_views", "2",
+                                      *extra))["synthetic"]
+    adv = port_eval_adv.main(_adv_argv(tmp_path, "--max_views", "2",
+                                       "--epsilon", "0", *extra))["synthetic"]
+    for k, row in clean.items():
+        if isinstance(row, dict):
+            for name in ("coarse_psnr", "coarse_ssim"):
+                assert adv[k][name] == row[name], (k, name)
+        elif not np.isnan(row):
+            assert adv[k] == row, k
+
+
+def test_transfer_attack_reuses_the_first_views_delta(tmp_path, monkeypatch):
+    """``--use_trans_attack``: only the first view is attacked; the later
+    views render their own sources with its delta."""
+    monkeypatch.chdir(tmp_path)
+    res = port_eval_adv.main(_adv_argv(
+        tmp_path, "--max_views", "2", "--use_trans_attack"))["synthetic"]
+    rows = [v for v in res.values() if isinstance(v, dict)]
+    assert "attack_seconds" in rows[0] and "attack_seconds" not in rows[1]
+    assert np.isfinite([r["coarse_psnr"] for r in rows]).all()
+
+
+@pytest.mark.parametrize("flags,match", [
+    ((), "universal"),  # no --view_specific: the universal attack
+    (("--view_specific", "--use_pcgrad"), "use_pcgrad"),
+    (("--view_specific", "--perturb_camera"), "perturb_camera"),
+    (("--view_specific", "--depth_consistency_loss", "0.5"),
+     "depth_consistency_loss"),
+    (("--view_specific", "--camera_consistency_loss", "0.5"),
+     "camera_consistency_loss"),
+    (("--view_specific", "--ds_rgb"), "ds_rgb"),
+    (("--view_specific", "--use_purification"), "use_purification"),
+    (("--view_specific", "--def_random_noise", "0.1"), "def_random_noise"),
+    (("--view_specific", "--use_unseen_views"), "use_unseen_views"),
+    (("--view_specific", "--use_clean_color"), "use_clean_color"),
+    (("--view_specific", "--no_attack", "--use_clean_density"),
+     "use_clean_density"),
+])
+def test_unported_options_raise_by_name(tmp_path, monkeypatch, flags, match):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=match):
+        port_eval_adv.main(_port_argv(tmp_path, "--adv_iters", "1",
+                                      "--N_rand", "32", "--max_views", "1",
+                                      "--use_bspg", "False", *flags))

@@ -1,5 +1,6 @@
 """The kernel wrappers and their CUDA kernels: BSPG selection
-(``ops/bspg_select.py``) and the whole GNT chain (``ops/chain.py``).
+(``ops/bspg_select.py``), the whole GNT chain (``ops/chain.py``) and the ray
+attention, forward and backward (``ops/ray_attention.py``).
 
 This file imports no JAX, so it also runs on the card:
 
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from nerfool_tpu_torch.models.bundle import create_model
-from nerfool_tpu_torch.ops import bspg_select, chain
+from nerfool_tpu_torch.ops import bspg_select, chain, ray_attention as ra
 
 
 def _taps_inputs(rng, n_rv=6, ks=21, ns=40, p=4, c=3, dtype=torch.float32,
@@ -250,3 +251,144 @@ def test_chain_kernel_bf16_within_derived_bound():
         err_k = float((got[k].float() - ref[k]).abs().max())
         err_p = float((plain[k].float() - ref[k]).abs().max())
         assert err_k <= err_p, (k, err_k, err_p)
+
+
+# ---- ray attention (ops/ray_attention.py, csrc/ray_attention.cu) ----
+
+def _ra_case(r, s, seed=0, dtype=torch.float32, device="cpu", d=64):
+    """Seeded operands and cotangents: x ~ N(0, 1) as after a LayerNorm,
+    weights ~ U(-1/sqrt(D), 1/sqrt(D)) as a Linear's init."""
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                                       device=device)
+    u = lambda *shape: torch.as_tensor(
+        ((rng.rand(*shape) * 2 - 1) / np.sqrt(d)).astype(np.float32),
+        device=device)
+    x, gout, gattn0 = f(r, s, d).to(dtype), f(r, s, d).to(dtype), \
+        f(r, s).to(dtype)
+    return x, u(d, 3 * d), u(d, d), u(d), gout, gattn0
+
+
+def test_ray_attention_cpu_launches_nothing_and_differentiates():
+    """On CPU tensors the autograd.Function runs the two plain versions: no
+    launch is counted, and its gradients equal autograd's through the plain
+    forward (the hand-written backward formulas, f32: 1e-5)."""
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(3, 10)
+    leaves = [t.clone().requires_grad_() for t in (x, wqkv, wo, bo)]
+    before = ra.ray_attention_fwd.launches, ra.ray_attention_bwd.launches
+    out, attn0 = ra.ray_attention(*leaves)
+    got = torch.autograd.grad((out * gout).sum() + (attn0 * gattn0).sum(),
+                              leaves)
+    assert (ra.ray_attention_fwd.launches,
+            ra.ray_attention_bwd.launches) == before
+    ro, ra0 = ra.ray_attention_plain(*leaves)
+    torch.testing.assert_close(out, ro, rtol=0, atol=0)
+    ref = torch.autograd.grad((ro * gout).sum() + (ra0 * gattn0).sum(), leaves)
+    for g, r_ in zip(got, ref):
+        torch.testing.assert_close(g, r_, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(attn0.sum(-1), torch.ones(3), rtol=0,
+                               atol=1e-5)
+
+
+def test_ray_attention_rejects_bad_inputs():
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(2, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        ra.ray_attention_fwd(x.double(), wqkv, wo, bo)
+    with pytest.raises(ValueError, match="wqkv"):
+        ra.ray_attention_fwd(x, wqkv[:, :-1], wo, bo)
+    with pytest.raises(ValueError, match="bo"):
+        ra.ray_attention_fwd(x, wqkv, wo, bo[:-1])
+    with pytest.raises(ValueError, match="gout"):
+        ra.ray_attention_bwd(x, wqkv, wo, gout[:1], gattn0)
+    with pytest.raises(ValueError, match="gattn0"):
+        ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0.bfloat16())
+    with pytest.raises(ValueError, match="device"):
+        ra.ray_attention_fwd(*(t.to("meta") for t in (x, wqkv, wo, bo)))
+
+
+def _ra_grads(fn, x, wqkv, wo, bo, gout, gattn0):
+    leaves = [t.clone().requires_grad_() for t in (x, wqkv, wo, bo)]
+    out, attn0 = fn(*leaves)
+    loss = (out.float() * gout.float()).sum()
+    if gattn0 is not None:
+        loss = loss + (attn0.float() * gattn0.float()).sum()
+    return (out, attn0) + torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(3, 10), (2, 8), (40, 192), (133, 77)])
+@pytest.mark.parametrize("both", [True, False])
+def test_ray_attention_kernels_match_plain_f32(r, s, both):
+    """f32, forward and backward kernels through the autograd.Function
+    against autograd through the plain forward: summation order only, 1e-5
+    of each tensor's scale. ``both``: the cotangent feeds out and attn0, or
+    out only. Covers S not a multiple of 4 and more rays than blocks."""
+    _require_cuda()
+    args = _ra_case(r, s, seed=r, device="cuda")
+    if not both:
+        args = args[:5] + (None,)
+    before = ra.ray_attention_fwd.launches, ra.ray_attention_bwd.launches
+    got = _ra_grads(ra.ray_attention, *args)
+    torch.cuda.synchronize()
+    assert (ra.ray_attention_fwd.launches,
+            ra.ray_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = _ra_grads(ra.ray_attention_plain, *args)
+    for name, g, r_ in zip(("out", "attn0", "dx", "dwqkv", "dwo", "dbo"),
+                           got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        g, r_ = g.detach(), r_.detach()
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol, (name, tol)
+
+
+@pytest.mark.cuda
+def test_ray_attention_bwd_kernel_matches_plain_bwd():
+    """The backward wrapper alone against the plain backward (the same
+    formulas in tensor ops), and its ``want_dw=False`` route."""
+    _require_cuda()
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(20, 64, seed=5, device="cuda")
+    got = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0)
+    ref = ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)
+    for g, r_ in zip(got, ref):
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol
+    dx, dwqkv, dwo = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0,
+                                          want_dw=False)
+    assert dwqkv is None and dwo is None
+    torch.testing.assert_close(dx, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ray_attention_kernels_bf16_within_derived_bound():
+    """bf16: kernel and plain bf16 versions against the plain f32 version on
+    the same bf16 inputs and bf16-valued weights. The plain bf16 version
+    rounds every product; the kernels keep f32 inside and round only their
+    outputs, so each output's error may not exceed the plain version's."""
+    _require_cuda()
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(24, 192, seed=2, device="cuda",
+                                             dtype=torch.bfloat16)
+    wb = [w.bfloat16().float() for w in (wqkv, wo, bo)]
+    f32 = lambda t: t.float()
+    ref = ra.ray_attention_plain(f32(x), *wb) + ra.ray_attention_bwd_plain(
+        f32(x), wb[0], wb[1], f32(gout), f32(gattn0))
+    got = ra.ray_attention_fwd(x, wqkv, wo, bo) + ra.ray_attention_bwd(
+        x, wqkv, wo, gout, gattn0)
+    plain = ra.ray_attention_plain(x, wqkv, wo, bo) + \
+        ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)
+    torch.cuda.synchronize()
+    for name, g, p, r_ in zip(("out", "attn0", "dx", "dwqkv", "dwo"), got,
+                              plain, ref):
+        err_k = float((g.float() - r_).abs().max())
+        err_p = float((p.float() - r_).abs().max())
+        assert err_k <= err_p, (name, err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_ray_attention_kernel_raises_on_unsupported_shape():
+    _require_cuda()
+    x, wqkv, wo, bo, _, _ = _ra_case(2, 8, device="cuda", d=32)
+    with pytest.raises(ValueError, match="kernel takes"):
+        ra.ray_attention_fwd(x, wqkv, wo, bo)
+    x, wqkv, wo, bo, _, _ = _ra_case(2, 400, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ra.ray_attention_fwd(x, wqkv, wo, bo)
