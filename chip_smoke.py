@@ -7,8 +7,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
   1. device: a CUDA card is required (no CPU fallback); prints
      ``nvidia-smi --query-gpu=name,power.limit``
   2. build: compiles ``csrc/bspg_select.cu`` (K1), ``csrc/gnt_chain.cu``
-     (K2) and ``csrc/ray_attention.cu`` (K3) from the checkout, one nvcc
-     each, started together (sm_90a)
+     (K2), ``csrc/ray_attention.cu`` (K3) and ``csrc/view_attention.cu``
+     (K4) from the checkout, one nvcc each, started together (sm_90a)
   3. plan: the IBRNet slice's BSPG plan (synthetic scene, 15 views at
      378x504)
   4. kernel vs plain: ``bspg_select`` against its plain PyTorch version at the
@@ -59,6 +59,31 @@ Phases, each printing a line; any failure raises and exits non-zero:
      attack flags (N_rand 512) on the model and plan of phase 6: 2 warm-up
      iterations then 10 timed, the constraints on ``delta``, then the
      attacked render through BSPG (K1)
+ 13. K4 vs plain: the view-attention kernel against
+     ``view_attention_plain`` in f32 at the shapes the attacked GNT render
+     gives it (a whole chunk's 4096 x 192 rows and the last chunk's 3328 x
+     192, 10 views), at the attack batch's 800 x 192 rows and at an odd
+     shape (3 views, 15 rows), each with a block of rows masked in every
+     view; in bf16 against the plain f32 version on the same bf16 inputs;
+     CUDA-event timings of kernel and plain version
+ 14. the universal slice: ``configs/gnt/gnt_full.txt`` in f32, the 10 views
+     of the global source set, ``--use_adam --adam_lr 1e-3 --adv_lr 1
+     --epsilon 8 --use_pseudo_gt --use_center_view --gnt_fused_attack True
+     --gnt_fused_attn on --gnt_fused_vt True`` and no ``--view_specific``: 2
+     warm-up iterations of ``Evaluator.attack_universal``, then
+     ``Evaluator.evaluate`` runs 10 timed iterations over streamed
+     train-split targets (K3 launches: iterations x depth backward, twice
+     that forward, the pseudo ground truth being a second, no-grad render)
+     and renders one test view whole-frame from the perturbed global set on
+     the BSPG plan of phase 9 (K4 launches = chunks x depth, K3 forward the
+     same, K1 tables x chunks); the constraints on ``delta``; the same
+     render with ``--gnt_fused_vt False`` must launch no K4 and agree; both
+     routes timed in turns in this process
+ 15. one iteration each, small and untimed, of the universal attack with
+     ``--use_pcgrad --depth_var_loss`` (IBRNet) and with ``--perturb_camera``
+     (GNT, 48x64): finite losses, the clamps on the camera parameters (read
+     back from the attack's checkpoint), and the pose attack's whole-frame
+     render on the per-tap route
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
@@ -124,6 +149,16 @@ GNT_ATTACK_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype",
 IBR_ATTACK_ARGV = SLICE_ARGV + ATTACK_FLAGS
 RA_SHAPE = (800, 192)  # K3 at the attack slice's shape: N_rand x N_samples
 RA_ODD_SHAPE = (3, 10)
+# the universal slice: the README's universal attack (one delta on the global
+# source set, pseudo ground truth, no --view_specific) on GNT in f32, the
+# attacked render through K1, K4 and K3
+UNIVERSAL_FLAGS = ["--use_adam", "--adam_lr", "1e-3", "--adv_lr", "1",
+                   "--epsilon", "8", "--use_pseudo_gt", "--use_center_view"]
+UNI_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype", "bfloat16")] \
+    + [*UNIVERSAL_FLAGS, "--gnt_fused_attack", "True", "--gnt_fused_attn",
+       "on", "--gnt_fused_vt", "True"]
+VA_ODD_SHAPE = (3, 15)  # views, rows
+VA_MASKED_ROWS = 100  # rows masked in every view (5 at the odd shape)
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, f32 on the
 # CUDA cores, bf16 on the tensor cores (FLOP/s)
@@ -154,6 +189,14 @@ TOL_RA_F32_REL = 1e-5
 # and bf16-valued weights the kernels, which keep f32 inside and round only
 # their outputs, may err no more than the plain bf16 version
 RA_BF16_FACTOR = 1.0
+# K4 in f32: summation order only (4x4-tiled FMA products against cuBLAS, an
+# online softmax over the views against a two-pass one): 1e-5 of the
+# output's scale
+TOL_VA_F32_REL = 1e-5
+# K4 in bf16, as K2 and K3: against the plain f32 version on the same bf16
+# inputs and bf16-valued weights the kernel, which keeps f32 inside and
+# rounds only its output, may err no more than the plain bf16 version
+VA_BF16_FACTOR = 1.0
 # the fused attack step against the unfused module path, one step from the
 # same delta and rays: the bounds of tests/test_ra_vjp.py, loss 1e-5
 # relative and the delta update 2e-5. The two routes differ in summation
@@ -185,6 +228,11 @@ TOL_STEP_GRAD_COS = 0.9999
 # the ray attention only (measured rgb 4.2e-7, depth 7.2e-7 at depths of
 # 2-6, compositing weights 3.3e-9)
 TOL_FUSED_RENDER = {"rgb": 1e-5, "depth": 2e-5, "weights": 1e-6}
+# the attacked f32 GNT render with the view-attention kernel against the
+# same render with the module's view attention (both with the fused ray
+# attention), on the card: summation order in the view attention only, which
+# the 8 blocks' LayerNorms keep near one rounding: the same bounds
+TOL_VT_RENDER = TOL_FUSED_RENDER
 # GNT bf16 renders: the card's K2 render may sit at most this multiple of
 # the plain bf16 path's own card-to-CPU spread from the CPU render (see
 # gnt_cross_device); the K2 render rounds less than the plain path, so its
@@ -872,6 +920,342 @@ def fused_against_unfused_step(ev, data, delta, card):
                 peak_gib_fused=outs[True][2], peak_gib_unfused=outs[False][2])
 
 
+def va_operands(v, n, dtype, seed, masked_rows, d=64):
+    """K4 operands on the card: qln and k ~ N(0, 1) as after a LayerNorm,
+    ray differences with their dot near 1, ~10% of the views masked and the
+    first ``masked_rows`` rows masked in every view; weights ~ U(-1/sqrt(in),
+    1/sqrt(in)) as a Linear's init, in ``view_attention``'s order."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    u = lambda i, *shape: (torch.rand(*shape, device=dev, generator=g) * 2
+                           - 1) / i ** 0.5
+    pos = 0.1 * torch.randn(v, n, 4, device=dev, generator=g)
+    pos[..., 3] = 1.0 - pos[..., 3].abs()
+    mask = (torch.rand(v, n, 1, device=dev, generator=g) > 0.1).float()
+    mask[:, :masked_rows] = 0.0
+    h = d // 8
+    return (torch.randn(n, d, device=dev, generator=g).to(dtype),
+            torch.randn(v, n, d, device=dev, generator=g).to(dtype),
+            pos.to(dtype), mask.to(dtype),
+            u(d, d, d), u(d, d, 2 * d), u(4, 4, h), u(4, h), u(h, h, d),
+            u(h, d), u(d, d, h), u(d, h), u(h, h, d), u(h, d), u(d, d, d),
+            u(d, d))
+
+
+def va_bound(v, n, dtype, d=64):
+    """K4 at [v, n, d]: qln, k, pos and mask in, out written, the weights
+    once; the seven products by shape."""
+    size = 4 if dtype == "f32" else 2
+    h = d // 8
+    per_view = 2 * d * 2 * d + 2 * (4 * h + h * d) + 2 * (d * h + h * d)
+    flops = n * (v * per_view + 2 * 2 * d * d)
+    w_bytes = 4 * (4 * d * d + 4 * h + 3 * h * d + 2 * h + 3 * d)
+    n_bytes = size * (v * n * (d + 4 + 1) + 2 * n * d) + w_bytes
+    return bound_ms(n_bytes, flops, dtype)
+
+
+def check_view_attention(card, views, samples, render_rays, attack_rays):
+    """Phase 13: K4 against its plain version. ``render_rays``: the ray
+    counts of the attacked render's chunks (the largest first);
+    ``attack_rays``: the attack batch's."""
+    import torch
+    from nerfool_tpu_torch.ops import view_attention as va
+
+    rows = []
+    shapes = [("render chunk", views, r * samples) for r in render_rays]
+    shapes += [("attack batch", views, attack_rays * samples),
+               ("odd", *VA_ODD_SHAPE)]
+    with torch.no_grad():
+        for label, v, n in shapes:
+            masked = min(VA_MASKED_ROWS, n // 3)
+            ops = va_operands(v, n, torch.float32, seed=n, masked_rows=masked)
+            before = va.view_attention.launches
+            got = va.view_attention(*ops)
+            torch.cuda.synchronize()
+            if va.view_attention.launches != before + 1:
+                raise AssertionError("view_attention did not launch once")
+            ref = va.view_attention_plain(*ops)
+            err = float((got - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            # rows masked in every view: the uniform 1 / V weights
+            p = torch.relu(ops[2][:, :masked] @ ops[6] + ops[7]) @ ops[8] \
+                + ops[9]
+            vv = (ops[1][:, :masked] @ ops[5])[..., 64:]
+            uniform = torch.mean(vv + p, dim=0) @ ops[14] + ops[15]
+            masked_err = float((got[:masked] - uniform).abs().max())
+            row = dict(shape=label, dtype="f32", views=v, rows=n,
+                       masked_rows=masked, max_abs_err=err,
+                       tol=TOL_VA_F32_REL * scale, masked_rows_err=masked_err)
+            ok = (err <= row["tol"] and masked_err <= row["tol"]
+                  and bool(torch.isfinite(got).all()))
+            if label != "odd":
+                row["ms"] = time_ms(lambda: va.view_attention(*ops), 5)
+                row["plain_ms"] = time_ms(
+                    lambda: va.view_attention_plain(*ops), 3)
+                row["bound_ms"], row["bound_by"] = va_bound(v, n, "f32")
+            rows.append(row)
+            log("K4", f"f32 {label} [V={v} N={n}]: max abs err {err:.3g} "
+                f"(tol {row['tol']:.3g}), {masked} rows masked in every view "
+                f"against the uniform mean {masked_err:.3g}"
+                + (f"; kernel {row['ms']:.3f} ms, plain "
+                   f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                   f"by {row['bound_by']}" if "ms" in row else "")
+                + f"; {card}")
+            if not ok:
+                raise AssertionError(f"view_attention f32 disagrees with its "
+                                     f"plain version: {row}")
+            del ops, got, ref, p, vv, uniform
+
+        # bf16 at a whole render chunk and at the attack batch: kernel and
+        # plain bf16 against plain f32 on the same bf16 inputs and
+        # bf16-valued weights
+        for label, v, n in (shapes[0], shapes[-2]):
+            ops = va_operands(v, n, torch.bfloat16, seed=n + 1,
+                              masked_rows=VA_MASKED_ROWS)
+            ref = va.view_attention_plain(*(t.bfloat16().float()
+                                            for t in ops))
+            got = va.view_attention(*ops)
+            plain = va.view_attention_plain(*ops)
+            torch.cuda.synchronize()
+            err_k = float((got.float() - ref).abs().max())
+            err_p = float((plain.float() - ref).abs().max())
+            del ref, plain
+            row = dict(shape=label, dtype="bf16", views=v, rows=n,
+                       max_abs_err=err_k, plain_err=err_p,
+                       factor=VA_BF16_FACTOR,
+                       ms=time_ms(lambda: va.view_attention(*ops), 5),
+                       plain_ms=time_ms(
+                           lambda: va.view_attention_plain(*ops), 3))
+            row["bound_ms"], row["bound_by"] = va_bound(v, n, "bf16")
+            rows.append(row)
+            log("K4", f"bf16 {label} [V={v} N={n}]: vs f32 plain, kernel err "
+                f"{err_k:.3g}, plain bf16 err {err_p:.3g} (bound: kernel <= "
+                f"{VA_BF16_FACTOR:g} x plain); kernel {row['ms']:.3f} ms, "
+                f"plain {row['plain_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.3f} ms by {row['bound_by']}; {card}")
+            if not (err_k <= VA_BF16_FACTOR * err_p
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"view_attention bf16 outside its "
+                                     f"bound: {row}")
+            del ops, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_counts():
+    """The launch counts of every wrapper, by kernel name."""
+    from nerfool_tpu_torch.ops import (bspg_select, chain,
+                                       ray_attention as ra,
+                                       view_attention as va)
+
+    return {"bspg_select": bspg_select.select_taps.launches,
+            "gnt_chain": chain.gnt_chain.launches,
+            "ray_attention_fwd": ra.ray_attention_fwd.launches,
+            "ray_attention_bwd": ra.ray_attention_bwd.launches,
+            "view_attention": va.view_attention.launches}
+
+
+def zero_kernel_counts():
+    from nerfool_tpu_torch.ops import (bspg_select, chain,
+                                       ray_attention as ra,
+                                       view_attention as va)
+
+    for fn in (bspg_select.select_taps, chain.gnt_chain,
+               ra.ray_attention_fwd, ra.ray_attention_bwd,
+               va.view_attention):
+        fn.launches = 0
+
+
+def timed_render(ev, data, src, delta, cams):
+    """(outputs of the coarse level, seconds) of one whole-frame render."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ret = ev.render_view(data, src, delta, cams)["outputs_coarse"]
+    torch.cuda.synchronize()
+    return ret, time.perf_counter() - t0
+
+
+def universal_slice(uev, card, depth, chunks, n_tables):
+    """Phase 14 (see the module docstring). Returns the stats dict."""
+    import torch
+    from nerfool_tpu_torch.attack.perturb import init_delta
+
+    args = uev.args
+    eps = args.epsilon / 255.0
+    args.adv_iters = ATTACK_WARMUP
+    uev.attack_universal()
+    warm = uev.last_attack
+    if not bool(torch.isfinite(warm["losses"]).all()):
+        raise AssertionError("universal: non-finite warm-up loss")
+
+    # evaluate() draws delta's start from the evaluator's generator first
+    # thing in the attack: the same draw from a copy of its state
+    twin = torch.Generator(device=uev.device)
+    twin.set_state(uev.generator.get_state())
+    captured = {}
+    real_render = uev.render_view
+
+    def spy(data, src, delta=None, src_cameras=None):
+        captured.update(data=data, src=src, delta=delta, cams=src_cameras,
+                        attack_counts=kernel_counts())
+        captured["ret"] = real_render(data, src, delta, src_cameras)
+        return captured["ret"]
+
+    uev.render_view = spy
+    args.adv_iters = ATTACK_ITERS
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    res = uev.evaluate(max_views=1, verbose=True)["synthetic"]
+    total = kernel_counts()
+    uev.render_view = real_render
+    attack = captured["attack_counts"]
+    render = {k: total[k] - attack[k] for k in total}
+    run = uev.last_attack
+    row = next(v for v in res.values() if isinstance(v, dict))
+    src, delta, cams = captured["src"], captured["delta"], captured["cams"]
+    delta0 = init_delta(twin, src["rgbs"], eps)
+    ret = captured["ret"]["outputs_coarse"]
+    for k in ("rgb", "depth", "weights"):
+        if not bool(torch.isfinite(ret[k]).all()):
+            raise AssertionError(f"universal: non-finite attacked {k}")
+    hs, ws = ret["rgb"].shape[:2]
+    stats = dict(
+        ms_per_iter=run["seconds"] / ATTACK_ITERS * 1e3,
+        warmup_ms_per_iter=warm["seconds"] / ATTACK_WARMUP * 1e3,
+        losses=[float(x) for x in run["losses"]],
+        attack_launches=attack, render_launches=render,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        attacked_psnr=row["coarse_psnr"], render_seconds=row["render_seconds"],
+        rays_per_s=hs * ws / row["render_seconds"],
+        **check_delta("universal", delta, delta0, src["rgbs"], eps))
+    if (len(stats["losses"]) != ATTACK_ITERS
+            or not all(map(math.isfinite, stats["losses"]))
+            or not math.isfinite(stats["attacked_psnr"])):
+        raise AssertionError(f"universal: {stats}")
+    log("universal", f"{ATTACK_ITERS} iterations after {ATTACK_WARMUP} "
+        f"warm-up over streamed train targets, N_rand {args.N_rand}, "
+        f"{src['rgbs'].shape[0]} global source views at "
+        f"{tuple(src['rgbs'].shape[1:3])}, pseudo ground truth: "
+        f"{stats['ms_per_iter']:.2f} ms/iteration (warm-up "
+        f"{stats['warmup_ms_per_iter']:.2f}); loss {stats['losses'][0]:.5f} "
+        f"-> {stats['losses'][-1]:.5f}, all finite; max|delta| "
+        f"{stats['max_abs_delta']:.6f} <= {eps:.6f}, src + delta in "
+        f"[{stats['min_image']:.4f}, {stats['max_image']:.4f}], moved "
+        f"{stats['moved']:.3g}; launches in the attack {attack}; peak device "
+        f"memory {stats['peak_gib']:.2f} GiB; {card}")
+    log("universal", f"attacked render from the global source set {hs}x{ws} "
+        f"rays in {row['render_seconds']:.3f} s ({stats['rays_per_s']:.1f} "
+        f"rays/s) with the view-attention kernel, outputs finite, coarse "
+        f"PSNR {stats['attacked_psnr']:.4f} dB; launches in the render "
+        f"{render}; {card}")
+    want_attack = dict(bspg_select=0, gnt_chain=0, view_attention=0,
+                       ray_attention_fwd=2 * ATTACK_ITERS * depth,
+                       ray_attention_bwd=ATTACK_ITERS * depth)
+    want_render = dict(bspg_select=n_tables * chunks, gnt_chain=0,
+                       view_attention=chunks * depth,
+                       ray_attention_fwd=chunks * depth, ray_attention_bwd=0)
+    if attack != want_attack or render != want_render:
+        raise AssertionError(f"universal launches: attack {attack} (expected "
+                             f"{want_attack}), render {render} (expected "
+                             f"{want_render})")
+
+    # the same render with the module's view attention: no K4 launch, the
+    # same frame; then both routes in turns for their times
+    data = captured["data"]
+    args.gnt_fused_vt = False
+    plain, _ = timed_render(uev, data, src, delta, cams)
+    if kernel_counts()["view_attention"] != total["view_attention"]:
+        raise AssertionError("the unfused-vt render launched view_attention")
+    errs = {k: float((ret[k] - plain[k]).abs().max())
+            for k in ("rgb", "depth", "weights")}
+    stats["vs_unfused_vt"] = errs
+    log("universal", "attacked render, view-attention kernel against the "
+        "module's view attention: max abs diff " + ", ".join(
+            f"{k} {errs[k]:.3g} (tol {TOL_VT_RENDER[k]:g})" for k in errs)
+        + f"; {card}")
+    if not all(errs[k] <= TOL_VT_RENDER[k] for k in errs):
+        raise AssertionError(f"universal: the K4 render disagrees with the "
+                             f"unfused one: {errs}")
+    del plain
+    turns = []
+    for fused in (True, False, False, True):
+        args.gnt_fused_vt = fused
+        _, seconds = timed_render(uev, data, src, delta, cams)
+        turns.append((fused, hs * ws / seconds))
+    args.gnt_fused_vt = True
+    stats["render_ab_rays_per_s"] = turns
+    log("universal", "attacked render in turns, rays/s: " + ", ".join(
+        f"{'K4' if f else 'module'} {r:.1f}" for f, r in turns)
+        + f"; {card}")
+    return stats
+
+
+def small_universal_modes(ibr_bundle, card):
+    """Phase 15: one universal iteration with gradient surgery (IBRNet) and
+    one of the camera-pose attack (GNT, small scene), on the card."""
+    import tempfile
+    import torch
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.engine import Evaluator, load_attack_state
+    from nerfool_tpu_torch.ops import bspg_select
+
+    out = {}
+    args = eval_adv.parse_args(SLICE_ARGV + UNIVERSAL_FLAGS + [
+        "--use_pcgrad", "--depth_var_loss", "0.1", "--N_rand", "128",
+        "--adv_iters", "1"])
+    ev = Evaluator(args, bundle=ibr_bundle, dataset_kwargs=SLICE_DATA,
+                   device="cuda", seed=0)
+    delta, src, _ = ev.attack_universal()
+    loss = float(ev.last_attack["losses"][0])
+    out["pcgrad_loss"] = loss
+    if not (math.isfinite(loss) and bool(torch.isfinite(delta).all())
+            and float(delta.abs().max()) <= args.epsilon / 255.0 + 1e-7):
+        raise AssertionError(f"pcgrad iteration: loss {loss}")
+    log("small modes", f"--use_pcgrad --depth_var_loss 0.1 (IBRNet, N_rand "
+        f"128): loss {loss:.5f}, delta finite and inside the ball; {card}")
+    del ev, delta, src
+
+    args = eval_adv.parse_args(GNT_SMALL_ARGV + UNIVERSAL_FLAGS + [
+        "--perturb_camera", "--N_rand", "64", "--adv_iters", "1",
+        "--i_attack_ckpt", "1", "--gnt_fused_attack", "True",
+        "--gnt_fused_attn", "on", "--gnt_fused_vt", "True"])
+    ev = Evaluator(args, dataset_kwargs=SMALL_DATA, device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "attack_state.pt")
+        delta, src, cams = ev.attack_universal(ckpt_path=ckpt)
+        state, meta = load_attack_state(ckpt)
+    loss = float(ev.last_attack["losses"][0])
+    rot_eps = args.rot_epsilon / 180.0 * math.pi
+    worst_rot = float(state["rot"].abs().max())
+    worst_trans = float(state["trans"].abs().max())
+    moved = float((cams - src["cameras"]).abs().max())
+    before = bspg_select.select_taps.launches
+    cfg = ev.view_render_cfg(int(cams.shape[0]))
+    ret, _ = timed_render(ev, ev.test_dataset[0], src, delta, cams)
+    finite = all(bool(torch.isfinite(ret[k]).all())
+                 for k in ("rgb", "depth", "weights"))
+    out.update(pose_loss=loss, max_abs_rot=worst_rot,
+               max_abs_trans=worst_trans, cameras_moved=moved)
+    log("small modes", f"--perturb_camera (GNT, 48x64, N_rand 64): loss "
+        f"{loss:.5f}; max|rot| {worst_rot:.5f} <= {rot_eps:.5f} rad, "
+        f"max|trans| {worst_trans:.5f} <= {args.trans_epsilon}; source "
+        f"cameras moved by up to {moved:.4f}; checkpoint at iteration "
+        f"{meta['iters_done']}; attacked render per tap, finite: {finite}; "
+        f"{card}")
+    if not (math.isfinite(loss) and 0 < worst_rot <= rot_eps + 1e-7
+            and 0 < worst_trans <= args.trans_epsilon + 1e-7 and moved > 0
+            and meta["iters_done"] == 1 and finite
+            and cfg.bspg_specs is None and cfg.gnt_fused_vt
+            and bspg_select.select_taps.launches == before):
+        raise AssertionError(f"pose-attack iteration: {out}")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -892,16 +1276,18 @@ def main():
     from nerfool_tpu_torch.eval import parse_args
     from nerfool_tpu_torch import eval_adv
     from nerfool_tpu_torch.ops import (build, bspg_select, chain,
-                                       ray_attention as ra)
+                                       ray_attention as ra,
+                                       view_attention as va)
 
-    # 2. build the three kernels, one nvcc each, in parallel
+    # 2. build the four kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    build.build("bspg_select", "gnt_chain", "ray_attention")
+    build.build("bspg_select", "gnt_chain", "ray_attention", "view_attention")
     bspg_select.build()
     chain.build()
     ra.build()
-    log("build", f"bspg_select, gnt_chain and ray_attention built in "
-        f"{time.perf_counter() - t0:.2f} s into "
+    va.build()
+    log("build", f"bspg_select, gnt_chain, ray_attention and view_attention "
+        f"built in {time.perf_counter() - t0:.2f} s into "
         f"{os.path.relpath(build.BUILD_DIR, ROOT)}")
 
     # 3. plan the slice (host, numpy)
@@ -1105,6 +1491,9 @@ def main():
     aargs = eval_adv.parse_args(GNT_ATTACK_ARGV)
     aev = Evaluator(aargs, dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
     aev.adopt_plan(gev)
+    uev = Evaluator(eval_adv.parse_args(UNI_ARGV), bundle=aev.bundle,
+                    dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
+    uev.adopt_plan(gev)
     del gev
     depth = aargs.trans_depth
     data = aev.test_dataset[0]
@@ -1145,7 +1534,29 @@ def main():
     if ibr_adv["k1_launches"] != exp_k1:
         raise AssertionError(f"attacked IBRNet render launches "
                              f"{ibr_adv['k1_launches']} != {exp_k1}")
+    ibr_bundle = iev.bundle
     del iev, delta, src
+
+    # 13. K4 against its plain version, at the shapes of phase 14
+    render_rays = sorted({gargs.chunk_size, g_rays_padded
+                          - (g_chunks - 1) * gargs.chunk_size}, reverse=True)
+    va_rows = check_view_attention(card, g_src, gargs.N_samples, render_rays,
+                                   uev.args.N_rand)
+
+    # 14. the universal slice, on the plan of phase 9
+    ucfg = uev.view_render_cfg(g_src)
+    if not (ucfg.bspg_specs is not None and ucfg.gnt_fused_vt
+            and ucfg.gnt_fused_attn and not uev._grad_render_cfg().gnt_fused_vt):
+        raise RuntimeError("the universal slice's render is not on BSPG with "
+                           "both attention kernels")
+    universal = universal_slice(
+        uev, card, depth, g_chunks * g_levels,
+        sum(len(sp.groups) for sp in ucfg.bspg_specs))
+    del uev
+
+    # 15. gradient surgery and the pose attack, one small iteration each
+    small_modes = small_universal_modes(ibr_bundle, card)
+    del ibr_bundle
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
@@ -1161,18 +1572,28 @@ def main():
         row["bound_ms"], row["bound_by"] = select_bound(row)
     for row in chain_rows:
         row["bound_ms"], row["bound_by"] = chain_bound(row)
+    uni_attack, uni_render = (universal["attack_launches"],
+                              universal["render_launches"])
     k1_paths = {"ibrnet": ibr_launches, "gnt": k1_gnt,
                 "gnt_attacked_render": gnt_adv["k1_launches"],
-                "ibrnet_attacked_render": ibr_adv["k1_launches"]}
+                "ibrnet_attacked_render": ibr_adv["k1_launches"],
+                "universal_attacked_render": uni_render["bspg_select"]}
     k3_fwd_paths = {"gnt_attack": gnt_attack["fwd_launches"],
-                    "gnt_attacked_render": gnt_adv["k3_fwd_launches"]}
+                    "gnt_attacked_render": gnt_adv["k3_fwd_launches"],
+                    "universal_attack": uni_attack["ray_attention_fwd"],
+                    "universal_attacked_render":
+                        uni_render["ray_attention_fwd"]}
+    k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
+                    "universal_attack": uni_attack["ray_attention_bwd"]}
+    va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
     ra_source = "nerfool_tpu_torch/csrc/ray_attention.cu"
     # no single PyTorch call computes any of these functions (a one-hot
     # gather of patch taps; a whole transformer chain; an attention that
-    # also returns a row of its softmax, and its backward): library_ms null
+    # also returns a row of its softmax, and its backward; a per-channel
+    # subtraction attention over views): library_ms null
     print(card)
     print(json.dumps({"kernels": [{
         "name": "bspg_select", "route": "cuda",
@@ -1206,14 +1627,26 @@ def main():
         "shapes": ra_rows, "times": ra_times}, {
         "name": "ray_attention_bwd", "route": "cuda", "source": ra_source,
         "replaces": "nerfool_tpu/ops/ra_kernel.py:198",
-        "launches": gnt_attack["bwd_launches"],
-        "launches_by_path": {"gnt_attack": gnt_attack["bwd_launches"]},
+        "launches": sum(k3_bwd_paths.values()),
+        "launches_by_path": k3_bwd_paths,
         "max_abs_err": max(ra_errs[n] for n in ("dx", "dwqkv", "dwo", "dbo")),
         "ms": ra_f32["bwd_ms"], "plain_ms": ra_f32["plain_bwd_ms"],
         "bound_ms": ra_f32["bwd_bound_ms"],
-        "bound_by": ra_f32["bwd_bound_by"], "library_ms": None}],
+        "bound_by": ra_f32["bwd_bound_by"], "library_ms": None}, {
+        "name": "view_attention", "route": "cuda",
+        "source": "nerfool_tpu_torch/csrc/view_attention.cu",
+        "replaces": "nerfool_tpu/ops/vt_kernel.py:126",
+        "launches": uni_render["view_attention"],
+        "launches_by_path": {
+            "universal_attacked_render": uni_render["view_attention"]},
+        "max_abs_err": max(r["max_abs_err"] for r in va_rows
+                           if r["dtype"] == "f32"),
+        "ms": va_head["ms"], "plain_ms": va_head["plain_ms"],
+        "bound_ms": va_head["bound_ms"], "bound_by": va_head["bound_by"],
+        "library_ms": None, "shapes": va_rows}],
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
-                   "ibrnet": {**ibr_attack, "render": ibr_adv}}}))
+                   "ibrnet": {**ibr_attack, "render": ibr_adv},
+                   "universal": universal, "small_modes": small_modes}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

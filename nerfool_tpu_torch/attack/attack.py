@@ -1,38 +1,44 @@
 """The attack step: one gradient-ascent update on the source-view
-perturbation ``delta`` (port of ``nerfool_tpu/attack/attack.py``).
+perturbation ``delta`` and, in the camera-pose attack, on the per-view
+rotation and translation of the source cameras (port of
+``nerfool_tpu/attack/attack.py``).
 
 One iteration selects a random ray subset of the target view, re-extracts
 the features of the perturbed sources, renders the subset, sums the enabled
-loss terms, differentiates to ``delta``, and applies the Adam or sign-PGD
-update followed by the eps-ball / image-box projection. Gradient ascent is
-expressed as the reference does it: negate the gradient and feed a standard
-descending optimizer.
+loss terms, differentiates to ``delta`` (and ``rot``, ``trans``), and applies
+the Adam or sign-PGD update followed by the eps-ball / image-box projection
+and the clamps on the camera parameters. Gradient ascent is expressed as the
+reference does it: negate the gradient and feed a standard descending
+optimizer. With ``use_pcgrad`` every loss term is differentiated on its own
+(one backward each over the shared graph) and the gradients of ``delta`` go
+through gradient surgery (``attack/pcgrad.py``); the camera parameters keep
+the summed gradient.
 
-The step is an eager function over a small state dict (``delta``, the Adam
-moments, the step count). The caller may pass the ray indices ``sel`` (and
-``sel_patch``, the dedicated depth-smooth patch batch) and the initial
-``delta``; otherwise they are drawn from an explicit ``torch.Generator``.
-The aggregators' and the feature net's parameters are frozen
-(``requires_grad=False``) while a step runs, and only then: only ``delta``
-is differentiated, and a trainer sharing the models finds their flags as it
-left them.
+The step is an eager function over a small state dict (``delta``, ``rot``,
+``trans``, their Adam moments, the step count). The caller may pass the ray
+indices ``sel`` (and ``sel_patch``, the dedicated depth-smooth patch batch),
+the PCGrad task order and the initial values; otherwise they are drawn from
+an explicit ``torch.Generator``. The aggregators' and the feature net's
+parameters are frozen (``requires_grad=False``) while a step runs, and only
+then: a trainer sharing the models finds their flags as it left them.
 
-Not ported, and raising ``NotImplementedError`` by flag name: gradient
-surgery (``use_pcgrad``), the camera-pose attack (``perturb_camera*``) and
-the warp losses (``depth_consistency_loss``, ``camera_consistency_loss``,
+Not ported, and raising ``NotImplementedError`` by flag name: the warp
+losses (``depth_consistency_loss``, ``camera_consistency_loss``,
 ``ds_rgb``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 
 from nerfool_tpu_torch.attack import losses as L
-from nerfool_tpu_torch.attack.perturb import init_delta, project_delta
+from nerfool_tpu_torch.attack.pcgrad import pcgrad_combine
+from nerfool_tpu_torch.attack.perturb import clamp, init_delta, project_delta
 from nerfool_tpu_torch.render.render_rays import RenderConfig, render_rays
-from nerfool_tpu_torch.utils.cameras import get_rays_at
+from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +70,15 @@ class AttackConfig:
     depth_consistency_loss: float = 0.0
     ds_rgb: bool = False
     camera_consistency_loss: float = 0.0
+    # gradient surgery
     use_pcgrad: bool = False
+    major_loss: str = ""
+    # camera-pose attack
     perturb_camera: bool = False
     perturb_camera_no_opt: bool = False
+    zero_camera_init: bool = False
+    rot_epsilon: float = 10.0  # degrees
+    trans_epsilon: float = 0.1
 
     @property
     def eps(self):
@@ -75,6 +87,10 @@ class AttackConfig:
     @property
     def alpha(self):
         return self.adv_lr / 255.0
+
+    @property
+    def rot_eps_rad(self):
+        return self.rot_epsilon / 180.0 * math.pi
 
     def enabled_losses(self):
         names = ["rgb"]
@@ -86,7 +102,6 @@ class AttackConfig:
     def unported(self):
         """Names of the set flags this package does not implement."""
         return [name for name in (
-            "use_pcgrad", "perturb_camera", "perturb_camera_no_opt",
             "depth_consistency_loss", "camera_consistency_loss", "ds_rgb")
             if getattr(self, name)]
 
@@ -156,14 +171,33 @@ def adam_update(param, grad, m, v, step, lr, b1=0.9, b2=0.999, eps=1e-8):
     return param - lr * m_hat / (torch.sqrt(v_hat) + eps), m, v
 
 
-def init_attack_state(generator, cfg: AttackConfig, src_rgbs, delta=None):
+def init_attack_state(generator, cfg: AttackConfig, src_rgbs, delta=None,
+                      rot=None, trans=None):
     """The attack state: ``delta`` (drawn uniformly in the eps-ball from
-    ``generator`` unless given), zero Adam moments, step 0."""
+    ``generator`` unless given); the camera parameters ``rot`` and ``trans``
+    ([V, 3]: zeros, or in the camera-pose attack without
+    ``zero_camera_init`` drawn uniformly inside their bounds unless given);
+    zero Adam moments (``m``, ``v`` of delta, ``m_rot`` ... of the camera
+    parameters); step 0."""
     if delta is None:
         delta = init_delta(generator, src_rgbs, cfg.eps)
     delta = delta.detach().to(src_rgbs)
-    return {"delta": delta, "m": torch.zeros_like(delta),
-            "v": torch.zeros_like(delta), "step": 0}
+    n = src_rgbs.shape[0]
+
+    def camera_param(given, bound):
+        if given is not None:
+            return given.detach().to(src_rgbs)
+        if not cfg.perturb_camera or cfg.zero_camera_init:
+            return src_rgbs.new_zeros((n, 3))
+        u = torch.rand((n, 3), device=src_rgbs.device, generator=generator)
+        return ((2.0 * u - 1.0) * bound).to(src_rgbs)
+
+    state = {"delta": delta, "rot": camera_param(rot, cfg.rot_eps_rad),
+             "trans": camera_param(trans, cfg.trans_epsilon), "step": 0}
+    for key, name in (("", "delta"), ("_rot", "rot"), ("_trans", "trans")):
+        state["m" + key] = torch.zeros_like(state[name])
+        state["v" + key] = torch.zeros_like(state[name])
+    return state
 
 
 @contextlib.contextmanager
@@ -183,17 +217,21 @@ def _frozen(modules):
 
 def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
     """Build the attack step for ``bundle``. Its parameters are frozen
-    while a step runs (only ``delta`` is differentiated) and get their
-    ``requires_grad`` flags back when it returns.
+    while a step runs (only ``delta`` and the camera parameters are
+    differentiated) and get their ``requires_grad`` flags back when it
+    returns.
 
-    step(state, target, src, generator=None, sel=None, sel_patch=None)
-        -> (state, aux)
+    step(state, target, src, generator=None, sel=None, sel_patch=None,
+         pc_order=None) -> (state, aux)
       target: {'camera' [34], 'rgb' [H*W, 3] or None, 'depth' [H*W] or None,
                'depth_range' [1, 2]}
       src:    {'rgbs' [V, Hs, Ws, 3], 'cameras' [V, 34],
                'featmaps_clean': (coarse, fine) or None}
       sel, sel_patch: ray indices of the main batch and of the dedicated
         depth-smooth patch batch; drawn from ``generator`` when None
+      pc_order: with ``use_pcgrad`` and no major loss, the order in which
+        each loss's gradient is projected against the others; drawn from
+        ``generator`` when None
       aux: {'loss': total, plus one entry per enabled term}, detached
     """
     unported = cfg.unported()
@@ -208,14 +246,18 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
     # the attack samples random pixels: per-tap gather, never the block plan
     render_cfg = dataclasses.replace(render_cfg, bspg_specs=None)
 
-    def render_subset(feats, target, src, sel):
+    loss_names = cfg.enabled_losses()
+    major_idx = (loss_names.index(cfg.major_loss)
+                 if cfg.major_loss in loss_names else None)
+
+    def render_subset(feats, target, src, src_cams, sel):
         cam = target["camera"]
         rays_o, rays_d = get_rays_at(sel, cfg.w, cam[2:18].reshape(4, 4),
                                      cam[18:34].reshape(4, 4))
         batch = {"ray_o": rays_o, "ray_d": rays_d,
                  "depth_range": target["depth_range"], "camera": cam[None]}
         return render_rays(nets, batch, feats, render_cfg, src["rgbs"],
-                           src["cameras"])
+                           src_cams)
 
     def both_levels(fn, ret, *others):
         """fn summed over the coarse and (when rendered) fine outputs."""
@@ -226,15 +268,18 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
                                *(o["outputs_fine"] for o in others))
         return total
 
-    def compute_losses(delta, target, src, sel, sel_patch):
+    def compute_losses(delta, rot, trans, target, src, sel, sel_patch):
+        src_cams = (transform_src_cameras(src["cameras"], rot, trans)
+                    if cfg.perturb_camera else src["cameras"])
         feats = bundle.extract_features(src["rgbs"] + delta)
         # delta reaches the renderer only through the feature maps: the RGB
         # taps stay on the clean source pixels, as in the reference
-        ret = render_subset(feats, target, src, sel)
+        ret = render_subset(feats, target, src, src_cams, sel)
 
         if cfg.use_pseudo_gt:
             with torch.no_grad():
-                ret_gt = render_subset(src["featmaps_clean"], target, src, sel)
+                ret_gt = render_subset(src["featmaps_clean"], target, src,
+                                       src_cams, sel)
             top_gt = ret_gt["outputs_fine"] or ret_gt["outputs_coarse"]
             gt_rgb, gt_depth = top_gt["rgb"], top_gt["depth"]
         else:
@@ -256,14 +301,15 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
         if cfg.depth_smooth_loss > 0:
             # a dedicated patch batch with the same perturbed features when
             # the main batch is not patch-sampled
-            ret_smooth = (ret if cfg.use_patch_sampling
-                          else render_subset(feats, target, src, sel_patch))
+            ret_smooth = (ret if cfg.use_patch_sampling else render_subset(
+                feats, target, src, src_cams, sel_patch))
             terms["depth_smooth"] = cfg.depth_smooth_loss * both_levels(
                 lambda o: L.depth_smooth_loss(o["depth"], cfg.patch_size),
                 ret_smooth)
         return terms
 
-    def step(state, target, src, generator=None, sel=None, sel_patch=None):
+    def step(state, target, src, generator=None, sel=None, sel_patch=None,
+             pc_order=None):
         device = src["rgbs"].device
         if sel is None:
             sel = select_ray_indices(generator, cfg, device)
@@ -272,22 +318,54 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
             sel_patch = select_ray_indices(
                 generator, dataclasses.replace(cfg, use_patch_sampling=True),
                 device)
-        delta = state["delta"].detach().requires_grad_(True)
+        names = ("delta", "rot", "trans") if cfg.perturb_camera else ("delta",)
+        params = [state[n].detach().requires_grad_(True) for n in names]
+        live = dict(state, **dict(zip(names, params)))
+        def grads_of(out, retain=False):
+            """d out / d params, zeros where a parameter is unused."""
+            gs = torch.autograd.grad(out, params, retain_graph=retain,
+                                     allow_unused=True)
+            return [torch.zeros_like(p) if g is None else g
+                    for g, p in zip(gs, params)]
+
         with _frozen(modules), torch.enable_grad():
-            terms = compute_losses(delta, target, src, sel, sel_patch)
+            terms = compute_losses(live["delta"], live["rot"], live["trans"],
+                                   target, src, sel, sel_patch)
             loss = sum(terms.values())
-            grad, = torch.autograd.grad(loss, delta)
-        delta = delta.detach()
-        m, v = state["m"], state["v"]
-        if cfg.use_adam:
-            delta, m, v = adam_update(delta, -grad, m, v, state["step"],
-                                      adam_lr(cfg, state["step"]))
-        else:
-            delta = delta + cfg.alpha * torch.sign(grad)
-        delta = project_delta(delta, src["rgbs"], cfg.eps)
+            if cfg.use_pcgrad:
+                # one backward per loss term over the shared graph: surgery
+                # on delta's gradients, the sum for the camera parameters
+                per_loss = [grads_of(terms[n], retain=True)
+                            for n in loss_names]
+                grads = [pcgrad_combine(
+                    torch.stack([gs[0] for gs in per_loss]),
+                    major_idx=major_idx, order=pc_order, generator=generator)]
+                grads += [sum(gs[i] for gs in per_loss)
+                          for i in range(1, len(params))]
+            else:
+                grads = grads_of(loss)
+        if cfg.perturb_camera_no_opt:
+            grads = grads[:1] + [torch.zeros_like(g) for g in grads[1:]]
+
+        new = dict(state, step=state["step"] + 1)
+        for name, p, g in zip(names, params, grads):
+            p = p.detach()
+            key = "" if name == "delta" else "_" + name
+            if cfg.use_adam:
+                new[name], new["m" + key], new["v" + key] = adam_update(
+                    p, -g, state["m" + key], state["v" + key], state["step"],
+                    adam_lr(cfg, state["step"]))
+            elif name == "delta":
+                new[name] = p + cfg.alpha * torch.sign(g)
+            elif not cfg.perturb_camera_no_opt:
+                new[name] = p + cfg.adv_lr * torch.sign(g)
+        new["delta"] = project_delta(new["delta"], src["rgbs"], cfg.eps)
+        if cfg.perturb_camera:
+            new["rot"] = clamp(new["rot"], -cfg.rot_eps_rad, cfg.rot_eps_rad)
+            new["trans"] = clamp(new["trans"], -cfg.trans_epsilon,
+                                 cfg.trans_epsilon)
         aux = {"loss": loss.detach(),
                **{k: t.detach() for k, t in terms.items()}}
-        return ({"delta": delta, "m": m, "v": v, "step": state["step"] + 1},
-                aux)
+        return new, aux
 
     return step

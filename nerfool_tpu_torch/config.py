@@ -305,6 +305,9 @@ def port_parser():
                         help="random weights when --ckpt_path is empty, and "
                              "the attack's random draws")
     parser.add_argument("--max_views", type=int, default=None)
+    # fused view-attention kernel (ops/view_attention.py) on the no-grad f32
+    # GNT whole-frame renders; forward only, never on the attack step
+    parser.add_argument("--gnt_fused_vt", type=str2bool, default=False)
     parser.add_argument("--dataset_kwargs", type=json.loads, default={},
                         help="JSON object of dataset constructor keywords")
     return parser

@@ -53,19 +53,22 @@ class Loader:
     """
 
     def __init__(self, dataset, shuffle=False, seed=0, num_workers=4, prefetch=4,
-                 infinite=False):
+                 infinite=False, skip=0):
         self.dataset = dataset
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.infinite = infinite
+        self.skip = skip  # leading samples of the order to pass over unloaded
 
     def _order(self):
         n = len(self.dataset)
+        skip = self.skip
         while True:
             idx = self.rng.permutation(n) if self.shuffle else np.arange(n)
-            yield from idx
+            yield from idx[skip:]
+            skip = max(0, skip - n)
             if not self.infinite:
                 return
 

@@ -1,19 +1,25 @@
-"""Adversarial and clean whole-frame evaluator (port of the view-specific
-paths of ``nerfool_tpu/attack/engine.py`` ``AdvEvaluator``): per test view,
-optionally ``adv_iters`` attack iterations on the perturbation ``delta`` of
-the view's own source images (``attack/attack.py``), then the whole-frame
-render with IBRNet or GNT from the perturbed sources, measured with PSNR and
-SSIM in the backbone's protocol (TF's for IBRNet, ``img2psnr`` and windowed
-SSIM for GNT). LPIPS is not ported and reads NaN.
+"""Adversarial and clean whole-frame evaluator (port of
+``nerfool_tpu/attack/engine.py`` ``AdvEvaluator``). View-specific
+(``--view_specific``): per test view, ``adv_iters`` attack iterations on the
+perturbation ``delta`` of the view's own source images
+(``attack/attack.py``), then the whole-frame render from the perturbed
+sources. Universal (the default): one ``delta`` on a fixed global source set
+(``--use_center_view``: the views nearest the rig's centre), optimised over
+train-split target views streamed by a shuffled loader (``--use_unseen_views``:
+each target's pose replaced by an interpolated unseen pose, with a pseudo
+ground truth), then every test view rendered from that perturbed set.
+``--no_attack`` gives the clean rows of either. Renders are measured with
+PSNR and SSIM in the backbone's protocol (TF's for IBRNet, ``img2psnr`` and
+windowed SSIM for GNT). LPIPS is not ported and reads NaN.
 
 The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
 routes the differentiated GNT step through the ray-attention kernel
 (``ops/ray_attention.py``, forward and backward), ``--gnt_fused_attn on``
-the no-grad f32 GNT renders; on the CPU both take the kernel's plain
-version. Not ported, raising ``NotImplementedError`` by flag name: the
-universal attack (no ``--view_specific``), the global source set, unseen-view
-targets, hybrid clean-feature renders, purification, the noise defense, and
-the attack options ``make_attack_step`` lists.
+the no-grad f32 GNT renders, ``--gnt_fused_vt True`` their view attention
+through its forward-only kernel (``ops/view_attention.py``); on the CPU each
+takes its kernel's plain version. Not ported, raising ``NotImplementedError``
+by flag name: hybrid clean-feature renders, purification, the noise defense,
+``--geo_noise``, and the warp losses ``make_attack_step`` lists.
 
 GNT renders in float32 or bfloat16 (``--compute_dtype``); IBRNet in float32
 only. ``--gnt_fused_chain`` resolves as in the JAX evaluator: ``auto`` runs
@@ -25,7 +31,10 @@ Whole-frame renders take the block segment-patch gather by default
 (``--use_bspg``): it is planned once over every camera the dataset can emit,
 with one uniform worst-case slot budget across the ``n_src`` source slots,
 so one plan serves every view. Planning that fails raises; it never drops to
-the per-tap gather (``--use_bspg False`` asks for that route).
+the per-tap gather (``--use_bspg False`` asks for that route). The one
+exception is the camera-pose attack (``--perturb_camera``): it moves the
+source cameras out of the planned set, so its renders take the per-tap
+gather, as the JAX evaluator's do, and say so once.
 """
 from __future__ import annotations
 
@@ -42,14 +51,16 @@ from nerfool_tpu_torch.attack.attack import (
     init_attack_state,
     make_attack_step,
 )
+from nerfool_tpu_torch.attack.geo_interp import sample_unseen_pose
 from nerfool_tpu_torch.data import dataset_dict
+from nerfool_tpu_torch.data.base import Loader
 from nerfool_tpu_torch.device import resolve_device
 from nerfool_tpu_torch.metrics.image import img2psnr, psnr, ssim, ssim_windowed
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.resunet import feature_hw
 from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
-from nerfool_tpu_torch.utils.cameras import get_rays
+from nerfool_tpu_torch.utils.cameras import get_rays, transform_src_cameras
 
 
 def render_config_from_args(args) -> RenderConfig:
@@ -69,6 +80,8 @@ def render_config_from_args(args) -> RenderConfig:
                         backbone=args.backbone,
                         single_net=gnt and bool(args.single_net),
                         ret_alpha=not gnt or bool(args.ret_alpha),
+                        stop_camera_grad=not gnt and not getattr(
+                            args, "perturb_camera_no_detach", False),
                         compute_dtype=args.compute_dtype)
 
 
@@ -81,21 +94,44 @@ def build_attack_config(args, h, w) -> AttackConfig:
         lr_gamma=args.lr_gamma, n_rand=args.N_rand,
         sample_mode=args.sample_mode, center_ratio=args.center_ratio,
         use_patch_sampling=args.use_patch_sampling,
-        patch_size=args.patch_size, use_pseudo_gt=args.use_pseudo_gt,
+        patch_size=args.patch_size,
+        use_pseudo_gt=args.use_pseudo_gt or args.use_unseen_views,
         density_loss=args.density_loss, depth_var_loss=args.depth_var_loss,
         depth_diff_loss=args.depth_diff_loss,
         depth_smooth_loss=args.depth_smooth_loss,
         depth_consistency_loss=args.depth_consistency_loss,
         ds_rgb=args.ds_rgb,
         camera_consistency_loss=args.camera_consistency_loss,
-        use_pcgrad=args.use_pcgrad, perturb_camera=args.perturb_camera,
-        perturb_camera_no_opt=args.perturb_camera_no_opt)
+        use_pcgrad=args.use_pcgrad, major_loss=args.major_loss,
+        perturb_camera=args.perturb_camera,
+        perturb_camera_no_opt=args.perturb_camera_no_opt,
+        zero_camera_init=args.zero_camera_init,
+        rot_epsilon=args.rot_epsilon, trans_epsilon=args.trans_epsilon)
+
+
+def save_attack_state(path, state, meta=None):
+    """Checkpoint the attack state (delta, camera parameters, Adam moments,
+    step) as CPU tensors, with ``meta`` (iterations done, the states of the
+    random streams), so that a long universal attack can be resumed."""
+    cpu = {k: v.detach().cpu() if torch.is_tensor(v) else v
+           for k, v in state.items()}
+    tmp = f"{path}.tmp"
+    torch.save({"state": cpu, "meta": meta or {}}, tmp)
+    os.replace(tmp, path)
+
+
+def load_attack_state(path, device="cpu"):
+    """:return: (state with its tensors on ``device``, meta)"""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = {k: v.to(device) if torch.is_tensor(v) else v
+             for k, v in blob["state"].items()}
+    return state, blob["meta"]
 
 
 # flags of parts that are not ported: (flag, applies to clean runs too)
-_UNPORTED_FLAGS = (("use_unseen_views", False), ("use_clean_color", True),
-                   ("use_clean_density", True), ("use_purification", False),
-                   ("def_random_noise", False), ("geo_noise", False))
+_UNPORTED_FLAGS = (("use_clean_color", True), ("use_clean_density", True),
+                   ("use_purification", False), ("def_random_noise", False),
+                   ("geo_noise", False))
 
 
 class Evaluator:
@@ -107,14 +143,28 @@ class Evaluator:
         self.render_cfg = render_config_from_args(args)
         self.bundle = bundle if bundle is not None else create_model(
             args=args, seed=seed, device=self.device)
-        self.test_dataset = dataset_dict[args.eval_dataset](
-            args, "test", scenes=args.eval_scenes, **(dataset_kwargs or {}))
+        self.dataset_kwargs = dataset_kwargs or {}
+        self.test_dataset = self._dataset("test")
         self._bspg_specs = {}  # n_src -> (spec_feat, spec_rgb)
         self._bspg_hw = None
+        self._said_per_tap = False
         # the attack's random draws (delta's init, the ray subsets)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
         self.last_attack = None  # losses and seconds of the newest attack
+
+    def _dataset(self, mode, **kwargs):
+        args = self.args
+        return dataset_dict[args.eval_dataset](
+            args, mode, scenes=args.eval_scenes, **kwargs,
+            **self.dataset_kwargs)
+
+    def global_src(self, clean_feats=False):
+        """The global source set, shared by every target view: the test
+        split's first sample with ``use_glb_src`` as ``--use_center_view``
+        says."""
+        data = self._dataset("test", use_glb_src=self.args.use_center_view)[0]
+        return self._make_src(data, clean_feats=clean_feats)
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -149,13 +199,24 @@ class Evaluator:
 
     def view_render_cfg(self, n_src):
         """Render config for whole-frame renders with ``n_src`` source views;
-        plans BSPG on first use (numpy, host)."""
+        plans BSPG on first use (numpy, host). ``--gnt_fused_vt`` is read
+        here only: the view-attention kernel has no backward, so the attack
+        step's config never carries it."""
         args = self.args
+        gnt = args.backbone == "gnt"
         base = dataclasses.replace(
             self.render_cfg, gnt_fused_chain=self._fused_chain(),
-            gnt_fused_attn=(args.backbone == "gnt" and getattr(
-                args, "gnt_fused_attn", "auto") == "on"))
+            gnt_fused_attn=(gnt and getattr(
+                args, "gnt_fused_attn", "auto") == "on"),
+            gnt_fused_vt=gnt and bool(getattr(args, "gnt_fused_vt", False)))
         if not getattr(args, "use_bspg", True):
+            return base
+        if getattr(args, "perturb_camera", False):
+            if not self._said_per_tap:
+                print("--perturb_camera moves the source cameras out of the "
+                      "BSPG plan: whole-frame renders take the per-tap "
+                      "gather", flush=True)
+                self._said_per_tap = True
             return base
         if n_src in self._bspg_specs:
             return dataclasses.replace(base,
@@ -250,19 +311,105 @@ class Evaluator:
                       f"loss={float(aux['loss']):.5f} "
                       f"({(time.perf_counter() - t0) / (i + 1) * 1e3:.0f} "
                       "ms/iter)", flush=True)
+        self._record_attack(t0, losses)
+        return self._finalize(state, src, cfg)
+
+    def _record_attack(self, t0, losses):
         self._sync()
         self.last_attack = {
-            "seconds": time.perf_counter() - t0, "iters": n_iters,
+            "seconds": time.perf_counter() - t0, "iters": len(losses),
             "losses": (torch.stack(losses).cpu() if losses
                        else torch.zeros(0))}
-        return self._finalize(state, src)
 
-    def _finalize(self, state, src):
+    def attack_universal(self, verbose=False, ckpt_path=None):
+        """Optimize one ``delta`` on the global source set over train-split
+        target views, one per iteration, streamed by a shuffled loader (seed
+        0). Under ``--use_unseen_views`` each target's pose is replaced by
+        one interpolated between three of the train split's render poses.
+        ``delta`` starts from a draw of the evaluator's generator. Returns
+        (delta, src_glb, src_cameras), the cameras moved by
+        the camera-pose attack's parameters; ``last_attack`` as for the
+        view-specific loop, over the iterations this call ran.
+
+        ``ckpt_path``: the attack state, the iterations done and the states
+        of the random streams are saved there every ``--i_attack_ckpt``
+        iterations and at the end; a file found there is resumed from, the
+        loader skipped ahead, so that the resumed run repeats the unbroken
+        one.
+        """
+        args = self.args
+        train_dataset = self._dataset("train")
+        render_poses = getattr(train_dataset, "render_poses_spiral", None)
+        if render_poses is None:
+            render_poses = getattr(train_dataset, "render_poses", None)
+        rng = np.random.RandomState(0)  # the unseen poses
+        n_iters = args.adv_iters
+        ckpt_every = int(getattr(args, "i_attack_ckpt", 0) or 0)
+        state, start_iter = None, 0
+        if ckpt_path and os.path.exists(ckpt_path):
+            state, meta = load_attack_state(ckpt_path, self.device)
+            start_iter = int(meta["iters_done"])
+            self.generator.set_state(meta["generator"])
+            rng.set_state(meta["pose_rng"])
+            if verbose:
+                print(f"  resuming universal attack from iter {start_iter}",
+                      flush=True)
+        it = iter(Loader(train_dataset, shuffle=True, seed=0,
+                         num_workers=args.workers, infinite=True,
+                         skip=start_iter))
+        data = next(it)
+        target, (h, w) = self._make_target(data)
+        cfg = build_attack_config(args, h, w)
+        step = make_attack_step(self.bundle, self._grad_render_cfg(), cfg)
+        src = self.global_src(clean_feats=cfg.use_pseudo_gt)
+        if state is None:
+            state = init_attack_state(self.generator, cfg, src["rgbs"])
+
+        every = max(1, n_iters // 10)
+        losses = []
+        self._sync()
+        t0 = time.perf_counter()
+        for i in range(start_iter, n_iters):
+            if args.use_unseen_views:
+                pose = sample_unseen_pose(
+                    rng, render_poses, interp_upbound=args.interp_upbound,
+                    decouple=args.decouple_interp_range,
+                    upbound_rot=args.interp_upbound_rot,
+                    upbound_trans=args.interp_upbound_trans,
+                    sample_based_on_depth=args.sample_based_on_depth,
+                    beta=args.beta, temp=args.temp)
+                cam = np.asarray(data["camera"]).copy()
+                cam[18:34] = pose.reshape(-1)[:16]
+                data = dict(data, camera=cam)
+            target, _ = self._make_target(data)
+            state, aux = step(state, target, src, generator=self.generator)
+            losses.append(aux["loss"])
+            data = next(it)
+            done = i + 1
+            if verbose and (done % every == 0 or done == n_iters):
+                print(f"  universal iter {done}/{n_iters} "
+                      f"loss={float(aux['loss']):.5f} "
+                      f"({(time.perf_counter() - t0) / (done - start_iter) * 1e3:.0f}"
+                      " ms/iter)", flush=True)
+            if ckpt_path and ckpt_every and (done % ckpt_every == 0
+                                             or done == n_iters):
+                save_attack_state(ckpt_path, state, {
+                    "iters_done": done,
+                    "generator": self.generator.get_state(),
+                    "pose_rng": rng.get_state()})
+        self._record_attack(t0, losses)
+        return self._finalize(state, src, cfg)
+
+    def _finalize(self, state, src, cfg):
         for name in ("use_purification", "def_random_noise"):
             if getattr(self.args, name, 0):
                 raise NotImplementedError(
                     f"not ported to nerfool_tpu_torch: --{name}")
-        return state["delta"], src, src["cameras"]
+        src_cameras = src["cameras"]
+        if cfg.perturb_camera:
+            src_cameras = transform_src_cameras(src_cameras, state["rot"],
+                                                state["trans"])
+        return state["delta"], src, src_cameras
 
     def render_view(self, data, src, delta=None, src_cameras=None):
         """Whole-frame render of one test view from its source views, whose
@@ -299,10 +446,6 @@ class Evaluator:
 
     def _check_ported(self):
         args = self.args
-        if not args.view_specific:
-            raise NotImplementedError(
-                "not ported to nerfool_tpu_torch: the universal attack and "
-                "the global source set (pass --view_specific)")
         bad = [name for name, clean_too in _UNPORTED_FLAGS
                if getattr(args, name, 0) and (clean_too or not args.no_attack)]
         if bad:
@@ -311,12 +454,16 @@ class Evaluator:
                 + ", ".join(f"--{name}" for name in bad))
 
     def evaluate(self, max_views=None, verbose=True, out_dir=None):
-        """Attack (per view, unless ``--no_attack``), render and measure
-        every test view. Returns the results dict keyed like the JAX
+        """Attack (once on the global source set, or per view under
+        ``--view_specific``; not at all under ``--no_attack``), render and
+        measure every test view. Returns the results dict keyed like the JAX
         evaluator's (per-view rows plus means), also written to
         ``out_dir/psnr_<scene>.txt`` when given; rows also carry
         ``render_seconds``, host time of the render ending in a device
-        synchronize, and after an attack ``attack_seconds``."""
+        synchronize, and after a view-specific attack ``attack_seconds``
+        (the universal attack's are under the scene's ``attack_seconds``).
+        With ``--i_attack_ckpt`` and an ``out_dir`` the universal attack is
+        checkpointed to and resumed from ``out_dir/attack_state.pt``."""
         args = self.args
         self._check_ported()
         scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
@@ -328,13 +475,32 @@ class Evaluator:
         if max_views:
             n_views = min(n_views, max_views)
 
-        delta = None
+        delta = src_glb = cams = None
+        if not args.view_specific:
+            if args.no_attack:
+                src_glb = self.global_src()
+            else:
+                if verbose:
+                    print("universal attack on the global source set "
+                          f"({args.adv_iters} iters)...", flush=True)
+                ckpt = (os.path.join(out_dir, "attack_state.pt")
+                        if out_dir and getattr(args, "i_attack_ckpt", 0)
+                        else None)
+                if ckpt:
+                    os.makedirs(out_dir, exist_ok=True)
+                delta, src_glb, cams = self.attack_universal(
+                    verbose=verbose, ckpt_path=ckpt)
+                results[scene]["attack_seconds"] = self.last_attack["seconds"]
+
         for i in range(n_views):
             data = self.test_dataset[i]
             file_id = (os.path.splitext(os.path.basename(data["rgb_path"]))[0]
                        or f"view{i:03d}")
             row = {}
-            if args.no_attack:
+            view_cams = None  # the source set's own cameras
+            if src_glb is not None:
+                src, view_cams = src_glb, cams
+            elif args.no_attack:
                 src = self._make_src(data)
             elif args.use_trans_attack and i > 0:
                 # transfer attack: view 0's delta on this view's sources
@@ -343,13 +509,13 @@ class Evaluator:
                 if verbose:
                     print(f"[{file_id}] view-specific attack "
                           f"({args.adv_iters} iters)...", flush=True)
-                delta, src, _ = self.attack_view_specific(data,
-                                                          verbose=verbose)
+                delta, src, view_cams = self.attack_view_specific(
+                    data, verbose=verbose)
                 row["attack_seconds"] = self.last_attack["seconds"]
             self._sync()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                ret = self.render_view(data, src, delta)
+                ret = self.render_view(data, src, delta, view_cams)
             self._sync()
             row["render_seconds"] = time.perf_counter() - t0
             gt = self._tensor(np.asarray(data["rgb"])[::args.render_stride,

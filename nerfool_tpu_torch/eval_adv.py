@@ -1,16 +1,23 @@
 """Adversarial evaluation on the port, the counterpart of
-``scripts/eval_adv.py``: per test view, ``--adv_iters`` attack iterations on
-the source-view perturbation, then the whole-frame render with the perturbed
-sources and PSNR/SSIM.
+``scripts/eval_adv.py``. With ``--view_specific``: per test view,
+``--adv_iters`` attack iterations on the perturbation of the view's own
+sources, then the whole-frame render from the perturbed sources. Without it,
+the universal attack: one perturbation of the global source set, optimised
+over streamed train-split target views, then every test view rendered from
+that set. PSNR/SSIM per view and their means.
 
     python -m nerfool_tpu_torch.eval_adv --config configs/ibrnet/eval_llff.txt \\
-        --view_specific --adv_iters 1000 --epsilon 8 --use_adam \\
-        --adam_lr 1e-3 --adv_lr 1 [--backbone gnt --gnt_fused_attack True] \\
-        [--device cuda] [--seed 0] [--max_views N] [--dataset_kwargs JSON]
+        [--view_specific] --adv_iters 1000 --epsilon 8 --use_adam \\
+        --adam_lr 1e-3 --adv_lr 1 [--use_pseudo_gt --use_center_view] \\
+        [--backbone gnt --gnt_fused_attack True --gnt_fused_attn on \\
+         --gnt_fused_vt True] [--device cuda] [--seed 0] [--max_views N] \\
+        [--dataset_kwargs JSON]
 
-Runs on the card unless ``--device cpu``. ``--no_attack --view_specific``
-gives the clean rows. Results go to ``<eval_dataset>/<expname>/<scene>/
-psnr_<scene>.txt``; the image dumps of the JAX evaluator are not ported.
+Runs on the card unless ``--device cpu``. ``--no_attack`` gives the clean
+rows of either mode. Results go to ``<eval_dataset>/<expname>/<scene>/
+psnr_<scene>.txt``, with ``--i_attack_ckpt N`` the universal attack's state
+to ``attack_state.pt`` beside it (resumed from when present); the image
+dumps of the JAX evaluator are not ported.
 """
 from __future__ import annotations
 

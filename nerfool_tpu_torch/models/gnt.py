@@ -10,7 +10,10 @@ compositing weights.
 
 ``fused_attn`` sends every ray attention through the hand-written kernel of
 ``ops/ray_attention.py`` (forward and backward) instead of materialising
-the ``[R, H, S, S]`` map.
+the ``[R, H, S, S]`` map. ``fused_vt`` sends every view attention through the
+kernel of ``ops/view_attention.py``, which streams the views and keeps every
+``[V, R, S, .]`` intermediate out of device memory; it is forward only, for
+no-grad renders.
 
 Operands are views-first ``[V, R, S, C]``. Every product runs in the
 operand dtype with the weights cast to it, as the JAX module does, so a
@@ -27,6 +30,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from nerfool_tpu_torch.ops import view_attention as va
 
 
 def nerf_embed(x, num_freqs=10, max_freq_log2=9):
@@ -80,7 +85,16 @@ class ViewAttention(nn.Module):
 
     ``k_fc`` and ``v_fc`` chain with no nonlinearity between them, so one
     ``[D, 2D]`` product ``k @ [Wk | Wk @ Wv]`` gives both the keys and the
-    values, as the JAX module computes it.
+    values, as the JAX module computes it (``Wk @ Wv`` from the f32 weights,
+    cast to the operands' dtype once).
+
+    The module path is the plain version of the view-attention kernel
+    (``ops/view_attention.view_attention_plain``, differentiable tensor
+    ops). ``fused`` routes the forward through the kernel's wrapper
+    instead (the CUDA kernel on the card), which is forward only and raises
+    where autograd would need its gradient; ``lane_pack`` names the TPU
+    kernel's lane-packed formulation of the same function. float64 input
+    keeps the module path.
     """
 
     def __init__(self, dim):
@@ -92,23 +106,27 @@ class ViewAttention(nn.Module):
         self.attn_fc = _mlp2(dim, dim // 8, dim)
         self.out_fc = nn.Linear(dim, dim)
 
-    def forward(self, q, k, pos, mask):
+    def forward(self, q, k, pos, mask, fused=False, lane_pack=False):
         """:param q: [R, S, D]; k: [V, R, S, D]; pos: [V, R, S, 4];
         mask: [V, R, S, 1]
         :return: [R, S, D]
         """
-        d = q.shape[-1]
-        dt = k.dtype
-        qp = q @ self.q_fc.weight.t().to(q.dtype)
-        wk = self.k_fc.weight.t().to(dt)
-        wkv = torch.cat([wk, wk @ self.v_fc.weight.t().to(dt)], dim=-1)
-        kv = k @ wkv
-        kp, v = kv[..., :d], kv[..., d:]
-        pos = mlp2(pos, self.pos_fc)
-        attn = mlp2(kp - qp[None] + pos, self.attn_fc)
-        attn = attn.masked_fill(mask == 0, -1e9)
-        attn = torch.softmax(attn, dim=0)  # over views, per channel
-        return linear(torch.sum((v + pos) * attn, dim=0), self.out_fc)
+        wk = self.k_fc.weight.t()
+        weights = (self.q_fc.weight.t(),
+                   torch.cat([wk, wk @ self.v_fc.weight.t()], dim=-1),
+                   self.pos_fc[0].weight.t(), self.pos_fc[0].bias,
+                   self.pos_fc[2].weight.t(), self.pos_fc[2].bias,
+                   self.attn_fc[0].weight.t(), self.attn_fc[0].bias,
+                   self.attn_fc[2].weight.t(), self.attn_fc[2].bias,
+                   self.out_fc.weight.t(), self.out_fc.bias)
+        if not fused or k.dtype == torch.float64:
+            return va.view_attention_plain(q, k, pos, mask, *weights)
+        v, r, s, d = k.shape
+        out = va.view_attention(
+            q.reshape(r * s, d), k.reshape(v, r * s, d),
+            pos.reshape(v, r * s, pos.shape[-1]), mask.reshape(v, r * s, 1),
+            *weights, lane_pack=lane_pack)
+        return out.reshape(r, s, d)
 
 
 class ViewTransformer(nn.Module):
@@ -121,8 +139,9 @@ class ViewTransformer(nn.Module):
         self.ff = FeedForward(dim, 4 * dim)
         self.attn = ViewAttention(dim)
 
-    def forward(self, q, k, pos, mask):
-        x = self.attn(layer_norm(q, self.attn_norm), k, pos, mask) + q
+    def forward(self, q, k, pos, mask, fused=False, lane_pack=False):
+        x = self.attn(layer_norm(q, self.attn_norm), k, pos, mask,
+                      fused=fused, lane_pack=lane_pack) + q
         return self.ff(layer_norm(x, self.ff_norm)) + x
 
 
@@ -226,9 +245,10 @@ class GNTAggregator(nn.Module):
         return torch.cat([rgb, attn], dim=1) if self.ret_alpha else rgb
 
     def chain(self, rgb_feat, ray_diff, mask, pts_emb, views_emb,
-              fused_attn=False):
+              fused_attn=False, fused_vt=False, fused_vt_lp=False):
         """The ``trans_depth`` blocks: what the chain kernel (``ops/chain.py``)
-        computes, and its plain version (``fused_attn`` off).
+        computes, and its plain version (``fused_attn`` and ``fused_vt``
+        off).
 
         :return: (q [R, S, D] before the final LayerNorm, attn0 [R, S] the
             last ray attention's head-mean first-query row)
@@ -237,22 +257,30 @@ class GNTAggregator(nn.Module):
         q = torch.max(x, dim=0).values  # max-pool over views
         attn = None
         for i in range(self.trans_depth):
-            q = self.view_crosstrans[i](q, x, ray_diff, mask)
+            q = self.view_crosstrans[i](q, x, ray_diff, mask, fused=fused_vt,
+                                        lane_pack=fused_vt_lp)
             if i % 2 == 0:  # replaces q, no residual
                 q = mlp2(torch.cat([q, pts_emb, views_emb], dim=-1),
                          self.q_fcs[i])
             q, attn = self.view_selftrans[i](q, fused_attn=fused_attn)
         return q, attn
 
-    def forward(self, rgb_feat, ray_diff, mask, pts, ray_d, fused_attn=False):
+    def forward(self, rgb_feat, ray_diff, mask, pts, ray_d, fused_attn=False,
+                fused_vt=False, fused_vt_lp=False):
         """
         :param rgb_feat: [V, R, S, 3 + in_feat_ch]; ray_diff: [V, R, S, 4];
             mask: [V, R, S, 1]
         :param pts: [R, S, 3] sample points; ray_d: [R, 3]
         :param fused_attn: every ray attention through the fused kernel
             (``RenderConfig.gnt_fused_attn``)
+        :param fused_vt: every view attention through the fused kernel,
+            forward only (``RenderConfig.gnt_fused_vt``); ``fused_vt_lp``:
+            its lane-packed formulation, the same function, meaningful only
+            with ``fused_vt``
         :return: [R, 3], or [R, 3 + S] under ``ret_alpha``
         """
         pts_emb, views_emb = self.embeddings(pts, ray_d)
-        return self.head(*self.chain(rgb_feat, ray_diff, mask, pts_emb,
-                                     views_emb, fused_attn=fused_attn))
+        return self.head(*self.chain(
+            rgb_feat, ray_diff, mask, pts_emb, views_emb,
+            fused_attn=fused_attn, fused_vt=fused_vt,
+            fused_vt_lp=fused_vt_lp))

@@ -1,9 +1,12 @@
-"""Where an attack iteration's time goes on the card: device time by kernel.
+"""Where an attack iteration's and an attacked render's time goes on the
+card: device time by kernel.
 
     python -m nerfool_tpu_torch.profile_attack <eval_adv flags>
 
 Takes the flags of ``python -m nerfool_tpu_torch.eval_adv`` and nothing of
-its own. On the first test view it runs 2 warm-up iterations and 10
+its own: with ``--view_specific`` the attack on the first test view's own
+sources, without it the universal attack on the global source set. It runs
+2 warm-up iterations and 10
 unprofiled ones (host clock, ending in a device synchronize); for GNT it
 takes that timing for both routes of the ray attention in one process, in the
 order fused, unfused, unfused, fused (``--gnt_fused_attack`` True and
@@ -12,8 +15,12 @@ iterations of the route the flags name run under ``torch.profiler`` (CPU and
 CUDA activities). Printed: the card's name and power limit, the unprofiled ms
 per iteration and peak device memory of every timed run, and the profiled
 window's device time by kernel and by PyTorch operator, with the share of the
-window's wall time the device was busy.
-No BSPG plan is made: the attack gathers per tap.
+window's wall time the device was busy. Last, the whole-frame render of the
+first test view from the attacked sources, on the route the flags name
+(``--gnt_fused_attn``, ``--gnt_fused_vt``, ``--use_bspg``: BSPG is planned
+on the host first, ``--use_bspg False`` renders per tap without a plan):
+one warm-up render, one timed, one under the profiler with the same tables.
+The attack itself gathers per tap.
 """
 from __future__ import annotations
 
@@ -34,15 +41,57 @@ def _device_us(evt):
     return 0.0
 
 
+def _attack(ev, data):
+    """(delta, src, src_cameras) of ``args.adv_iters`` iterations."""
+    if ev.args.view_specific:
+        return ev.attack_view_specific(data)
+    return ev.attack_universal()
+
+
 def _timed(ev, data):
     """(ms per iteration, peak GiB) of TIMED_ITERS after WARMUP_ITERS."""
     ev.args.adv_iters = WARMUP_ITERS
-    ev.attack_view_specific(data)
+    _attack(ev, data)
     ev.args.adv_iters = TIMED_ITERS
     torch.cuda.reset_peak_memory_stats()
-    ev.attack_view_specific(data)
+    _attack(ev, data)
     return (ev.last_attack["seconds"] / TIMED_ITERS * 1e3,
             torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _profile(fn, label, per):
+    """Run ``fn`` under the profiler and print its device time by kernel and
+    by operator, per ``per`` units of work. Returns (fn's result, tables)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = torch.autograd.DeviceType.CUDA
+    tables = {}
+    for title, want_kernels in (("kernel", True), ("operator", False)):
+        rows = sorted(((_device_us(e) / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if (e.device_type == on_device) == want_kernels),
+                      reverse=True)
+        tables[title] = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in tables["kernel"])
+    print(f"profiled window, {label}: wall {wall_ms:.1f} ms, device kernel "
+          f"time {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of wall)")
+    # kernels: every device kernel once; operators: the same device time
+    # attributed to the PyTorch operator that launched it (hand-written
+    # kernels launched through ctypes appear under kernels only)
+    for title, rows in tables.items():
+        print(f"-- device time by {title}")
+        print(f"{'ms':>10} {'share':>7} {'calls':>10}  {title}, per "
+              f"{'iteration' if per > 1 else 'frame'}")
+        for dev_ms, count, key in rows[:TOP]:
+            print(f"{dev_ms / per:10.3f} {100 * dev_ms / busy:6.1f}% "
+                  f"{count / per:10.1f}  {key[:90]}")
+    return out, tables
 
 
 def main(argv=None):
@@ -72,36 +121,29 @@ def main(argv=None):
     args.gnt_fused_attack = route
 
     args.adv_iters = PROFILE_ITERS
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    (delta, src, cams), tables = _profile(
+        lambda: _attack(ev, data),
+        f"{PROFILE_ITERS} iterations, gnt_fused_attack {route}",
+        PROFILE_ITERS)
+
+    def render():
+        with torch.inference_mode():
+            return ev.render_view(data, src, delta, cams)["outputs_coarse"]
+
+    cfg = ev.view_render_cfg(int(cams.shape[0]))  # plans BSPG on the host
+    render()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        ev.attack_view_specific(data)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    on_device = torch.autograd.DeviceType.CUDA
-    tables = {}
-    for title, want_kernels in (("kernel", True), ("operator", False)):
-        rows = sorted(((_device_us(e) / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if (e.device_type == on_device) == want_kernels),
-                      reverse=True)
-        tables[title] = [r for r in rows if r[0] > 0]
-    busy = sum(r[0] for r in tables["kernel"])
-    n = PROFILE_ITERS
-    print(f"profiled window, gnt_fused_attack {route}: {n} iterations, wall "
-          f"{wall_ms:.1f} ms, device kernel time {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}% of wall)")
-    # kernels: every device kernel once; operators: the same device time
-    # attributed to the PyTorch operator that launched it (hand-written
-    # kernels launched through ctypes appear under kernels only)
-    for title, rows in tables.items():
-        print(f"-- device time by {title}")
-        print(f"{'ms/iter':>10} {'share':>7} {'calls/iter':>10}  {title}")
-        for dev_ms, count, key in rows[:TOP]:
-            print(f"{dev_ms / n:10.3f} {100 * dev_ms / busy:6.1f}% "
-                  f"{count / n:10.1f}  {key[:90]}")
+    n_rays = render()["rgb"][..., 0].numel()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    label = (f"attacked whole-frame render, "
+             f"{'BSPG' if cfg.bspg_specs is not None else 'per tap'}, "
+             f"gnt_fused_attn {cfg.gnt_fused_attn}, gnt_fused_vt "
+             f"{cfg.gnt_fused_vt}")
+    print(f"{label}: {n_rays} rays in {seconds:.3f} s unprofiled "
+          f"({n_rays / seconds:.1f} rays/s)", flush=True)
+    tables["render"] = _profile(render, label, 1)[1]
     return tables
 
 

@@ -44,6 +44,10 @@ class RenderConfig:
     backbone: str = "ibrnet"  # 'ibrnet' | 'gnt'
     single_net: bool = False  # gnt: net_coarse also renders the fine pass
     ret_alpha: bool = True  # gnt: return attention weights as density
+    # detach the source cameras before projecting on the per-tap route: the
+    # IBRNet stack does, the GNT stack does not (camera-pose attack
+    # gradients flow through the projection)
+    stop_camera_grad: bool = True
     # aggregator dtype: 'float32' or 'bfloat16'
     compute_dtype: str = "float32"
     # gnt in bfloat16: run the aggregation through the whole-chain kernel
@@ -54,6 +58,13 @@ class RenderConfig:
     # kernel), so it serves no-grad renders and the attack step alike;
     # float64 inputs keep the module path
     gnt_fused_attn: bool = False
+    # gnt: run every view attention through the fused kernel
+    # (ops/view_attention.py). Forward only: for no-grad renders, never for
+    # the attack step; float64 inputs keep the module path
+    gnt_fused_vt: bool = False
+    # the TPU kernel's lane-packed formulation of the same function: routes
+    # to the same kernel; only meaningful with gnt_fused_vt
+    gnt_fused_vt_lp: bool = False
     # (spec_feat, spec_rgb) BSPGSpec pair from the host planner: rays arrive
     # block-major and taps are rebuilt from per-(block, view) patch rows;
     # None keeps the per-tap gather
@@ -94,7 +105,8 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d):
         raw = fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d)
     else:
         raw = net(rgb_feat, ray_diff, mask, pts, ray_d,
-                  fused_attn=cfg.gnt_fused_attn)
+                  fused_attn=cfg.gnt_fused_attn, fused_vt=cfg.gnt_fused_vt,
+                  fused_vt_lp=cfg.gnt_fused_vt_lp)
     return raw.float()
 
 
@@ -137,7 +149,9 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
 
     def run_level(pts_l, z_l, li):
         rgb, feat, ray_diff, mask = epipolar_gather_components(
-            pts_l, cam, src_rgbs, src_cameras, featmaps[li])
+            pts_l, cam, src_rgbs,
+            src_cameras.detach() if cfg.stop_camera_grad else src_cameras,
+            featmaps[li])
         raw = _shade(cfg, nets, li, torch.cat([rgb, feat], dim=-1), ray_diff,
                      mask, pts_l, ray_batch["ray_d"])
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1

@@ -54,3 +54,41 @@ def get_rays_at(sel, w, intrinsics, c2w):
     rays_d = (c2w[:3, :3] @ (k_inv @ pixels)).T.contiguous()
     rays_o = c2w[:3, 3].expand_as(rays_d)
     return rays_o, rays_d
+
+
+def rotation_matrix_from_euler(rot):
+    """Differentiable rotation matrix from 3 angles (radians), ``R = Rz(dz)
+    @ Ry(dy) @ Rx(dx)`` with the reference's per-axis layouts: it names them
+    rot_x / rot_y / rot_z but builds a rotation about z from ``dx``, about y
+    from ``dy`` and about x from ``dz``; replicated.
+
+    :param rot: [..., 3]
+    :return: [..., 3, 3]
+    """
+    dx, dy, dz = rot[..., 0], rot[..., 1], rot[..., 2]
+    zeros, ones = torch.zeros_like(dx), torch.ones_like(dx)
+    cx, sx = torch.cos(dx), torch.sin(dx)
+    cy, sy = torch.cos(dy), torch.sin(dy)
+    cz, sz = torch.cos(dz), torch.sin(dz)
+    mat = lambda *rows: torch.stack(rows, dim=-1).reshape(dx.shape + (3, 3))
+    rot_x = mat(cx, -sx, zeros, sx, cx, zeros, zeros, zeros, ones)
+    rot_y = mat(cy, zeros, sy, zeros, ones, zeros, -sy, zeros, cy)
+    rot_z = mat(ones, zeros, zeros, zeros, cz, -sz, zeros, sz, cz)
+    return rot_z @ rot_y @ rot_x
+
+
+def transform_src_cameras(src_cameras, rot, trans):
+    """Apply per-view rotation and translation perturbations to source
+    cameras: the rotations are left-multiplied onto the c2w rotation block,
+    the translations added to its last column, and the bottom row of the
+    4x4 keeps its values. Differentiable in ``rot`` and ``trans``.
+
+    :param src_cameras: [V, 34]
+    :param rot: [V, 3] angles (radians); trans: [V, 3]
+    :return: [V, 34] perturbed camera vectors
+    """
+    c2w = src_cameras[:, 18:34].reshape(-1, 4, 4)
+    rot_new = rotation_matrix_from_euler(rot) @ c2w[:, :3, :3]
+    trans_new = c2w[:, :3, 3] + trans
+    top = torch.cat([rot_new, trans_new[..., None]], dim=-1).reshape(-1, 12)
+    return torch.cat([src_cameras[:, :18], top, src_cameras[:, 30:34]], dim=-1)

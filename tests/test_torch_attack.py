@@ -1,6 +1,8 @@
 """The port's attack step (``nerfool_tpu_torch/attack``) against the JAX
 package on the CPU: perturbation helpers, every loss term, ray selection, the
-Adam and sign-PGD updates, and one whole attack step per backbone.
+Adam and sign-PGD updates, and one whole attack step per backbone. The
+camera-pose attack, gradient surgery and the universal loop are in
+tests/test_torch_universal.py.
 
 Inputs come from numpy seeds and go through both packages; weights are the
 JAX bundle's, carried over by ``convert.params_from_flax``. JAX keys and
@@ -332,14 +334,26 @@ def test_every_loss_term_matches_jax():
 # ---- what is not ported raises ----
 
 @pytest.mark.parametrize("flag,value", [
-    ("use_pcgrad", True), ("perturb_camera", True),
-    ("perturb_camera_no_opt", True), ("depth_consistency_loss", 0.5),
-    ("camera_consistency_loss", 0.5), ("ds_rgb", True)])
+    ("depth_consistency_loss", 0.5), ("camera_consistency_loss", 0.5),
+    ("ds_rgb", True)])
 def test_unported_attack_options_raise(flag, value):
     tb = create_model(backbone="ibrnet", seed=0)
     cfg = t_attack.AttackConfig(h=H, w=W, **{flag: value})
+    assert cfg.unported() == [flag]
     with pytest.raises(NotImplementedError, match=flag):
         t_attack.make_attack_step(tb, RenderConfig(n_samples=8), cfg)
+
+
+@pytest.mark.parametrize("flag", ["use_pcgrad", "perturb_camera",
+                                  "perturb_camera_no_opt"])
+def test_ported_attack_options_build_a_step(flag):
+    """Gradient surgery and the camera-pose attack are ported: their flags
+    are no longer listed as missing, and a step is built."""
+    tb = create_model(backbone="ibrnet", seed=0)
+    cfg = t_attack.AttackConfig(h=H, w=W, **{flag: True})
+    assert cfg.unported() == []
+    assert callable(t_attack.make_attack_step(tb, RenderConfig(n_samples=8),
+                                              cfg))
 
 
 def test_density_loss_needs_pseudo_gt():

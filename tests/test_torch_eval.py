@@ -14,7 +14,8 @@ the port to the same bounds with GNT's protocol (img2psnr, windowed SSIM).
 The attacked evaluator (``python -m nerfool_tpu_torch.eval_adv``) is driven
 on the CPU for both backbones: finite rows after 2 iterations, the clean
 rows exactly under a zero perturbation (``--epsilon 0``), the transfer
-attack, and a clear error for every option that is not ported. Attacked
+attack, and a clear error for every option that is not ported (the universal
+attack's own cases are in tests/test_torch_universal.py). Attacked
 metrics are not compared with JAX's: trajectories diverge chaotically after
 a few iterations; tests/test_torch_attack.py compares single steps.
 """
@@ -234,7 +235,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_port_config_defaults_equal_the_jax_packages(tmp_path):
     """The port's own flag parser: every flag of the JAX package's parser
     with the same default, from no arguments and from both slice configs;
-    ``port_parser`` adds only the port's four flags."""
+    ``port_parser`` adds only the port's five flags."""
     for argv in ([], ["--config", os.path.join(REPO, "configs/gnt/gnt_full.txt")],
                  ["--config", os.path.join(REPO, "configs/ibrnet/eval_llff.txt"),
                   "--view_specific", "--adv_iters", "1000", "--epsilon", "8",
@@ -243,7 +244,7 @@ def test_port_config_defaults_equal_the_jax_packages(tmp_path):
         assert vars(config_parser().parse_args(argv)) == ref
         got = vars(port_parser().parse_args(argv))
         assert set(got) - set(ref) == {"device", "seed", "max_views",
-                                       "dataset_kwargs"}
+                                       "dataset_kwargs", "gnt_fused_vt"}
         assert {k: got[k] for k in ref} == ref
 
 
@@ -320,9 +321,10 @@ def test_transfer_attack_reuses_the_first_views_delta(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    ((), "universal"),  # no --view_specific: the universal attack
-    (("--view_specific", "--use_pcgrad"), "use_pcgrad"),
-    (("--view_specific", "--perturb_camera"), "perturb_camera"),
+    (("--view_specific", "--geo_noise", "0.1"), "geo_noise"),
+    (("--view_specific", "--use_pcgrad", "--ds_rgb"), "ds_rgb"),
+    (("--view_specific", "--perturb_camera", "--camera_consistency_loss",
+      "0.5"), "camera_consistency_loss"),
     (("--view_specific", "--depth_consistency_loss", "0.5"),
      "depth_consistency_loss"),
     (("--view_specific", "--camera_consistency_loss", "0.5"),
@@ -330,7 +332,8 @@ def test_transfer_attack_reuses_the_first_views_delta(tmp_path, monkeypatch):
     (("--view_specific", "--ds_rgb"), "ds_rgb"),
     (("--view_specific", "--use_purification"), "use_purification"),
     (("--view_specific", "--def_random_noise", "0.1"), "def_random_noise"),
-    (("--view_specific", "--use_unseen_views"), "use_unseen_views"),
+    (("--view_specific", "--use_unseen_views", "--use_purification"),
+     "use_purification"),
     (("--view_specific", "--use_clean_color"), "use_clean_color"),
     (("--view_specific", "--no_attack", "--use_clean_density"),
      "use_clean_density"),

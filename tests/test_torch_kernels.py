@@ -1,6 +1,7 @@
 """The kernel wrappers and their CUDA kernels: BSPG selection
-(``ops/bspg_select.py``), the whole GNT chain (``ops/chain.py``) and the ray
-attention, forward and backward (``ops/ray_attention.py``).
+(``ops/bspg_select.py``), the whole GNT chain (``ops/chain.py``), the ray
+attention, forward and backward (``ops/ray_attention.py``), and the view
+attention (``ops/view_attention.py``).
 
 This file imports no JAX, so it also runs on the card:
 
@@ -20,6 +21,7 @@ import torch
 
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.ops import bspg_select, chain, ray_attention as ra
+from nerfool_tpu_torch.ops import view_attention as va
 
 
 def _taps_inputs(rng, n_rv=6, ks=21, ns=40, p=4, c=3, dtype=torch.float32,
@@ -392,3 +394,120 @@ def test_ray_attention_kernel_raises_on_unsupported_shape():
     x, wqkv, wo, bo, _, _ = _ra_case(2, 400, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         ra.ray_attention_fwd(x, wqkv, wo, bo)
+
+
+# ---- view attention (ops/view_attention.py, csrc/view_attention.cu) ----
+
+def _va_case(v, n, seed=0, dtype=torch.float32, device="cpu", d=64,
+             masked_rows=0):
+    """Seeded operands: qln and k ~ N(0, 1) as after a LayerNorm, ray
+    differences with their dot near 1, ~20% of the views masked and the first
+    ``masked_rows`` rows masked in every view; weights ~ U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) as a Linear's init."""
+    rng = np.random.RandomState(seed)
+    f = lambda x: torch.as_tensor(x.astype(np.float32), device=device)
+    u = lambda i, *shape: f((rng.rand(*shape) * 2 - 1) / np.sqrt(i))
+    pos = 0.1 * rng.randn(v, n, 4)
+    pos[..., 3] = 1.0 - np.abs(pos[..., 3])
+    mask = (rng.rand(v, n, 1) > 0.2).astype(np.float32)
+    mask[:, :masked_rows] = 0.0
+    h = d // 8
+    return (f(rng.randn(n, d)).to(dtype), f(rng.randn(v, n, d)).to(dtype),
+            f(pos).to(dtype), f(mask).to(dtype),
+            u(d, d, d), u(d, d, 2 * d), u(4, 4, h), u(4, h), u(h, h, d),
+            u(h, d), u(d, d, h), u(d, h), u(h, h, d), u(h, d), u(d, d, d),
+            u(d, d))
+
+
+def test_view_attention_cpu_launches_nothing():
+    """CPU tensors take the plain version; rows masked in every view get the
+    uniform 1 / V weights: finite, and equal to the mean over the views."""
+    args = _va_case(3, 15, masked_rows=4)
+    before = va.view_attention.launches
+    out = va.view_attention(*args, lane_pack=True)
+    assert va.view_attention.launches == before
+    torch.testing.assert_close(out, va.view_attention_plain(*args), rtol=0,
+                               atol=0)
+    assert out.shape == (15, 64) and bool(torch.isfinite(out).all())
+    qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1 = args[:10]
+    wo, bo = args[-2:]
+    p = torch.relu(pos @ wp0 + bp0) @ wp1 + bp1
+    mean = torch.mean((k @ wkv)[..., 64:] + p, dim=0) @ wo + bo
+    torch.testing.assert_close(out[:4], mean[:4], rtol=1e-5, atol=1e-5)
+
+
+def test_view_attention_is_forward_only():
+    args = list(_va_case(2, 6))
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        va.view_attention(*args)
+    with torch.no_grad():
+        assert va.view_attention(*args).shape == (6, 64)
+    args[1].requires_grad_(False)
+    args[5].requires_grad_()  # a weight
+    with pytest.raises(RuntimeError, match="forward only"):
+        va.view_attention(*args)
+
+
+def test_view_attention_rejects_bad_inputs():
+    args = list(_va_case(2, 6))
+    with pytest.raises(ValueError, match="wkv"):
+        va.view_attention(*args[:5], args[5][:, :-1], *args[6:])
+    with pytest.raises(ValueError, match="mask"):
+        va.view_attention(*args[:3], args[3][:, :-1], *args[4:])
+    with pytest.raises(ValueError, match="dtype"):
+        va.view_attention(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError, match="device"):
+        va.view_attention(*(t.to("meta") for t in args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,n,masked_rows", [(3, 15, 4), (10, 64, 0),
+                                             (10, 1000, 70), (4, 17000, 5)])
+def test_view_attention_kernel_matches_plain_f32(v, n, masked_rows):
+    """f32: kernel and plain differ in summation order only (4x4-tiled FMA
+    products against cuBLAS, an online softmax against a two-pass one): 1e-5
+    of the output's scale. Covers N below one tile, N not a multiple of the
+    tile, more tiles than blocks, and rows masked in every view."""
+    _require_cuda()
+    args = _va_case(v, n, seed=n, device="cuda", masked_rows=masked_rows)
+    before = va.view_attention.launches
+    with torch.no_grad():
+        out = va.view_attention(*args)
+        torch.cuda.synchronize()
+        assert va.view_attention.launches == before + 1
+        ref = va.view_attention_plain(*args)
+    assert bool(torch.isfinite(out).all())
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_view_attention_kernel_bf16_within_derived_bound():
+    """bf16: kernel and plain bf16 against plain f32 on the same bf16 inputs
+    and bf16-valued weights. The plain bf16 version rounds every product;
+    the kernel keeps f32 inside and rounds only its output, so its error may
+    not exceed the plain version's."""
+    _require_cuda()
+    args = _va_case(10, 5000, seed=3, device="cuda", dtype=torch.bfloat16,
+                    masked_rows=9)
+    with torch.no_grad():
+        ref = va.view_attention_plain(
+            *(t.bfloat16().float() for t in args))
+        got = va.view_attention(*args)
+        plain = va.view_attention_plain(*args)
+    torch.cuda.synchronize()
+    err_k = float((got.float() - ref).abs().max())
+    err_p = float((plain.float() - ref).abs().max())
+    assert err_k <= err_p, (err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_view_attention_kernel_raises_on_unsupported_shape():
+    _require_cuda()
+    args = _va_case(2, 8, device="cuda", d=32)
+    with pytest.raises(ValueError, match="kernel takes"):
+        va.view_attention(*args)
+    args = _va_case(2, 8, device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        va.view_attention(*(t.half() for t in args[:4]), *args[4:])
