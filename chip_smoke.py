@@ -22,9 +22,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
      warm-up render whose outputs are checked finite; K1's launch count
      must grow by tables x levels x chunks x views
   7. K2 vs plain: ``gnt_chain`` against ``gnt_chain_plain`` at the GNT
-     slice's shapes (10 views, 192 samples, depth 8) on a subset of one
-     chunk's rays: f32 to a tight bound, bf16 to a bound derived from the
-     plain bf16 chain's own error; CUDA-event timings of both
+     slice's shapes (10 views, 192 samples, depth 8), with samples masked in
+     every view among the inputs: f32 on 512 rays to a tight bound; bf16
+     (the tensor-core kernel) on 512 rays, on a whole 4096-ray chunk and on
+     the frame's shorter last chunk, to a bound derived from the plain bf16
+     chain's own error; CUDA-event timings of both, at the chunk in turns
+     (kernel, plain, plain, kernel); the kernel's registers, spills, shared
+     memory and resident blocks
   8. GNT cross-device: a small-scene bf16 GNT view rendered on the card
      (K1 + K2) against the CPU's plain bf16 render of the same weights, in
      max and mean abs, to a bound derived from a second card render through
@@ -35,7 +39,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      ``configs/gnt/gnt_full.txt`` (depth 8, 192 samples, single_net,
      ret_alpha) in bf16 at 378x504 (render_stride 2), 10 source views,
      through K1 and K2, after one warm-up render; K2's launch count must
-     equal chunks x levels x views and K1's tables x levels x chunks x views
+     equal chunks x levels x views and K1's tables x levels x chunks x views;
+     then one view in turns through K2 and through the bf16 module path
+     (``--gnt_fused_chain`` on, off, off, on), rays/s of each, and once
+     more through K2 under ``torch.profiler`` (device time by kernel)
  10. K3 vs plain: the ray-attention kernels, forward and backward, through
      their ``autograd.Function`` against ``ray_attention_plain`` and
      ``ray_attention_bwd_plain`` (out, attn0, dx, dWqkv, dWo, dbo) at the
@@ -128,7 +135,8 @@ GNT_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
             "--chunk_size", "4096", "--compute_dtype", "bfloat16",
             "--bspg_block", "4"]
 GNT_VIEWS = 2
-CHAIN_RAYS = 512  # K2 vs plain on a subset of one chunk's rays
+CHAIN_RAYS = 512  # K2 vs plain in f32 and bf16 on a subset of a chunk's rays
+CHAIN_PIECE = 1024  # rays per call of the f32 plain chain (its memory)
 # small GNT scene for the CPU-vs-card check (depth 8, fewer samples)
 GNT_SMALL_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
                   "--eval_dataset", "synthetic", "--eval_scenes",
@@ -178,9 +186,12 @@ TOL_DEPTH_ABS = 2e-3
 # block's LayerNorms re-normalise): 1e-4 of the output scale
 TOL_CHAIN_F32_REL = 1e-4
 # K2 in bf16, against the plain chain in f32 on the same bf16 inputs and
-# weights: the plain bf16 chain rounds every product and LayerNorm, the
-# kernel only x and its outputs, so the kernel's error may be no larger than
-# the plain chain's
+# weights. The kernel rounds to bf16 the operands of every product (x, the
+# LayerNorm outputs, the hidden layers, qp, kp - qp + p, the view-weighted o,
+# the ray attention's K, V and probabilities) and its outputs; it keeps in
+# f32 every sum, the residual stream q, the LayerNorm statistics, v + p and
+# both softmaxes. The plain bf16 chain rounds all of those as well, after
+# every op, so the kernel's error may be no larger than the plain chain's
 CHAIN_BF16_FACTOR = 1.0
 # K3 in f32: summation order only (online softmax against a two-pass one,
 # 4x4-tiled products against cuBLAS): 1e-5 of each tensor's scale
@@ -291,7 +302,8 @@ def taps_operands(n_rv, ks, ns, p, c, dtype, seed):
 def chain_operands(net, v, r, s, seed):
     """K2 operands on the card at the given shapes: rgb in [0, 1], features
     ~ N(0, 1), ray differences with their dot near 1, ~10% of the views
-    masked, points and directions ~ N(0, 1)."""
+    masked, ray 1 and four samples of every 97th ray masked in every view,
+    points and directions ~ N(0, 1)."""
     import torch
     from nerfool_tpu_torch.ops import chain
 
@@ -303,6 +315,8 @@ def chain_operands(net, v, r, s, seed):
     rd = 0.1 * torch.randn(v, r, s, 4, device=dev, generator=g)
     rd[..., 3] = 1.0 - rd[..., 3].abs()
     mask = (torch.rand(v, r, s, 1, device=dev, generator=g) > 0.1).float()
+    mask[:, 1] = 0.0
+    mask[:, ::97, 5:9] = 0.0
     return chain.chain_inputs(
         net, rgb_feat, rd, mask, torch.randn(r, s, 3, device=dev, generator=g),
         torch.randn(r, 3, device=dev, generator=g))
@@ -321,17 +335,19 @@ def rounded(net, dtype):
     return out
 
 
-def check_chain(net, v, s, card):
+def check_chain(net, v, s, card, chunk_rays):
     """Phase 7: K2 against its plain version (``GNTAggregator.chain``) at
-    the GNT slice's shapes."""
+    the GNT slice's shapes; bf16 at CHAIN_RAYS and at ``chunk_rays`` (a
+    whole chunk and the frame's last one)."""
     import torch
 
     net_b = rounded(net, torch.bfloat16)
     with torch.inference_mode():
-        return _check_chain(net, net_b, v, s, card)
+        return _check_chain(net, net_b, v, s, card,
+                            [CHAIN_RAYS, *chunk_rays])
 
 
-def _check_chain(net, net_b, v, s, card):
+def _check_chain(net, net_b, v, s, card, chain_rays):
     import torch
     from nerfool_tpu_torch.ops import chain
 
@@ -357,37 +373,51 @@ def _check_chain(net, net_b, v, s, card):
             and all(bool(torch.isfinite(t).all()) for t in got)):
         raise AssertionError(f"gnt_chain f32 disagrees with its plain "
                              f"version: {rows[-1]}")
-    del got, ref
+    del got, ref, merged, emb
+    res = chain.bf16_kernel_resources(v, s, net.rgbfeat_fc[0].in_features)
+    log("K2", f"bf16 kernel: {res['registers']} registers x {res['threads']} "
+        f"threads, {res['spill_bytes']} bytes of local memory per thread, "
+        f"{res['smem_bytes']} bytes of shared memory per block, "
+        f"{res['blocks']} blocks resident on the card")
     # bf16 (the route): kernel and plain bf16 against plain f32 on the same
-    # bf16 inputs and bf16-valued weights
-    mb, eb = merged.bfloat16(), emb.bfloat16()
-    ref = chain.gnt_chain_plain(net_b, mb.float(), eb.float())
-    got = chain.gnt_chain(net, mb, eb)
-    plain = chain.gnt_chain_plain(net, mb, eb)
-    torch.cuda.synchronize()
-    err_k = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
-    err_p = [float((a.float() - b).abs().max()) for a, b in zip(plain, ref)]
-    ms = time_ms(lambda: chain.gnt_chain(net, mb, eb), 3)
-    plain_ms = time_ms(lambda: chain.gnt_chain_plain(net, mb, eb), 3)
-    rows.append(dict(dtype="bf16", rays=CHAIN_RAYS, views=v, samples=s,
-                     depth=depth, q_err=err_k[0], attn0_err=err_k[1],
-                     plain_q_err=err_p[0], plain_attn0_err=err_p[1],
-                     factor=CHAIN_BF16_FACTOR, ms=ms, plain_ms=plain_ms))
-    log("K2", f"bf16 [V={v} R={CHAIN_RAYS} S={s}]: vs f32 plain, kernel q err "
-        f"{err_k[0]:.3g} / attn0 {err_k[1]:.3g}, plain bf16 q err "
-        f"{err_p[0]:.3g} / attn0 {err_p[1]:.3g} (bound: kernel <= "
-        f"{CHAIN_BF16_FACTOR:g} x plain); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; {card}")
-    if not all(k <= CHAIN_BF16_FACTOR * p for k, p in zip(err_k, err_p)):
-        raise AssertionError(f"gnt_chain bf16 outside its bound: {rows[-1]}")
-    del got, ref, plain, merged, emb, mb, eb
-    # the kernel alone on a whole 4096-ray chunk (the slice's launch shape)
-    mb, eb = (t.bfloat16() for t in chain_operands(net, v, 4096, s, seed=8))
-    chunk_ms = time_ms(lambda: chain.gnt_chain(net, mb, eb), 2)
-    log("K2", f"bf16 whole chunk [V={v} R=4096 S={s}]: kernel {chunk_ms:.1f} "
-        f"ms; {card}")
-    rows.append(dict(dtype="bf16", rays=4096, views=v, samples=s,
-                     depth=depth, ms=chunk_ms))
+    # bf16 inputs and bf16-valued weights, at 512 rays, at a whole chunk and
+    # at the frame's last chunk
+    for seed, rays in enumerate(chain_rays, start=7):
+        mb, eb = (t.bfloat16() for t in chain_operands(net, v, rays, s, seed))
+        ref = [torch.cat(parts) for parts in zip(*(
+            chain.gnt_chain_plain(net_b, mb[:, i:i + CHAIN_PIECE].float(),
+                                  eb[i:i + CHAIN_PIECE].float())
+            for i in range(0, rays, CHAIN_PIECE)))]
+        got = chain.gnt_chain(net, mb, eb)
+        plain = chain.gnt_chain_plain(net, mb, eb)
+        torch.cuda.synchronize()
+        err_k = [float((a.float() - b).abs().max()) for a, b in zip(got, ref)]
+        err_p = [float((a.float() - b).abs().max()) for a, b in zip(plain, ref)]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        del got, ref, plain
+        # in turns: kernel, plain, plain, kernel
+        k_fn = lambda: chain.gnt_chain(net, mb, eb)
+        p_fn = lambda: chain.gnt_chain_plain(net, mb, eb)
+        turns = [time_ms(fn, 3) for fn in (k_fn, p_fn, p_fn, k_fn)]
+        ms, plain_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        rows.append(dict(dtype="bf16", rays=rays, views=v, samples=s,
+                         depth=depth, max_abs_err=max(err_k),
+                         q_err=err_k[0], attn0_err=err_k[1],
+                         plain_q_err=err_p[0], plain_attn0_err=err_p[1],
+                         factor=CHAIN_BF16_FACTOR, ms=ms, plain_ms=plain_ms,
+                         turns_ms=turns, **res))
+        log("K2", f"bf16 [V={v} R={rays} S={s}]: vs f32 plain, kernel q err "
+            f"{err_k[0]:.3g} / attn0 {err_k[1]:.3g}, plain bf16 q err "
+            f"{err_p[0]:.3g} / attn0 {err_p[1]:.3g} (bound: kernel <= "
+            f"{CHAIN_BF16_FACTOR:g} x plain); in turns kernel {turns[0]:.3f}, "
+            f"plain {turns[1]:.3f}, plain {turns[2]:.3f}, kernel "
+            f"{turns[3]:.3f} ms; {card}")
+        if not (finite and all(k <= CHAIN_BF16_FACTOR * p
+                               for k, p in zip(err_k, err_p))):
+            raise AssertionError(f"gnt_chain bf16 outside its bound: "
+                                 f"{rows[-1]}")
+        del mb, eb
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1274,7 +1304,7 @@ def main():
 
     from nerfool_tpu_torch.engine import Evaluator
     from nerfool_tpu_torch.eval import parse_args
-    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch import eval_adv, profile_attack
     from nerfool_tpu_torch.ops import (build, bspg_select, chain,
                                        ray_attention as ra,
                                        view_attention as va)
@@ -1404,8 +1434,18 @@ def main():
     gargs = parse_args(GNT_ARGV)
     gev = Evaluator(gargs, dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
     g_src = int(gev._make_src(gev.test_dataset[0])["cameras"].shape[0])
+    # the chunks K2 sees: the frame's rays padded to whole BSPG blocks, so a
+    # whole chunk and a shorter last one; also the unpadded frame's last chunk
+    hs = len(range(0, SLICE_DATA["h"], gargs.render_stride))
+    ws = len(range(0, SLICE_DATA["w"], gargs.render_stride))
+    blk = gargs.bspg_block
+    g_rays_padded = -(-hs // blk) * blk * -(-ws // blk) * blk
+    chunk_rays = sorted({gargs.chunk_size,
+                         g_rays_padded % gargs.chunk_size or gargs.chunk_size,
+                         hs * ws % gargs.chunk_size or gargs.chunk_size},
+                        reverse=True)
     chain_rows = check_chain(gev.bundle.net_coarse, g_src, gargs.N_samples,
-                             card)
+                             card, chunk_rays)
 
     # 8. GNT CPU-vs-card render
     gnt_errs = gnt_cross_device(card)
@@ -1417,8 +1457,8 @@ def main():
     if gcfg.bspg_specs is None or not gcfg.gnt_fused_chain:
         raise RuntimeError("the GNT slice did not plan BSPG with the chain")
     gbh, gbw = gcfg.bspg_specs[0].block
-    hs = len(range(0, SLICE_DATA["h"], gargs.render_stride))
-    ws = len(range(0, SLICE_DATA["w"], gargs.render_stride))
+    if (gbh, gbw) != (blk, blk):
+        raise AssertionError(f"planned {gbh}x{gbw} blocks, not {blk}x{blk}")
     g_chunks = -(-(-(-hs // gbh) * gbh * -(-ws // gbw) * gbw)
                  // gargs.chunk_size)
     g_levels = 2 if gargs.N_importance > 0 else 1
@@ -1481,8 +1521,37 @@ def main():
                         gres["coarse_mean_ssim"]]).all():
         raise AssertionError(f"non-finite GNT metrics {gres}")
 
+    # one view in turns through K2 and through the bf16 module path
+    data = gev.test_dataset[0]
+    src = gev._make_src(data)
+    k2_turns = []
+    for mode in ("on", "off", "off", "on"):
+        gev.args.gnt_fused_chain = mode
+        before = chain.gnt_chain.launches
+        _, seconds = timed_render(gev, data, src, None, None)
+        if (chain.gnt_chain.launches - before) != (
+                g_chunks * g_levels if mode == "on" else 0):
+            raise AssertionError(f"--gnt_fused_chain {mode} launched "
+                                 f"{chain.gnt_chain.launches - before} chains")
+        k2_turns.append((mode, hs * ws / seconds))
+    gev.args.gnt_fused_chain = "auto"
+    log("GNT slice", "one view in turns, rays/s: " + ", ".join(
+        f"{'K2' if m == 'on' else 'module'} {r:.1f}" for m, r in k2_turns)
+        + f"; {card}")
+    # the same view through K2 under the profiler: device time by kernel
+    _, tables = profile_attack.profile_device(
+        lambda: timed_render(gev, data, src, None, None),
+        "GNT clean view through K2", 1)
+    busy_ms = sum(r[0] for r in tables["kernel"])
+    k2_ms = sum(r[0] for r in tables["kernel"] if "gnt_chain" in r[2])
+    log("GNT slice", f"profiled view: gnt_chain {k2_ms:.1f} ms of "
+        f"{busy_ms:.1f} ms device kernel time ({100 * k2_ms / busy_ms:.1f}%)"
+        f"; {card}")
+    if not k2_ms > 0:
+        raise AssertionError("the profiled GNT view shows no gnt_chain kernel")
+    del src
+
     # 10. K3 against its plain versions
-    g_rays_padded = -(-hs // gbh) * gbh * -(-ws // gbw) * gbw
     ra_rows, ra_times = check_ray_attention(card, sorted({
         gargs.chunk_size,
         g_rays_padded - (g_chunks - 1) * gargs.chunk_size}, reverse=True))
@@ -1567,7 +1636,9 @@ def main():
 
     head = next(r for r in checks if r["path"] == "ibrnet" and r["table"]
                 == "feat" and r["level"] == "fine" and r["dtype"] == "f32")
-    k2_head = next(r for r in chain_rows if r["dtype"] == "bf16")
+    # K2's row: the whole bf16 chunk, the shape of its launches on the slice
+    k2_head = next(r for r in chain_rows if r["dtype"] == "bf16"
+                   and r["rays"] == gargs.chunk_size)
     for row in checks:
         row["bound_ms"], row["bound_by"] = select_bound(row)
     for row in chain_rows:
@@ -1610,12 +1681,16 @@ def main():
         "source": "nerfool_tpu_torch/csrc/gnt_chain.cu",
         "replaces": "nerfool_tpu/ops/chain_kernel.py:220",
         "launches": k2_gnt,
-        "max_abs_err": chain_rows[0]["max_abs_err"],
+        "max_abs_err": k2_head["max_abs_err"],
+        "f32_max_abs_err": chain_rows[0]["max_abs_err"],
         "ms": k2_head["ms"], "plain_ms": k2_head["plain_ms"],
         "bound_ms": k2_head["bound_ms"], "bound_by": k2_head["bound_by"],
         "library_ms": None,
         "shapes": chain_rows, "render_errors": gnt_errs,
-        "slice_rays_per_s": g_rays / g_render_s}, {
+        "slice_rays_per_s": g_rays / g_render_s,
+        "render_ab_rays_per_s": k2_turns,
+        "profiled_view": {"gnt_chain_ms": k2_ms, "device_kernel_ms": busy_ms}},
+        {
         "name": "ray_attention_fwd", "route": "cuda", "source": ra_source,
         "replaces": "nerfool_tpu/ops/ra_kernel.py:80",
         "launches": sum(k3_fwd_paths.values()),

@@ -32,26 +32,28 @@ def _nvcc():
                        "needed to build the kernels in csrc/")
 
 
-def library_path(name):
-    """Where ``csrc/<name>.cu`` builds to, keyed by the source's hash."""
+def library_path(name, flags=()):
+    """Where ``csrc/<name>.cu`` builds to, keyed by the hash of the source
+    and of any extra ``nvcc`` flags."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(*names):
+def build(*names, flags=()):
     """Compile every named source that has no library yet, one ``nvcc``
-    process each, all started together."""
+    process each, all started together. ``flags``: extra ``nvcc`` flags (a
+    profiling build's ``-D``), which give the library a name of its own."""
     jobs = []
     for name in names:
-        lib = library_path(name)
+        lib = library_path(name, flags)
         if os.path.exists(lib):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+               *flags, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         jobs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
@@ -67,7 +69,7 @@ def build(*names):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name):
+def load_library(name, flags=()):
     """Build ``csrc/<name>.cu`` if needed and return the loaded CDLL."""
-    build(name)
-    return ctypes.CDLL(library_path(name))
+    build(name, flags=flags)
+    return ctypes.CDLL(library_path(name, flags))

@@ -59,7 +59,7 @@ def _timed(ev, data):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def _profile(fn, label, per):
+def profile_device(fn, label, per):
     """Run ``fn`` under the profiler and print its device time by kernel and
     by operator, per ``per`` units of work. Returns (fn's result, tables)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -121,7 +121,7 @@ def main(argv=None):
     args.gnt_fused_attack = route
 
     args.adv_iters = PROFILE_ITERS
-    (delta, src, cams), tables = _profile(
+    (delta, src, cams), tables = profile_device(
         lambda: _attack(ev, data),
         f"{PROFILE_ITERS} iterations, gnt_fused_attack {route}",
         PROFILE_ITERS)
@@ -143,7 +143,7 @@ def main(argv=None):
              f"{cfg.gnt_fused_vt}")
     print(f"{label}: {n_rays} rays in {seconds:.3f} s unprofiled "
           f"({n_rays / seconds:.1f} rays/s)", flush=True)
-    tables["render"] = _profile(render, label, 1)[1]
+    tables["render"] = profile_device(render, label, 1)[1]
     return tables
 
 

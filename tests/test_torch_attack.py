@@ -44,6 +44,10 @@ from nerfool_tpu_torch.models.convert import params_from_flax
 from nerfool_tpu_torch.render.render_rays import RenderConfig
 from nerfool_tpu_torch.utils.cameras import get_rays_at
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 H, W = 24, 32
 
 

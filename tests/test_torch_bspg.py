@@ -28,6 +28,10 @@ from nerfool_tpu_torch.ops import bspg
 from nerfool_tpu_torch.ops.spg import pack_patch_table
 from nerfool_tpu_torch.render.projection import gather_bilinear_planes
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 H = W = 32
 BLOCK = (4, 4)
 

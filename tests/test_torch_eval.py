@@ -48,6 +48,10 @@ from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.convert import params_from_flax
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 SMALL = {"n_views": 6, "h": 48, "w": 64}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -196,6 +200,7 @@ def test_cli_runs_without_jax(tmp_path):
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"  # as this process: see torch.set_num_threads
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

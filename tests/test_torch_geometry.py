@@ -26,6 +26,10 @@ from nerfool_tpu_torch.render import projection as tproj
 from nerfool_tpu_torch.render import sampling as tsamp
 from nerfool_tpu_torch.utils import cameras as tcam
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 H, W = 24, 32
 
 

@@ -23,6 +23,10 @@ from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.ops import bspg_select, chain, ray_attention as ra
 from nerfool_tpu_torch.ops import view_attention as va
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 
 def _taps_inputs(rng, n_rv=6, ks=21, ns=40, p=4, c=3, dtype=torch.float32,
                  device="cpu"):
@@ -174,13 +178,23 @@ def test_chain_plain_on_cpu_launches_nothing():
 def test_stack_weights_follow_weight_updates():
     """The kernel's weight blobs are stacked once per net, dtype and weight
     version: reused while the weights stand, made anew after
-    ``load_state_dict`` or an in-place update; bf16 blobs hold bf16 values."""
+    ``load_state_dict`` or an in-place update. f32: three f32 blobs. bf16:
+    packed bf16 matrices and f32 vectors that hold bf16 values, both within
+    a bf16 rounding of the f32 weights."""
     net = create_model(backbone="gnt", trans_depth=3, seed=0).net_coarse
     w = chain.stack_weights(net, torch.float32)
     assert chain.stack_weights(net, torch.float32) is w  # stacked once
+    assert len(w) == 3 and all(a.dtype == torch.float32 for a in w)
     wb = chain.stack_weights(net, torch.bfloat16)
-    for a, b in zip(w, wb):
-        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    assert chain.stack_weights(net, torch.bfloat16) is wb
+    assert [b.dtype for b in wb] == [torch.bfloat16, torch.float32] * 3
+    for b in wb[1::2]:  # the vectors hold bf16 values
+        torch.testing.assert_close(b, b.bfloat16().float(), rtol=0, atol=0)
+    f32, bf = (chain.chain_matrices(net, dt)
+               for dt in (torch.float32, torch.bfloat16))
+    for name in f32:
+        a, b = f32[name], bf[name]
+        assert a.shape == b.shape and b.dtype == torch.float32
         torch.testing.assert_close(b, b.bfloat16().float(), rtol=0, atol=0)
         assert float((a - b).abs().max()) <= 2.0 ** -7 * float(a.abs().max())
     other = create_model(backbone="gnt", trans_depth=3, seed=1).net_coarse
@@ -193,6 +207,214 @@ def test_stack_weights_follow_weight_updates():
         net.rgb_fc.bias.add_(1.0)
     assert chain.stack_weights(net, torch.float32) is not w2
     assert chain.stack_weights(net, torch.bfloat16) is not wb
+
+
+# the bf16 kernel's per-depth matrices: name -> (K, N) of the product, in
+# the order of the blob (csrc/gnt_chain.cu, tc::M_*); vt_p1 carries its bias
+# as a ninth row
+_TC_MATRICES = (("vt_wq", 64, 64), ("vt_wkv", 64, 128), ("vt_p0", 4, 8),
+                ("vt_p1", 9, 64), ("vt_a0", 64, 8), ("vt_a1", 8, 64),
+                ("vt_wo", 64, 64), ("vt_f1", 64, 256), ("vt_f2", 256, 64),
+                ("ra_wq", 64, 64), ("ra_wkv", 64, 128), ("ra_wo", 64, 64),
+                ("ra_f1", 64, 256), ("ra_f2", 256, 64))
+
+
+def _fragment_product(a, packed, k, n):
+    """``a @ W`` as the kernel forms it: for every 16 x 8 fragment each lane
+    ``4 g + t`` multiplies the A elements of its rows by the four packed
+    values it loads, (k, n) = (16 kt + 2 t + (e & 1) + 8 (e >> 1),
+    8 nt + g); f32 accumulation over bf16 values."""
+    k16 = -(-k // 16) * 16
+    a16 = np.zeros((a.shape[0], k16), np.float32)
+    a16[:, :k] = a
+    w = packed.float().numpy().reshape(k16 // 16, n // 8, 32, 4)
+    out = np.zeros((a.shape[0], n), np.float32)
+    for kt in range(k16 // 16):
+        for nt in range(n // 8):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for e in range(4):
+                    kk = 16 * kt + 2 * t + (e & 1) + 8 * (e >> 1)
+                    out[:, 8 * nt + g] += a16[:, kk] * w[kt, nt, lane, e]
+    return out
+
+
+def _bf16(x):
+    return torch.as_tensor(x).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("group", ["layers", "qfc", "entry"])
+def test_packed_bf16_weights_reproduce_products(group):
+    """Reading the packed bf16 blobs back through the kernel's fragment
+    indexing reproduces ``A @ W`` for every matrix of a depth-3 net, with
+    bf16-valued operands and f32 sums: [Wk | Wk Wv], the ray attention's
+    q and k | v split (head h in columns 16 h ...), the pos MLP's second
+    matrix with its bias as row 8 (the kernel's hidden layer has a one in
+    column 8), the zero rows that pad q_fc's two 63-wide embeddings to 64
+    and the entry's 35 inputs to 48."""
+    net = create_model(backbone="gnt", trans_depth=3, seed=3).net_coarse
+    f = chain.chain_matrices(net, torch.bfloat16)
+    f["vt_p1"] = torch.cat([f["vt_p1"], f["vt_p1b"][:, None]], dim=1)
+    entry_m, entry_v, layer_m, layer_v, qfc_m, qfc_v = chain.stack_weights(
+        net, torch.bfloat16)
+    rng = np.random.RandomState(0)
+
+    def check(packed, w, k, n):
+        a = _bf16(rng.randn(5, k).astype(np.float32))
+        ref = a.astype(np.float64) @ w.double().numpy()
+        got = _fragment_product(a, packed, k, n)
+        # both sum exact products of bf16 values; f32 sums of <= 256 terms
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+        torch.testing.assert_close(chain.unpack_b(packed.float(), k, n), w,
+                                   rtol=0, atol=0)
+
+    if group == "layers":
+        per = layer_m.reshape(3, -1)
+        assert per.shape[1] == sum(-(-k // 16) * 16 * n
+                                   for _, k, n in _TC_MATRICES)
+        for i in range(3):
+            off = 0
+            for name, k, n in _TC_MATRICES:
+                size = -(-k // 16) * 16 * n
+                assert f[name][i].shape == (k, n)
+                check(per[i, off:off + size], f[name][i], k, n)
+                off += size
+        # [Wk | Wk Wv]: the right half is the rounded product of the
+        # rounded factors
+        attn = net.view_crosstrans[1].attn
+        wk = attn.k_fc.weight.t().bfloat16().float()
+        wv = attn.v_fc.weight.t().bfloat16().float()
+        torch.testing.assert_close(f["vt_wkv"][1][:, 64:],
+                                   (wk @ wv).bfloat16().float(), rtol=0,
+                                   atol=0)
+        # ray attention: q, then k | v, heads in the module's column order
+        ra_ = net.view_selftrans[2].attn
+        torch.testing.assert_close(
+            torch.cat([f["ra_wq"][2], f["ra_wkv"][2]], dim=1),
+            torch.cat([ra_.q_fc.weight, ra_.k_fc.weight, ra_.v_fc.weight])
+            .t().bfloat16().float(), rtol=0, atol=0)
+        # p = [relu(.) | 1] @ [P1; b]: the bias row gives the biased product
+        ph = _bf16(rng.rand(5, 8).astype(np.float32))
+        size = 16 * 64
+        off = sum(-(-k // 16) * 16 * n for _, k, n in _TC_MATRICES[:3])
+        got = _fragment_product(np.concatenate([ph, np.ones((5, 1), "f4")], 1),
+                                per[0, off:off + size], 9, 64)
+        raw = chain.chain_matrices(net, torch.bfloat16)
+        want = ph @ raw["vt_p1"][0].numpy() + raw["vt_p1b"][0].numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        # the vectors: no vt_p1b (in the matrix) and no vt_a1b (the softmax
+        # over the views does not see it)
+        vec = layer_v.reshape(3, -1)
+        assert vec.shape[1] == 4 * 128 + 2 * 8 + 4 * 64 + 2 * 256
+        torch.testing.assert_close(
+            vec[2, -64:],
+            net.view_selftrans[2].ff.fc2.bias.detach().bfloat16().float(),
+            rtol=0, atol=0)
+    elif group == "qfc":
+        per = qfc_m.reshape(2, -1)  # depths 0 and 2
+        for j, i in enumerate((0, 2)):
+            check(per[j, :192 * 64], f["qf_w0"][j], 192, 64)
+            check(per[j, 192 * 64:], f["qf_w1"][j], 64, 64)
+            w0 = net.q_fcs[i][0].weight.t().detach().bfloat16().float()
+            got = chain.unpack_b(per[j, :192 * 64].float(), 192, 64)
+            torch.testing.assert_close(got[:64], w0[:64], rtol=0, atol=0)
+            torch.testing.assert_close(got[64:127], w0[64:127], rtol=0, atol=0)
+            torch.testing.assert_close(got[128:191], w0[127:], rtol=0, atol=0)
+            assert not got[127].any() and not got[191].any()
+        assert qfc_v.numel() == 2 * 128
+    else:
+        assert entry_m.numel() == 48 * 64 + 64 * 64 and entry_v.numel() == 128
+        check(entry_m[:48 * 64], f["e0"], 35, 64)
+        got = chain.unpack_b(entry_m[:48 * 64].float(), 48, 64)
+        assert not got[35:].any()
+        check(entry_m[48 * 64:], f["e1"], 64, 64)
+
+
+def _chain_rounded_like_kernel(net, merged, emb):
+    """The chain in plain PyTorch with the bf16 kernel's rounding points:
+    every product takes bf16-valued operands (x, LayerNorm outputs, the
+    hidden layers, qp, kp - qp + p, the softmax-weighted o, the attention
+    probabilities, K and V) and sums in f32; the residual stream q, the
+    LayerNorm statistics, both softmaxes, v + p and every bias stay in f32;
+    the outputs are rounded once."""
+    f = chain.chain_matrices(net, torch.bfloat16)
+    r = lambda x: x.bfloat16().float()
+    merged, emb = merged.float(), emb.float()
+    rf, rd, mask = merged[..., :35], merged[..., 35:39], merged[..., 39:]
+
+    def ln(x, gb):
+        m = x.mean(-1, keepdim=True)
+        v = ((x - m) ** 2).mean(-1, keepdim=True)
+        return r((x - m) / torch.sqrt(v + 1e-6) * gb[0] + gb[1])
+
+    def ff(q, i, p):
+        h = r(torch.relu(ln(q, f[p + "_ln2"][i]) @ f[p + "_f1"][i]
+                         + f[p + "_f1b"][i]))
+        return q + h @ f[p + "_f2"][i] + f[p + "_f2b"][i]
+
+    x = r(r(torch.relu(rf @ f["e0"] + f["e0b"])) @ f["e1"] + f["e1b"])
+    q = x.max(dim=0).values
+    attn0 = None
+    for i in range(net.trans_depth):
+        qp = r(ln(q, f["vt_ln1"][i]) @ f["vt_wq"][i])
+        kv = x @ f["vt_wkv"][i]
+        ph = r(torch.relu(rd @ f["vt_p0"][i] + f["vt_p0b"][i]))
+        p = ph @ f["vt_p1"][i] + f["vt_p1b"][i]
+        hb = r(torch.relu(r(kv[..., :64] + p - qp) @ f["vt_a0"][i]
+                          + f["vt_a0b"][i]))
+        a = hb @ f["vt_a1"][i] + f["vt_a1b"][i]
+        a = a.masked_fill(mask == 0, -1e9)
+        w = torch.softmax(a, dim=0)
+        o = r(((kv[..., 64:] + p) * w).sum(0))
+        q = q + o @ f["vt_wo"][i] + f["vt_wob"][i]
+        q = ff(q, i, "vt")
+        if i % 2 == 0:
+            j = i // 2
+            cat = torch.cat([r(q), emb[..., :63], emb[..., 63:]], dim=-1)
+            w0 = f["qf_w0"][j]
+            w0 = torch.cat([w0[:127], w0[128:191]])
+            h = r(torch.relu(cat @ w0 + f["qf_b0"][j]))
+            q = h @ f["qf_w1"][j] + f["qf_b1"][j]
+        y = ln(q, f["ra_ln1"][i])
+        n_r, n_s, _ = y.shape
+        qh = r(y @ f["ra_wq"][i] * 0.25).reshape(n_r, n_s, 4, 16)
+        kvh = r(y @ f["ra_wkv"][i])
+        kh = kvh[..., :64].reshape(n_r, n_s, 4, 16)
+        vh = kvh[..., 64:].reshape(n_r, n_s, 4, 16)
+        sc = torch.einsum("rqhc,rkhc->rhqk", qh, kh)
+        pr = torch.softmax(sc, dim=-1)
+        attn0 = pr[:, :, 0].mean(1)
+        # the kernel rounds the unnormalised probabilities and divides the
+        # f32 sum afterwards
+        e = torch.exp(sc - sc.max(-1, keepdim=True).values)
+        out = torch.einsum("rhqk,rkhc->rqhc", r(e), vh) / e.sum(-1).permute(
+            0, 2, 1)[..., None]
+        q = q + r(out.reshape(n_r, n_s, 64)) @ f["ra_wo"][i] + f["ra_wob"][i]
+        q = ff(q, i, "ra")
+    return r(q), r(attn0)
+
+
+@pytest.mark.parametrize("depth", [2, 8])
+def test_chain_bf16_rounding_points_within_plain_error(depth):
+    """The bf16 kernel's rounding points, emulated in plain PyTorch on the
+    CPU, against the f32 chain on the same bf16 inputs and bf16-valued
+    weights: the error in q and in attn0 is no larger than the plain bf16
+    chain's own (which also rounds every sum, residual and softmax), so the
+    on-card bound of 1.0 x the plain chain's error is reachable."""
+    net, merged, emb = _chain_case(depth=depth, v=4, r=6, s=24, seed=depth,
+                                   masked_ray=True)
+    mb, eb = merged.bfloat16(), emb.bfloat16()
+    with torch.no_grad():
+        ref = chain.gnt_chain_plain(_rounded(net, torch.bfloat16), mb.float(),
+                                    eb.float())
+        plain = chain.gnt_chain_plain(net, mb, eb)
+        got = _chain_rounded_like_kernel(net, mb, eb)
+    for k in range(2):
+        assert bool(torch.isfinite(got[k]).all())
+        err_k = float((got[k] - ref[k]).abs().max())
+        err_p = float((plain[k].float() - ref[k]).abs().max())
+        assert err_k <= err_p, (k, err_k, err_p)
 
 
 def test_chain_rejects_bad_inputs():
@@ -235,21 +457,33 @@ def test_chain_kernel_matches_plain_f32(depth, r, s, masked):
 
 
 @pytest.mark.cuda
-def test_chain_kernel_bf16_within_derived_bound():
-    """bf16: the kernel and the plain chain both in bf16, against the plain
-    chain in f32 on the same bf16 inputs and bf16-valued weights. The plain
-    chain rounds every product and LayerNorm to bf16; the kernel rounds only
-    x and its outputs, so its error must not exceed the plain chain's."""
+@pytest.mark.parametrize("depth,v,r,s,masked", [(8, 10, 24, 192, False),
+                                                (3, 4, 5, 13, True),
+                                                (2, 3, 140, 40, True)])
+def test_chain_kernel_bf16_within_derived_bound(depth, v, r, s, masked):
+    """bf16: the tensor-core kernel and the plain chain both in bf16, against
+    the plain chain in f32 on the same bf16 inputs and bf16-valued weights.
+    The kernel rounds the operands of every product to bf16 (x, LayerNorm
+    outputs, hidden layers, qp, kp - qp + p, o, the attention probabilities,
+    K and V) and keeps the sums, the residual stream, the LayerNorm
+    statistics and both softmaxes in f32; the plain chain rounds all of
+    those too, so the kernel's error must not exceed the plain chain's.
+    Covers an odd number of views, S not a multiple of 16 or 32, more rays
+    than blocks and a ray with every view masked."""
     _require_cuda()
-    net, merged, emb = _chain_case(depth=8, v=10, r=24, s=192, device="cuda")
+    net, merged, emb = _chain_case(depth=depth, v=v, r=r, s=s, device="cuda",
+                                   masked_ray=masked)
     mb, eb = merged.bfloat16(), emb.bfloat16()
+    before = chain.gnt_chain.launches
     with torch.no_grad():
         ref = chain.gnt_chain_plain(_rounded(net, torch.bfloat16), mb.float(),
                                     eb.float())
         got = chain.gnt_chain(net, mb, eb)
         plain = chain.gnt_chain_plain(net, mb, eb)
     torch.cuda.synchronize()
+    assert chain.gnt_chain.launches == before + 1
     for k in range(2):
+        assert bool(torch.isfinite(got[k]).all())
         err_k = float((got[k].float() - ref[k]).abs().max())
         err_p = float((plain[k].float() - ref[k]).abs().max())
         assert err_k <= err_p, (k, err_k, err_p)

@@ -18,6 +18,10 @@ from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.convert import params_from_flax
 from nerfool_tpu_torch.models.resunet import feature_hw
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def jbundle():

@@ -31,6 +31,10 @@ from nerfool_tpu_torch.models.gnt import RayAttention
 from nerfool_tpu_torch.ops import ray_attention as ra
 from nerfool_tpu_torch.render.render_rays import RenderConfig, _shade
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 SHAPES = [(3, 10, 64), (2, 8, 64)]  # S=10: not a multiple of the TPU's 8
 TOL = dict(atol=2e-4, rtol=2e-4)
 

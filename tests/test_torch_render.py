@@ -32,6 +32,10 @@ from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
 from nerfool_tpu_torch.utils.cameras import get_rays
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 H = W = 32
 BLOCK = (4, 4)
 N_S, N_I = 12, 8

@@ -50,6 +50,10 @@ from nerfool_tpu_torch.engine import (Evaluator, load_attack_state,
 from nerfool_tpu_torch.models.convert import params_from_flax
 from nerfool_tpu_torch.utils.cameras import transform_src_cameras
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 TINY = {"n_views": 8, "h": H, "w": W}
 
 

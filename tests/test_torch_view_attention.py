@@ -31,6 +31,10 @@ from nerfool_tpu_torch.models.gnt import GNTAggregator
 from nerfool_tpu_torch.ops import view_attention as va
 from nerfool_tpu_torch.render.render_rays import RenderConfig, _shade
 
+# the test tier runs several worker processes on a few cores: two math
+# threads per process instead of one per core keeps them from thrashing
+torch.set_num_threads(2)
+
 V, R, S, D, F = 4, 6, 12, 64, 32
 
 
