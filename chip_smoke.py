@@ -20,7 +20,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
      nerfool_tpu_torch.eval`` runs) renders 2 test views whole-frame with
      IBRNet at full width (random seeded weights) through BSPG, after one
      warm-up render whose outputs are checked finite; K1's launch count
-     must grow by tables x levels x chunks x views
+     must grow by tables x levels x chunks x views; then one view in turns
+     through BSPG and the per-tap gather (BSPG, per-tap, per-tap, BSPG)
   7. K2 vs plain: ``gnt_chain`` against ``gnt_chain_plain`` at the GNT
      slice's shapes (10 views, 192 samples, depth 8), with samples masked in
      every view among the inputs: f32 on 512 rays to a tight bound; bf16
@@ -41,8 +42,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
      through K1 and K2, after one warm-up render; K2's launch count must
      equal chunks x levels x views and K1's tables x levels x chunks x views;
      then one view in turns through K2 and through the bf16 module path
-     (``--gnt_fused_chain`` on, off, off, on), rays/s of each, and once
-     more through K2 under ``torch.profiler`` (device time by kernel)
+     (``--gnt_fused_chain`` on, off, off, on), rays/s of each, the same
+     view in turns through BSPG and per tap, and once more through K2
+     under ``torch.profiler`` (device time by kernel)
  10. K3 vs plain: the ray-attention kernels, forward and backward, through
      their ``autograd.Function`` against ``ray_attention_plain`` and
      ``ray_attention_bwd_plain`` (out, attn0, dx, dWqkv, dWo, dbo) at the
@@ -59,9 +61,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      launches must each equal iterations x depth), the constraints on
      ``delta``, one step of the fused route against the unfused module path
      from the same ``delta`` and rays, then the attacked whole-frame render
-     with ``--gnt_fused_attn on`` (K1 for the taps, K3 forward launches =
-     chunks x depth) on the BSPG plan of phase 9, held against the same
-     render through the unfused module path (``--gnt_fused_attn off``)
+     with ``--gnt_fused_attn on`` and the default ``--gnt_fused_vt auto``
+     (K1 for the taps, K3 forward and K4 launches = chunks x depth) on the
+     BSPG plan of phase 9, held against the same render through the unfused
+     ray attention (``--gnt_fused_attn off``)
  12. the IBRNet attack: ``configs/ibrnet/eval_llff.txt`` with the same
      attack flags (N_rand 512) on the model and plan of phase 6: 2 warm-up
      iterations then 10 timed, the constraints on ``delta``, then the
@@ -72,11 +75,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
      192, 10 views), at the attack batch's 800 x 192 rows and at an odd
      shape (3 views, 15 rows), each with a block of rows masked in every
      view; in bf16 against the plain f32 version on the same bf16 inputs;
-     CUDA-event timings of kernel and plain version
+     CUDA-event timings of kernel and plain version, the bound at the rate
+     each part runs at and the bound with every operation on the CUDA cores
  14. the universal slice: ``configs/gnt/gnt_full.txt`` in f32, the 10 views
      of the global source set, ``--use_adam --adam_lr 1e-3 --adv_lr 1
      --epsilon 8 --use_pseudo_gt --use_center_view --gnt_fused_attack True
-     --gnt_fused_attn on --gnt_fused_vt True`` and no ``--view_specific``: 2
+     --gnt_fused_attn on`` (``--gnt_fused_vt`` at its default, ``auto``)
+     and no ``--view_specific``: 2
      warm-up iterations of ``Evaluator.attack_universal``, then
      ``Evaluator.evaluate`` runs 10 timed iterations over streamed
      train-split targets (K3 launches: iterations x depth backward, twice
@@ -112,20 +117,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_ARGV = ["--config", os.path.join(ROOT, "configs/ibrnet/eval_llff.txt"),
               "--eval_dataset", "synthetic", "--eval_scenes", "synthetic",
               "--ckpt_path", "", "--num_source_views", "10",
-              "--chunk_size", "4096"]
+              "--chunk_size", "4096", "--use_bspg", "True"]
 SLICE_DATA = {"n_views": 15, "h": 378, "w": 504}
 SLICE_VIEWS = 2
 # small scene for the CPU-vs-card check: the fixture the planner accepts
 SMALL_ARGV = ["--eval_dataset", "synthetic", "--ckpt_path", "",
               "--num_source_views", "4", "--N_samples", "64",
-              "--N_importance", "64", "--inv_uniform", "--chunk_size", "1024"]
+              "--N_importance", "64", "--inv_uniform", "--chunk_size", "1024",
+              "--use_bspg", "True"]
 SMALL_DATA = {"n_views": 6, "h": 48, "w": 64}
 
 # the GNT slice: configs/gnt/gnt_full.txt (depth 8, netwidth 64, 192 samples,
 # N_importance 0, single_net, ret_alpha, render_stride 2) in bf16 on the same
-# scene, random weights. Chunk 4096 replaces the config's 800, which is not a
-# multiple of the BSPG block. The planner rejects 8x8 blocks at stride 2 on
-# this scene (the rgb tube radius, 47 px, exceeds the largest patch, 32;
+# scene, random weights, on the BSPG route. Chunk 4096 replaces the config's
+# 800 (fewer, larger launches; every GNT number in PERF.md is at 4096). The
+# planner rejects 8x8 blocks at stride 2 on this scene (the rgb tube radius,
+# 47 px, exceeds the largest patch, 32;
 # tests/test_torch_gnt.py::test_slice_rig_rejects_8x8_blocks_at_stride_2
 # shows it for the JAX planner and the port's), so the slice plans 4x4
 # blocks: 189x252 rays, padded to 192x252, in 12 chunks
@@ -133,7 +140,7 @@ GNT_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
             "--eval_dataset", "synthetic", "--eval_scenes", "synthetic",
             "--ckpt_path", "", "--num_source_views", "10",
             "--chunk_size", "4096", "--compute_dtype", "bfloat16",
-            "--bspg_block", "4"]
+            "--bspg_block", "4", "--use_bspg", "True"]
 GNT_VIEWS = 2
 CHAIN_RAYS = 512  # K2 vs plain in f32 and bf16 on a subset of a chunk's rays
 CHAIN_PIECE = 1024  # rays per call of the f32 plain chain (its memory)
@@ -142,7 +149,7 @@ GNT_SMALL_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
                   "--eval_dataset", "synthetic", "--eval_scenes",
                   "synthetic", "--ckpt_path", "", "--num_source_views", "4",
                   "--N_samples", "32", "--render_stride", "1",
-                  "--chunk_size", "1024"]
+                  "--chunk_size", "1024", "--use_bspg", "True"]
 
 # the attack slices: the flagship attack (README: --view_specific --use_adam
 # --adam_lr 1e-3 --adv_lr 1 --epsilon 8), a few iterations of its 1000
@@ -164,17 +171,19 @@ UNIVERSAL_FLAGS = ["--use_adam", "--adam_lr", "1e-3", "--adv_lr", "1",
                    "--epsilon", "8", "--use_pseudo_gt", "--use_center_view"]
 UNI_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype", "bfloat16")] \
     + [*UNIVERSAL_FLAGS, "--gnt_fused_attack", "True", "--gnt_fused_attn",
-       "on", "--gnt_fused_vt", "True"]
+       "on"]
 VA_ODD_SHAPE = (3, 15)  # views, rows
 VA_MASKED_ROWS = 100  # rows masked in every view (5 at the odd shape)
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, f32 on the
-# CUDA cores, bf16 on the tensor cores (FLOP/s)
+# CUDA cores, TF32 and bf16 on the tensor cores (FLOP/s)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 # f32 tables: kernel and plain differ only in summation order
 TOL_F32_ABS = 1e-6
+# what K1's checks fill the rest of the [V, R, S, 3 + 32] buffer with
+SENTINEL = 7.0
 # bf16 tables: both accumulate in f32 and round once to bf16, so they differ
 # by at most one bf16 ulp of the output (8 significant bits: 2^-7 relative)
 TOL_BF16_REL = 2.0 ** -7
@@ -200,13 +209,15 @@ TOL_RA_F32_REL = 1e-5
 # and bf16-valued weights the kernels, which keep f32 inside and round only
 # their outputs, may err no more than the plain bf16 version
 RA_BF16_FACTOR = 1.0
-# K4 in f32: summation order only (4x4-tiled FMA products against cuBLAS, an
-# online softmax over the views against a two-pass one): 1e-5 of the
-# output's scale
+# K4 in f32: its products are three TF32 products each (every term to
+# ~2^-21 of itself, tests/test_torch_kernels.py emulates the split at the
+# slice's widths), summed in another order than cuBLAS's, and an online
+# softmax over the views against a two-pass one: 1e-5 of the output's scale
 TOL_VA_F32_REL = 1e-5
 # K4 in bf16, as K2 and K3: against the plain f32 version on the same bf16
-# inputs and bf16-valued weights the kernel, which keeps f32 inside and
-# rounds only its output, may err no more than the plain bf16 version
+# inputs and bf16-valued weights the kernel, which keeps f32 inside but for
+# the output product's operand and rounds its output, may err no more than
+# the plain bf16 version, which rounds after every operation
 VA_BF16_FACTOR = 1.0
 # the fused attack step against the unfused module path, one step from the
 # same delta and rays: the bounds of tests/test_ra_vjp.py, loss 1e-5
@@ -277,26 +288,38 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def taps_operands(n_rv, ks, ns, p, c, dtype, seed):
-    """Selection operands at the given shapes: slot lists of distinct patch
-    ids with -1 pads, each sample's pid drawn from its row's slots."""
+def taps_operands(v, b, n, s, ks, p, h, w, pby, pbx, c, dtype, seed):
+    """K1 operands on the card at one path's shapes: a packed table of V
+    views; one group of all V views with slot lists of distinct patch ids
+    and -1 pads, as a plan's walk gives them (repeated ids, which the
+    contract counts, are in the CUDA tests of tests/test_torch_kernels.py);
+    normalized coordinates [V, B, n, S] of which half fall in a patch of
+    their row's slots and the rest anywhere in [-1.15, 1.15] (past the
+    image's edges too)."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    slots = torch.argsort(torch.rand(n_rv, 4 * ks, device=dev, generator=g),
-                          dim=1)[:, :ks].to(torch.int32)
-    slots[:, -2:] = -1
-    pick = torch.randint(0, ks - 2, (n_rv, ns), device=dev, generator=g)
-    pid = torch.gather(slots, 1, pick)
-    ly = torch.randint(0, p, (n_rv, ns), device=dev, generator=g,
-                       dtype=torch.int32)
-    lx = torch.randint(0, p, (n_rv, ns), device=dev, generator=g,
-                       dtype=torch.int32)
-    w = [torch.rand(n_rv, ns, device=dev, generator=g) for _ in range(4)]
-    table = torch.rand(n_rv, ks, (p + 1) ** 2 * c, device=dev,
-                       generator=g).to(dtype)
-    return (table, slots, pid.contiguous(), ly, lx, *w, p, c)
+    rnd = lambda *shape: torch.rand(*shape, device=dev, generator=gen)
+    ri = lambda hi, *shape: torch.randint(0, hi, shape, device=dev,
+                                          generator=gen)
+    table = rnd(v, pby * pbx, (p + 1) ** 2 * c).to(dtype)
+    slots = torch.argsort(rnd(v, b, max(ks, pby * pbx)), dim=-1)[..., :ks]
+    slots = torch.where(slots < pby * pbx, slots, -1).to(torch.int32)
+    slots[..., -2:] = -1
+    ns = n * s
+    pick = torch.gather(slots, 2, ri(ks - 2, v, b, ns)).long()
+    # base cell cb = floor(x) + 1 of a coordinate x; patch q holds cells
+    # [q p, q p + p)
+    cbx = torch.clamp((pick % pbx) * p + ri(p, v, b, ns), max=w)
+    cby = torch.clamp((pick // pbx) * p + ri(p, v, b, ns), max=h)
+    inside = rnd(v, b, ns) < 0.5
+    gx = torch.where(inside, 2.0 * (cbx - 1 + rnd(v, b, ns)) / (w - 1) - 1.0,
+                     2.3 * rnd(v, b, ns) - 1.15)
+    gy = torch.where(inside, 2.0 * (cby - 1 + rnd(v, b, ns)) / (h - 1) - 1.0,
+                     2.3 * rnd(v, b, ns) - 1.15)
+    return (table, slots, tuple(range(v)), gx.reshape(v, b, n, s).float(),
+            gy.reshape(v, b, n, s).float())
 
 
 def chain_operands(net, v, r, s, seed):
@@ -422,20 +445,40 @@ def _check_chain(net, net_b, v, s, card, chain_rays):
 
 
 def check_select(shapes, path, seed, card):
-    """K1 against its plain version at one path's shapes, each
-    (table, level, dtype, n_rv, Ks, p, c, ns); returns the rows."""
+    """K1 against its plain version at one path's shapes, each a dict of
+    (table, level, dtype, V, B, n, S, Ks, p, h, w, pby, pbx, c). The kernel
+    writes the taps at the render's channel offset (rgb at 0, the features
+    at 3) into a [V, B*n, S, 3 + 32] buffer of SENTINEL, as the render
+    path does; the plain version is the G-based contract (``select_plain``:
+    the patch rows gathered per slot, the one-hot einsum). Every other
+    channel must keep SENTINEL. Returns the rows."""
     import torch
     from nerfool_tpu_torch.ops import bspg_select
 
     rows = []
-    for i, (table, level, dtype, n_rv, ks, p, c, ns) in enumerate(shapes):
-        ops = taps_operands(n_rv, ks, ns, p, c, dtype, seed=seed + i)
-        out = bspg_select.select_taps(*ops)
+    for i, sh in enumerate(shapes):
+        v, b, n, s, ks, p, h, w, pby, pbx, c = (sh[k] for k in (
+            "V", "B", "n", "S", "Ks", "p", "h", "w", "pby", "pbx", "c"))
+        dtype = sh["dtype"]
+        table, slots, views, gx, gy = taps_operands(
+            v, b, n, s, ks, p, h, w, pby, pbx, c, dtype, seed=seed + i)
+        off = 3 if c == 32 else 0
+        out = torch.full((v, b * n, s, 35), SENTINEL, dtype=dtype,
+                         device="cuda")
+        fn = lambda o: bspg_select.select_taps(table, slots, views, gx, gy,
+                                               o, off, p, h, w, pbx)
+        fn(out)
         torch.cuda.synchronize()
-        ref = bspg_select.select_taps_plain(*ops)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        scale = torch.maximum(out.float().abs(), ref.float().abs())
+        vi = torch.arange(v, device="cuda")
+        plain = lambda: bspg_select.select_plain(table, slots, vi, gx, gy, p,
+                                                 h, w, pbx)
+        ref = plain().float()
+        got = out.view(v, b, n * s, 35).float()
+        err = (got[..., off:off + c] - ref).abs()
+        scale = torch.maximum(got[..., off:off + c].abs(), ref.abs())
+        keep = torch.ones(35, dtype=torch.bool, device="cuda")
+        keep[off:off + c] = False
+        untouched = bool((got[..., keep] == SENTINEL).all())
         if dtype == torch.float32:
             ok = bool((err <= TOL_F32_ABS).all())
             tol = f"abs {TOL_F32_ABS:g}"
@@ -443,22 +486,42 @@ def check_select(shapes, path, seed, card):
             ok = bool((err <= TOL_BF16_REL * scale + TOL_F32_ABS).all())
             tol = f"rel {TOL_BF16_REL:g} of |out|"
         rel = float((err / scale.clamp_min(1e-6)).max())
-        ms = time_ms(lambda: bspg_select.select_taps(*ops), 20)
-        plain_ms = time_ms(lambda: bspg_select.select_taps_plain(*ops), 3)
+        del ref, got, scale
+        ms = time_ms(lambda: fn(out), 20)
+        plain_ms = time_ms(plain, 3)
         dt = "f32" if dtype == torch.float32 else "bf16"
-        row = dict(path=path, table=table, level=level, dtype=dt, n_rv=n_rv,
-                   ks=ks, p=p, c=c, ns=ns, max_abs_err=float(err.max()),
-                   max_rel_err=rel, ms=ms, plain_ms=plain_ms)
+        row = dict(path=path, table=sh["table"], level=sh["level"], dtype=dt,
+                   views=v, blocks=b, n_rv=v * b, ks=ks, p=p, c=c, ns=n * s,
+                   n_patch=pby * pbx, max_abs_err=float(err.max()),
+                   max_rel_err=rel, neighbours_untouched=untouched, ms=ms,
+                   plain_ms=plain_ms)
+        (row["bound_ms"], row["bound_by"]), (row["bound_old_ms"], _) = \
+            select_bound(row), select_bound_g(row)
         rows.append(row)
-        log("kernel", f"{path} {table}/{level}/{dt} [n_rv={n_rv} Ks={ks} "
-            f"p={p} c={c} ns={ns}]: max abs err {row['max_abs_err']:.3g}, "
-            f"max rel {rel:.3g} (tol {tol}); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms; {card}")
-        if not ok:
+        log("kernel", f"{path} {sh['table']}/{sh['level']}/{dt} [V={v} B={b} "
+            f"Ks={ks} p={p} c={c} ns={n * s}]: max abs err "
+            f"{row['max_abs_err']:.3g}, max rel {rel:.3g} (tol {tol}); other "
+            f"channels untouched: {untouched}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms; bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']} (G-based contract {row['bound_old_ms']:.3f} "
+            f"ms); {card}")
+        if not (ok and untouched):
             raise AssertionError(f"bspg_select disagrees with its plain "
                                  f"version: {row}")
-        del ops, out, ref, err, scale
+        del table, slots, gx, gy, out, err
+        torch.cuda.empty_cache()
     return rows
+
+
+def select_shapes(spec, c, table, levels, dtypes, views, chunk):
+    """check_select's shape dicts of one table of a BSPG plan: the chunk's
+    blocks of every view, ``levels`` (name, samples) and ``dtypes``."""
+    bh, bw = spec.block
+    ks = max(spec.k_slots(k) for _, k in spec.groups)
+    return [dict(table=table, level=level, dtype=dtype, V=views,
+                 B=chunk // (bh * bw), n=bh * bw, S=s, Ks=ks, p=spec.p,
+                 h=spec.h, w=spec.w, pby=spec.pby, pbx=spec.pbx, c=c)
+            for level, s in levels for dtype in dtypes]
 
 
 def gnt_cross_device(card):
@@ -531,9 +594,21 @@ def bound_ms(n_bytes, flops, dtype):
 
 
 def select_bound(row):
-    """K1 at one check's shapes: the patch rows G, the per-sample patch id,
-    two offsets and four weights in, the taps out; 4 multiply-adds per
+    """K1 at one check's shapes, what it must move: the table once, the slot
+    lists, two coordinates per sample in, the taps out; 4 multiply-adds per
     output value."""
+    size = 4 if row["dtype"] == "f32" else 2
+    v, n_patch, n_rv, ks, p, c, ns = (row[k] for k in (
+        "views", "n_patch", "n_rv", "ks", "p", "c", "ns"))
+    n_bytes = (v * n_patch * (p + 1) ** 2 * c * size + n_rv * ks * 4
+               + n_rv * ns * 2 * 4 + n_rv * ns * c * size)
+    return bound_ms(n_bytes, 8 * n_rv * ns * c, row["dtype"])
+
+
+def select_bound_g(row):
+    """The same at the TPU kernels' contract (the first K1's): the patch
+    rows G [n_rv, Ks, (p+1)^2 c], the per-sample patch id, two offsets and
+    four weights in, the taps out."""
     size = 4 if row["dtype"] == "f32" else 2
     n_rv, ks, p, c, ns = (row[k] for k in ("n_rv", "ks", "p", "c", "ns"))
     n_bytes = (n_rv * ks * (p + 1) ** 2 * c * size + n_rv * ks * 4
@@ -826,12 +901,12 @@ def attacked_render(name, ev, data, src, delta, card):
     counters are zeroed before the attacked render and read after it."""
     import torch
     from nerfool_tpu_torch.ops import bspg_select, ray_attention as ra
+    from nerfool_tpu_torch.ops import view_attention as va
 
     with torch.inference_mode():
         clean = frame_psnr(ev, ev.render_view(data, src), data)
         torch.cuda.synchronize()
-        bspg_select.select_taps.launches = 0
-        ra.ray_attention_fwd.launches = ra.ray_attention_bwd.launches = 0
+        zero_kernel_counts()
         t0 = time.perf_counter()
         ret = ev.render_view(data, src, delta)
         torch.cuda.synchronize()
@@ -847,7 +922,8 @@ def attacked_render(name, ev, data, src, delta, card):
                  seconds=seconds, rays_per_s=hs * ws / seconds,
                  k1_launches=bspg_select.select_taps.launches,
                  k3_fwd_launches=ra.ray_attention_fwd.launches,
-                 k3_bwd_launches=ra.ray_attention_bwd.launches)
+                 k3_bwd_launches=ra.ray_attention_bwd.launches,
+                 k4_launches=va.view_attention.launches)
     if getattr(ev.args, "gnt_fused_attn", "auto") == "on":
         # the same render through the unfused module path (launches read
         # above: this one must add none of the ray attention's)
@@ -874,8 +950,8 @@ def attacked_render(name, ev, data, src, delta, card):
         f"({stats['rays_per_s']:.1f} rays/s), outputs finite; coarse PSNR "
         f"clean {clean:.4f} dB, attacked {stats['attacked_psnr']:.4f} dB; "
         f"launches bspg_select {stats['k1_launches']}, ray_attention forward "
-        f"{stats['k3_fwd_launches']}, backward {stats['k3_bwd_launches']}; "
-        f"{card}")
+        f"{stats['k3_fwd_launches']}, backward {stats['k3_bwd_launches']}, "
+        f"view_attention {stats['k4_launches']}; {card}")
     return stats
 
 
@@ -975,8 +1051,30 @@ def va_operands(v, n, dtype, seed, masked_rows, d=64):
 
 
 def va_bound(v, n, dtype, d=64):
-    """K4 at [v, n, d]: qln, k, pos and mask in, out written, the weights
-    once; the seven products by shape."""
+    """K4 at [v, n, d] at the rate each part of its arithmetic runs at:
+    qln, k, pos and mask in, out written, the weights once; the kv, qln Wq
+    and output products on the tensor cores (f32: three TF32 products at the
+    TF32 rate; bf16: one at the bf16 rate), the two MLPs at the f32 rate
+    (their times add), or the bytes, whichever is larger."""
+    size = 4 if dtype == "f32" else 2
+    h = d // 8
+    mma = n * (v * 2 * d * 2 * d + 2 * 2 * d * d)
+    fma = n * v * (2 * (4 * h + h * d) + 2 * (d * h + h * d))
+    w_bytes = 4 * (4 * d * d + 4 * h + 3 * h * d + 2 * h + 3 * d)
+    n_bytes = size * (v * n * (d + 4 + 1) + 2 * n * d) + w_bytes
+    if dtype == "f32":
+        ops_ms = 3 * mma / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        ops_ms = mma / PEAK_FLOPS["bf16"] * 1e3
+    ops_ms += fma / PEAK_FLOPS["f32"] * 1e3
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (by_bytes, "bytes") if by_bytes >= ops_ms else (ops_ms,
+                                                             "operations")
+
+
+def va_bound_fma(v, n, dtype, d=64):
+    """K4's bound as the FMA kernel's was counted, every operation at the
+    rate of the dtype (f32 on the CUDA cores): kept beside the new one."""
     size = 4 if dtype == "f32" else 2
     h = d // 8
     per_view = 2 * d * 2 * d + 2 * (4 * h + h * d) + 2 * (d * h + h * d)
@@ -1025,13 +1123,15 @@ def check_view_attention(card, views, samples, render_rays, attack_rays):
                 row["plain_ms"] = time_ms(
                     lambda: va.view_attention_plain(*ops), 3)
                 row["bound_ms"], row["bound_by"] = va_bound(v, n, "f32")
+                row["bound_fma_ms"] = va_bound_fma(v, n, "f32")[0]
             rows.append(row)
             log("K4", f"f32 {label} [V={v} N={n}]: max abs err {err:.3g} "
                 f"(tol {row['tol']:.3g}), {masked} rows masked in every view "
                 f"against the uniform mean {masked_err:.3g}"
                 + (f"; kernel {row['ms']:.3f} ms, plain "
                    f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-                   f"by {row['bound_by']}" if "ms" in row else "")
+                   f"by {row['bound_by']} (all on the CUDA cores "
+                   f"{row['bound_fma_ms']:.3f} ms)" if "ms" in row else "")
                 + f"; {card}")
             if not ok:
                 raise AssertionError(f"view_attention f32 disagrees with its "
@@ -1059,12 +1159,14 @@ def check_view_attention(card, views, samples, render_rays, attack_rays):
                        plain_ms=time_ms(
                            lambda: va.view_attention_plain(*ops), 3))
             row["bound_ms"], row["bound_by"] = va_bound(v, n, "bf16")
+            row["bound_fma_ms"] = va_bound_fma(v, n, "bf16")[0]
             rows.append(row)
             log("K4", f"bf16 {label} [V={v} N={n}]: vs f32 plain, kernel err "
                 f"{err_k:.3g}, plain bf16 err {err_p:.3g} (bound: kernel <= "
                 f"{VA_BF16_FACTOR:g} x plain); kernel {row['ms']:.3f} ms, "
                 f"plain {row['plain_ms']:.3f} ms, bound "
-                f"{row['bound_ms']:.3f} ms by {row['bound_by']}; {card}")
+                f"{row['bound_ms']:.3f} ms by {row['bound_by']} (all at the "
+                f"bf16 rate {row['bound_fma_ms']:.3f} ms); {card}")
             if not (err_k <= VA_BF16_FACTOR * err_p
                     and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"view_attention bf16 outside its "
@@ -1108,6 +1210,32 @@ def timed_render(ev, data, src, delta, cams):
         ret = ev.render_view(data, src, delta, cams)["outputs_coarse"]
     torch.cuda.synchronize()
     return ret, time.perf_counter() - t0
+
+
+def route_ab(name, ev, card):
+    """One test view rendered whole-frame in turns through BSPG (K1) and
+    through the per-tap gather (BSPG, per-tap, per-tap, BSPG), rays/s of
+    each; a BSPG turn must launch K1 and a per-tap turn must not. Returns
+    [(route, rays/s), ...]."""
+    from nerfool_tpu_torch.ops import bspg_select
+
+    data = ev.test_dataset[0]
+    src = ev._make_src(data)
+    turns = []
+    for bspg in (True, False, False, True):
+        ev.args.use_bspg = bspg
+        before = bspg_select.select_taps.launches
+        ret, seconds = timed_render(ev, data, src, None, None)
+        launched = bspg_select.select_taps.launches - before
+        if (launched > 0) != bspg:
+            raise AssertionError(f"{name}: --use_bspg {bspg} launched "
+                                 f"bspg_select {launched} times")
+        hs, ws = ret["rgb"].shape[:2]
+        turns.append(("bspg" if bspg else "per_tap", hs * ws / seconds))
+    ev.args.use_bspg = True
+    log(name, "one view in turns, rays/s: " + ", ".join(
+        f"{r} {x:.1f}" for r, x in turns) + f"; {card}")
+    return turns
 
 
 def universal_slice(uev, card, depth, chunks, n_tables):
@@ -1217,7 +1345,7 @@ def universal_slice(uev, card, depth, chunks, n_tables):
         args.gnt_fused_vt = fused
         _, seconds = timed_render(uev, data, src, delta, cams)
         turns.append((fused, hs * ws / seconds))
-    args.gnt_fused_vt = True
+    args.gnt_fused_vt = "auto"
     stats["render_ab_rays_per_s"] = turns
     log("universal", "attacked render in turns, rays/s: " + ", ".join(
         f"{'K4' if f else 'module'} {r:.1f}" for f, r in turns)
@@ -1337,18 +1465,17 @@ def main():
         f"groups={[(len(v), k) for v, k in spec_f.groups]}, rgb p={spec_r.p} "
         f"groups={[(len(v), k) for v, k in spec_r.groups]}")
 
-    # 4. kernel vs plain at the slice's shapes: n_rv = views x blocks/chunk
+    # 4. kernel vs plain at the slice's shapes: the chunk's blocks of every
+    # view, both levels in f32 and the fine level in bf16
     bh, bw = spec_f.block
-    n_rv = n_src * (args.chunk_size // (bh * bw))
+    sample_levels = (("coarse", args.N_samples),
+                     ("fine", args.N_samples + args.N_importance))
     shapes = []
     for table, spec, c in (("feat", spec_f, 32), ("rgb", spec_r, 3)):
-        ks = max(spec.k_slots(k) for _, k in spec.groups)
-        for level, s in (("coarse", args.N_samples),
-                         ("fine", args.N_samples + args.N_importance)):
-            shapes.append((table, level, torch.float32, n_rv, ks, spec.p, c,
-                           bh * bw * s))
-        shapes.append((table, "fine", torch.bfloat16, n_rv, ks, spec.p, c,
-                       bh * bw * (args.N_samples + args.N_importance)))
+        shapes += select_shapes(spec, c, table, sample_levels,
+                                (torch.float32,), n_src, args.chunk_size)
+        shapes += select_shapes(spec, c, table, sample_levels[1:],
+                                (torch.bfloat16,), n_src, args.chunk_size)
     checks = check_select(shapes, "ibrnet", 0, card)
 
     # 5. cross-device render of a small scene, same weights on both
@@ -1429,6 +1556,7 @@ def main():
     if not np.isfinite(metrics).all():
         raise AssertionError(f"non-finite metrics {metrics}")
     ibr_launches = launches
+    ibr_ab = route_ab("slice", ev, card)
 
     # 7. K2 against its plain version at the GNT slice's shapes
     gargs = parse_args(GNT_ARGV)
@@ -1469,15 +1597,14 @@ def main():
         + "; ".join(f"p={sp.p} groups={[(len(v), k) for v, k in sp.groups]}"
                     for sp in gcfg.bspg_specs))
     # K1 against its plain version at the GNT slice's shapes: bf16 tables
-    # (the route) and f32, n_rv = views x blocks/chunk
-    g_nrv = g_src * (gargs.chunk_size // (gbh * gbw))
+    # (the route) and f32
     gshapes = []
     for table, spec, c in (("feat", gcfg.bspg_specs[0], 32),
                            ("rgb", gcfg.bspg_specs[1], 3)):
-        ks = max(spec.k_slots(k) for _, k in spec.groups)
-        for dtype in (torch.bfloat16, torch.float32):
-            gshapes.append((table, "coarse", dtype, g_nrv, ks, spec.p, c,
-                            gbh * gbw * gargs.N_samples))
+        gshapes += select_shapes(spec, c, table,
+                                 (("coarse", gargs.N_samples),),
+                                 (torch.bfloat16, torch.float32), g_src,
+                                 gargs.chunk_size)
     checks += check_select(gshapes, "gnt", 100, card)
     data = gev.test_dataset[0]
     torch.cuda.synchronize()
@@ -1535,6 +1662,7 @@ def main():
                                  f"{chain.gnt_chain.launches - before} chains")
         k2_turns.append((mode, hs * ws / seconds))
     gev.args.gnt_fused_chain = "auto"
+    gnt_ab = route_ab("GNT slice", gev, card)
     log("GNT slice", "one view in turns, rays/s: " + ", ".join(
         f"{'K2' if m == 'on' else 'module'} {r:.1f}" for m, r in k2_turns)
         + f"; {card}")
@@ -1582,10 +1710,12 @@ def main():
     exp_k3 = g_chunks * g_levels * depth
     exp_k1 = sum(len(sp.groups) for sp in acfg.bspg_specs) * g_levels \
         * g_chunks
+    # --gnt_fused_vt auto: the attacked f32 frame takes K4 by default
     if (gnt_adv["k3_fwd_launches"], gnt_adv["k3_bwd_launches"],
-            gnt_adv["k1_launches"]) != (exp_k3, 0, exp_k1):
+            gnt_adv["k1_launches"], gnt_adv["k4_launches"]) != (
+                exp_k3, 0, exp_k1, exp_k3):
         raise AssertionError(f"attacked GNT render launches {gnt_adv}, "
-                             f"expected K3 {exp_k3}, K1 {exp_k1}")
+                             f"expected K3 and K4 {exp_k3}, K1 {exp_k1}")
     del aev, delta, src
 
     # 12. the IBRNet attack, on the model and the plan of phase 6
@@ -1600,9 +1730,9 @@ def main():
         raise AssertionError("the IBRNet attack launched the ray attention")
     ibr_adv = attacked_render("IBRNet attack", iev, data, src, delta, card)
     exp_k1 = expected // SLICE_VIEWS
-    if ibr_adv["k1_launches"] != exp_k1:
-        raise AssertionError(f"attacked IBRNet render launches "
-                             f"{ibr_adv['k1_launches']} != {exp_k1}")
+    if ibr_adv["k1_launches"] != exp_k1 or ibr_adv["k4_launches"]:
+        raise AssertionError(f"attacked IBRNet render launches {ibr_adv}, "
+                             f"expected K1 {exp_k1} and no K4")
     ibr_bundle = iev.bundle
     del iev, delta, src
 
@@ -1639,8 +1769,6 @@ def main():
     # K2's row: the whole bf16 chunk, the shape of its launches on the slice
     k2_head = next(r for r in chain_rows if r["dtype"] == "bf16"
                    and r["rays"] == gargs.chunk_size)
-    for row in checks:
-        row["bound_ms"], row["bound_by"] = select_bound(row)
     for row in chain_rows:
         row["bound_ms"], row["bound_by"] = chain_bound(row)
     uni_attack, uni_render = (universal["attack_launches"],
@@ -1657,6 +1785,8 @@ def main():
     k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
                     "universal_attack": uni_attack["ray_attention_bwd"]}
     va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
+    k4_paths = {"gnt_attacked_render": gnt_adv["k4_launches"],
+                "universal_attacked_render": uni_render["view_attention"]}
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
@@ -1676,7 +1806,9 @@ def main():
                            if r["dtype"] == "f32"),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "shapes": checks}, {
+        "bound_old_ms": head["bound_old_ms"],
+        "library_ms": None, "shapes": checks,
+        "route_ab_rays_per_s": {"ibrnet": ibr_ab, "gnt": gnt_ab}}, {
         "name": "gnt_chain", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/gnt_chain.cu",
         "replaces": "nerfool_tpu/ops/chain_kernel.py:220",
@@ -1711,13 +1843,13 @@ def main():
         "name": "view_attention", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/view_attention.cu",
         "replaces": "nerfool_tpu/ops/vt_kernel.py:126",
-        "launches": uni_render["view_attention"],
-        "launches_by_path": {
-            "universal_attacked_render": uni_render["view_attention"]},
+        "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths,
         "max_abs_err": max(r["max_abs_err"] for r in va_rows
                            if r["dtype"] == "f32"),
         "ms": va_head["ms"], "plain_ms": va_head["plain_ms"],
         "bound_ms": va_head["bound_ms"], "bound_by": va_head["bound_by"],
+        "bound_fma_ms": va_head["bound_fma_ms"],
         "library_ms": None, "shapes": va_rows}],
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
                    "ibrnet": {**ibr_attack, "render": ibr_adv},

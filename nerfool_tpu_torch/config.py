@@ -29,6 +29,15 @@ def str2bool(v):
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
 
 
+def on_off_auto(v):
+    """'auto', 'on' or 'off'; a boolean value parses as 'on' or 'off'."""
+    if isinstance(v, bool):
+        return "on" if v else "off"
+    if v.lower() in ("auto", "on", "off"):
+        return v.lower()
+    return "on" if str2bool(v) else "off"
+
+
 class ConfigArgumentParser(argparse.ArgumentParser):
     """argparse with configargparse-style '--config file' default merging."""
 
@@ -305,9 +314,16 @@ def port_parser():
                         help="random weights when --ckpt_path is empty, and "
                              "the attack's random draws")
     parser.add_argument("--max_views", type=int, default=None)
-    # fused view-attention kernel (ops/view_attention.py) on the no-grad f32
-    # GNT whole-frame renders; forward only, never on the attack step
-    parser.add_argument("--gnt_fused_vt", type=str2bool, default=False)
+    # fused view-attention kernel (ops/view_attention.py) on the no-grad GNT
+    # whole-frame renders that take the module path: auto = on a CUDA
+    # device; forward only, never on the attack step. True and False parse
+    # as on and off
+    parser.add_argument("--gnt_fused_vt", type=on_off_auto, default="auto")
+    # whole-frame renders take the per-tap gather unless --use_bspg True: on
+    # the H100 it renders the IBRNet view faster than BSPG and the GNT view
+    # as fast, and needs no host plan (timed in turns by chip_smoke.py;
+    # PERF.md)
+    parser.set_defaults(use_bspg=False)
     parser.add_argument("--dataset_kwargs", type=json.loads, default={},
                         help="JSON object of dataset constructor keywords")
     return parser

@@ -9,34 +9,49 @@
 //                   over corners (dy, dx) in {ly, ly+1} x {lx, lx+1},
 //                   of w_y * w_x * G[rv, k, dy * (p+1) + dx, :]
 //
-// with w_y = wy0 at ly and wy1 at ly+1 (likewise for x). G holds the block's
-// gathered (p+1)x(p+1)-pixel patch rows, channel-minor. The sum runs over
-// every matching slot, as the one-hot matmul of the TPU kernels does (slot
-// lists pad with -1 and pid >= 0, so pads never match).
+// with w_y = wy0 at ly and wy1 at ly+1 (likewise for x), G[rv, k] the patch
+// table's row slots[rv, k] of the row's view, channel-minor, and pid, ly,
+// lx and the weights the bilinear ingredients of the sample's coordinate
+// (ops/spg.py _sample_ingredients, F.grid_sample's zeros padding). Slot
+// lists pad with -1 and pid >= 0, so pads never match.
 //
 // The TPU kernels built a one-hot of the slot id and contracted it on the
-// matrix unit because Mosaic had no per-lane dynamic indexing. Here a thread
-// indexes directly: one thread per (sample, channel), the row's slot list
-// staged once per thread block in shared memory and searched linearly.
+// matrix unit because Mosaic had no per-lane dynamic indexing, and they read
+// G, the patch rows gathered per (row, slot) into device memory before the
+// call. Table row pid holds the padded pixels of patch pid, so every match
+// reads the same four corners: the contract is m(rv, s) times the bilinear
+// tap of table[view(rv), pid], m the number of slots equal to pid. This
+// kernel reads the table through the slot ids and forms no G:
+//  - a block takes 256 samples of one row; its slot list is staged once in
+//    shared memory;
+//  - phase 1, one thread per sample: the ingredients from the normalized
+//    coordinate (the same float operations as the PyTorch code, rounded the
+//    same way, so pid and the weights are bit-identical), then m by one scan
+//    of the staged slots (shared-memory broadcasts); the table offset of the
+//    top-left corner and the four weights, m folded in, go to shared memory
+//    (m = 0: nothing is read, the taps are 0);
+//  - phase 2, one thread per (sample, channel): the four corners of the
+//    channel from consecutive addresses (a warp reads whole 128-byte lines at
+//    c = 32), accumulated in f32 in the order of the one-hot einsum, written
+//    into the caller's buffer at a channel offset and row stride, so rgb
+//    (c = 3) and the features (c = 32) land side by side in one
+//    [V, R, S, 3 + c] buffer that the aggregator reads as it is.
 //
-// What bounds it on this card: per sample it reads 4 corners x c channels of
-// G (512 B at c=32 in f32) and the Ks-int slot list. The G rows of one view-
-// row are a few tens of KB and are re-read by all of its samples, so the reads
-// mostly hit L1/L2; the slot search runs on shared-memory broadcasts (all
-// threads of a warp read the same slot). The design keeps each warp's G loads
-// and output stores on consecutive channels, so at c=32 a warp moves whole
-// 128-byte lines. G itself is materialised by the gather before the call;
-// skipping it (reading the patch table through the slot ids) and splitting
-// the search across the warp are left for later.
+// What bounds it on this card: bytes. Per sample it writes c values and
+// reads two coordinates; the table (about 2 MB per view at the IBRNet
+// feature shape) is read once from device memory and then from L2 and L1,
+// since neighbouring samples tap neighbouring pixels of the same patches.
 //
-// G is read in its table dtype (f32 or bf16) and accumulated in f32; the
-// weights are f32; the output is in the table dtype.
+// The table and the output are float32 or bfloat16; coordinates and weights
+// are f32; sums are f32, rounded once to the table's type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int SAMPLES = 256;  // samples per block, one thread each
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -52,84 +67,119 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// grid: (n_rv, ceil(ns * c / blockDim.x)); dynamic shared memory: ks ints.
+// 1 where base cell c0 lies in [0, n - 1], as the PyTorch code's float test
+__device__ __forceinline__ float valid(float c0, int n) {
+  return (c0 >= 0.f && c0 <= (float)(n - 1)) ? 1.f : 0.f;
+}
+
+// grid: (Vg * B, ceil(ns / SAMPLES)); dynamic shared memory: SAMPLES x
+// (8 + 16) bytes, then ks ints. table [V, n_patch, (p+1)^2 c]; slots
+// [Vg * B, ks]; views [Vg]; gx, gy [V, B, ns]; out [V, B, ns, stride].
 template <typename T>
-__global__ void bspg_select_kernel(const T* __restrict__ g,
-                                   const int32_t* __restrict__ slots,
-                                   const int32_t* __restrict__ pid,
-                                   const int32_t* __restrict__ ly,
-                                   const int32_t* __restrict__ lx,
-                                   const float* __restrict__ wy0,
-                                   const float* __restrict__ wy1,
-                                   const float* __restrict__ wx0,
-                                   const float* __restrict__ wx1,
-                                   T* __restrict__ out, int ks, int ns, int p1,
-                                   int c) {
-  extern __shared__ int32_t s_slots[];
-  const int64_t rv = blockIdx.x;
-  for (int k = threadIdx.x; k < ks; k += blockDim.x) {
-    s_slots[k] = slots[rv * ks + k];
+__global__ void __launch_bounds__(SAMPLES) bspg_select_kernel(
+    const T* __restrict__ table, const int32_t* __restrict__ slots,
+    const int32_t* __restrict__ views, const float* __restrict__ gx,
+    const float* __restrict__ gy, T* __restrict__ out, int B, int ks, int ns,
+    int p, int c, int n_patch, int pbx, int h, int w, int stride, int off) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* s_base = reinterpret_cast<long long*>(smem);  // [SAMPLES]
+  float4* s_w = reinterpret_cast<float4*>(s_base + SAMPLES);  // [SAMPLES]
+  int32_t* s_slots = reinterpret_cast<int32_t*>(s_w + SAMPLES);  // [ks]
+
+  const int rv = blockIdx.x;
+  const int view = views[rv / B];
+  const size_t orow = (size_t)view * B + rv % B;  // row of gx, gy and out
+  const int s0 = blockIdx.y * SAMPLES;
+  for (int k = threadIdx.x; k < ks; k += SAMPLES)
+    s_slots[k] = slots[(size_t)rv * ks + k];
+  __syncthreads();
+
+  const int p1 = p + 1;
+  const int s = s0 + threadIdx.x;
+  if (s < ns) {
+    const size_t si = orow * ns + s;
+    // ix = (gx + 1) * 0.5 * (w - 1), each operation rounded on its own
+    const float ix = __fmul_rn(__fmul_rn(__fadd_rn(gx[si], 1.f), 0.5f),
+                               (float)(w - 1));
+    const float iy = __fmul_rn(__fmul_rn(__fadd_rn(gy[si], 1.f), 0.5f),
+                               (float)(h - 1));
+    const float x0 = floorf(ix), y0 = floorf(iy);
+    // base cells clip(floor, -1, n - 1) + 1 >= 0, so / is floor division
+    const int cbx = (int)fminf(fmaxf(x0, -1.f), (float)(w - 1)) + 1;
+    const int cby = (int)fminf(fmaxf(y0, -1.f), (float)(h - 1)) + 1;
+    const int qx = cbx / p, qy = cby / p;
+    const int pid = qy * pbx + qx;
+    int m = 0;
+    for (int k = 0; k < ks; ++k) m += s_slots[k] == pid;
+    long long base = -1;
+    float4 wt = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m) {
+      const float fx = __fsub_rn(ix, x0), fy = __fsub_rn(iy, y0);
+      const int lx = cbx - qx * p, ly = cby - qy * p;
+      base = ((long long)view * n_patch + pid) * p1 * p1 * c +
+             (long long)(ly * p1 + lx) * c;
+      wt.x = __fmul_rn(__fsub_rn(1.f, fy), valid(y0, h));
+      wt.y = __fmul_rn(fy, valid(__fadd_rn(y0, 1.f), h));
+      wt.z = (float)m * __fmul_rn(__fsub_rn(1.f, fx), valid(x0, w));
+      wt.w = (float)m * __fmul_rn(fx, valid(__fadd_rn(x0, 1.f), w));
+    }
+    s_base[threadIdx.x] = base;
+    s_w[threadIdx.x] = wt;
   }
   __syncthreads();
 
-  const int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)ns * c) return;
-  const int s = (int)(e / c);
-  const int ch = (int)(e - (int64_t)s * c);
-  const int64_t si = rv * ns + s;
-  const int q = pid[si];
-  const float a0 = wy0[si], a1 = wy1[si];
-  const float b0 = wx0[si], b1 = wx1[si];
-  const int64_t row = (int64_t)p1 * p1 * c;
-  // corner (ly, lx) of this channel; (ly+1, lx) is p1*c further, etc.
-  const T* base = g + rv * ks * row + ((int64_t)ly[si] * p1 + lx[si]) * c + ch;
+  const int nsb = min(SAMPLES, ns - s0);
   const int down = p1 * c;
-
-  float acc = 0.f;
-  for (int k = 0; k < ks; ++k) {
-    if (s_slots[k] == q) {
-      const T* t = base + k * row;
-      acc += a0 * (b0 * to_f32(t[0]) + b1 * to_f32(t[c])) +
-             a1 * (b0 * to_f32(t[down]) + b1 * to_f32(t[down + c]));
+  T* o = out + (orow * ns + s0) * stride + off;
+  for (int e = threadIdx.x; e < nsb * c; e += SAMPLES) {
+    const int sl = e / c;
+    const int ch = e - sl * c;
+    const long long base = s_base[sl];
+    float acc = 0.f;
+    if (base >= 0) {
+      const float4 wt = s_w[sl];
+      const T* t = table + base + ch;
+      // sum over dy first, then dx, as the one-hot einsum contracts them
+      acc = wt.z * (wt.x * to_f32(t[0]) + wt.y * to_f32(t[down])) +
+            wt.w * (wt.x * to_f32(t[c]) + wt.y * to_f32(t[down + c]));
     }
+    o[(size_t)sl * stride + ch] = from_f32<T>(acc);
   }
-  out[rv * ns * c + e] = from_f32<T>(acc);
 }
 
 template <typename T>
-int launch(const void* g, const void* slots, const void* pid, const void* ly,
-           const void* lx, const void* wy0, const void* wy1, const void* wx0,
-           const void* wx1, void* out, int n_rv, int ks, int ns, int p1, int c,
-           cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t work = (int64_t)ns * c;
-  dim3 grid((unsigned)n_rv, (unsigned)((work + threads - 1) / threads));
-  bspg_select_kernel<T><<<grid, threads, ks * sizeof(int32_t), stream>>>(
-      static_cast<const T*>(g), static_cast<const int32_t*>(slots),
-      static_cast<const int32_t*>(pid), static_cast<const int32_t*>(ly),
-      static_cast<const int32_t*>(lx), static_cast<const float*>(wy0),
-      static_cast<const float*>(wy1), static_cast<const float*>(wx0),
-      static_cast<const float*>(wx1), static_cast<T*>(out), ks, ns, p1, c);
+int launch(const void* table, const void* slots, const void* views,
+           const void* gx, const void* gy, void* out, int vg, int B, int ks,
+           int ns, int p, int c, int n_patch, int pbx, int h, int w,
+           int stride, int off, cudaStream_t stream) {
+  dim3 grid((unsigned)(vg * B), (unsigned)((ns + SAMPLES - 1) / SAMPLES));
+  const size_t smem = SAMPLES * (sizeof(long long) + sizeof(float4)) +
+                      (size_t)ks * sizeof(int32_t);
+  bspg_select_kernel<T><<<grid, SAMPLES, smem, stream>>>(
+      static_cast<const T*>(table), static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(views), static_cast<const float*>(gx),
+      static_cast<const float*>(gy), static_cast<T*>(out), B, ks, ns, p, c,
+      n_patch, pbx, h, w, stride, off);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (G and out).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int bspg_select(const void* g, const void* slots, const void* pid,
-                           const void* ly, const void* lx, const void* wy0,
-                           const void* wy1, const void* wx0, const void* wx1,
-                           void* out, int n_rv, int ks, int ns, int p1, int c,
-                           int dtype, void* stream) {
+// Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (table and
+// out). Returns the cudaError_t of the launch (0 on success).
+extern "C" int bspg_select(const void* table, const void* slots,
+                           const void* views, const void* gx, const void* gy,
+                           void* out, int vg, int B, int ks, int ns, int p,
+                           int c, int n_patch, int pbx, int h, int w,
+                           int stride, int off, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(g, slots, pid, ly, lx, wy0, wy1, wx0, wx1, out, n_rv,
-                         ks, ns, p1, c, st);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(g, slots, pid, ly, lx, wy0, wy1, wx0, wx1,
-                                 out, n_rv, ks, ns, p1, c, st);
-  }
+  if (vg < 1 || B < 1 || ns < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(table, slots, views, gx, gy, out, vg, B, ks, ns, p,
+                         c, n_patch, pbx, h, w, stride, off, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(table, slots, views, gx, gy, out, vg, B, ks,
+                                 ns, p, c, n_patch, pbx, h, w, stride, off,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }

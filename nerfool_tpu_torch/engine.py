@@ -15,9 +15,10 @@ windowed SSIM for GNT). LPIPS is not ported and reads NaN.
 The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
 routes the differentiated GNT step through the ray-attention kernel
 (``ops/ray_attention.py``, forward and backward), ``--gnt_fused_attn on``
-the no-grad f32 GNT renders, ``--gnt_fused_vt True`` their view attention
-through its forward-only kernel (``ops/view_attention.py``); on the CPU each
-takes its kernel's plain version. Not ported, raising ``NotImplementedError``
+the no-grad f32 GNT renders, ``--gnt_fused_vt`` their view attention
+through its forward-only kernel (``ops/view_attention.py``; ``auto``, the
+default, = on a CUDA device); on the CPU each takes its kernel's plain
+version. Not ported, raising ``NotImplementedError``
 by flag name: hybrid clean-feature renders, purification, the noise defense,
 ``--geo_noise``, and the warp losses ``make_attack_step`` lists.
 
@@ -27,14 +28,16 @@ bf16 whole-frame GNT renders on a CUDA device through the whole-chain kernel
 (``ops/chain.py``), ``on`` forces the chain (its plain version on the CPU),
 ``off`` keeps the module path. f32 renders take the module path either way.
 
-Whole-frame renders take the block segment-patch gather by default
-(``--use_bspg``): it is planned once over every camera the dataset can emit,
-with one uniform worst-case slot budget across the ``n_src`` source slots,
-so one plan serves every view. Planning that fails raises; it never drops to
-the per-tap gather (``--use_bspg False`` asks for that route). The one
-exception is the camera-pose attack (``--perturb_camera``): it moves the
-source cameras out of the planned set, so its renders take the per-tap
-gather, as the JAX evaluator's do, and say so once.
+Whole-frame renders take the per-tap gather by default; ``--use_bspg
+True`` takes the block segment-patch gather: it is planned once over every
+camera the dataset can emit, with one uniform worst-case slot budget across
+the ``n_src`` source slots, so one plan serves every view. Where no plan can
+serve a render, the render takes the per-tap gather, as the JAX evaluator's
+do, and the evaluator prints one line naming the reason, once per reason: a
+loader without ``target_cameras()``, a camera set no patch size covers, a
+frame of another size than the planned one, or the camera-pose attack
+(``--perturb_camera``), which moves the source cameras out of the planned
+set. The route is chosen before any launch.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from nerfool_tpu_torch.attack.attack import (
     make_attack_step,
 )
 from nerfool_tpu_torch.attack.geo_interp import sample_unseen_pose
+from nerfool_tpu_torch.config import on_off_auto
 from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.data.base import Loader
 from nerfool_tpu_torch.device import resolve_device
@@ -145,9 +149,10 @@ class Evaluator:
             args=args, seed=seed, device=self.device)
         self.dataset_kwargs = dataset_kwargs or {}
         self.test_dataset = self._dataset("test")
-        self._bspg_specs = {}  # n_src -> (spec_feat, spec_rgb)
+        # n_src -> (spec_feat, spec_rgb), or the reason no plan exists
+        self._bspg_specs = {}
         self._bspg_hw = None
-        self._said_per_tap = False
+        self._per_tap_said = set()
         # the attack's random draws (delta's init, the ray subsets)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
@@ -197,60 +202,74 @@ class Evaluator:
         return self.args.backbone == "gnt" and (
             mode == "on" or (mode == "auto" and self.device.type == "cuda"))
 
+    def _fused_vt(self):
+        """``--gnt_fused_vt`` for whole-frame renders: auto = on a CUDA
+        device (the renders run without grad; the attack step's config never
+        carries it)."""
+        mode = on_off_auto(getattr(self.args, "gnt_fused_vt", "auto"))
+        return self.args.backbone == "gnt" and (
+            mode == "on" or (mode == "auto" and self.device.type == "cuda"))
+
     def view_render_cfg(self, n_src):
         """Render config for whole-frame renders with ``n_src`` source views;
-        plans BSPG on first use (numpy, host). ``--gnt_fused_vt`` is read
-        here only: the view-attention kernel has no backward, so the attack
-        step's config never carries it."""
+        plans BSPG on first use (numpy, host), or takes the per-tap gather
+        where no plan can be made. ``--gnt_fused_vt`` is read here only: the
+        view-attention kernel has no backward, so the attack step's config
+        never carries it."""
         args = self.args
         gnt = args.backbone == "gnt"
         base = dataclasses.replace(
             self.render_cfg, gnt_fused_chain=self._fused_chain(),
             gnt_fused_attn=(gnt and getattr(
                 args, "gnt_fused_attn", "auto") == "on"),
-            gnt_fused_vt=gnt and bool(getattr(args, "gnt_fused_vt", False)))
+            gnt_fused_vt=self._fused_vt())
         if not getattr(args, "use_bspg", True):
             return base
         if getattr(args, "perturb_camera", False):
-            if not self._said_per_tap:
-                print("--perturb_camera moves the source cameras out of the "
-                      "BSPG plan: whole-frame renders take the per-tap "
-                      "gather", flush=True)
-                self._said_per_tap = True
-            return base
-        if n_src in self._bspg_specs:
-            return dataclasses.replace(base,
-                                       bspg_specs=self._bspg_specs[n_src])
+            return self._per_tap(base, "--perturb_camera moves the source "
+                                 "cameras out of the BSPG plan")
+        if n_src not in self._bspg_specs:
+            self._bspg_specs[n_src] = self._plan(n_src)
+        specs = self._bspg_specs[n_src]
+        if isinstance(specs, str):
+            return self._per_tap(base, specs)
+        return dataclasses.replace(base, bspg_specs=specs)
+
+    def _per_tap(self, cfg, reason):
+        """``cfg`` without BSPG specs; says why once per reason."""
+        if reason not in self._per_tap_said:
+            print(f"whole-frame renders take the per-tap gather: {reason}",
+                  flush=True)
+            self._per_tap_said.add(reason)
+        return dataclasses.replace(cfg, bspg_specs=None)
+
+    def _plan(self, n_src):
+        """The BSPG specs of ``n_src`` source slots over every camera of the
+        test split, or the reason there are none."""
         from nerfool_tpu_torch.ops.bspg import plan_render_specs
 
         fn = getattr(self.test_dataset, "target_cameras", None)
         got = fn() if fn is not None else None
         if got is None:
-            raise RuntimeError(
-                f"BSPG cannot be planned: {type(self.test_dataset).__name__} "
-                "exposes no target_cameras(); pass --use_bspg False for the "
-                "per-tap route")
+            return (f"{type(self.test_dataset).__name__} exposes no "
+                    "target_cameras()")
         cams_all = np.asarray(got[0], np.float64)
         dr = np.asarray(got[1], np.float64)
         h, w = int(cams_all[0][0]), int(cams_all[0][1])
-        blk = int(getattr(args, "bspg_block", 8))
+        blk = int(getattr(self.args, "bspg_block", 8))
         specs = plan_render_specs(cams_all, cams_all, dr, (h, w),
                                   feature_hw(h, w), block=(blk, blk),
-                                  render_stride=args.render_stride)
+                                  render_stride=self.args.render_stride)
         if specs is None:
-            raise RuntimeError(
-                "BSPG planning failed: no admissible patch size covers the "
-                "epipolar spans of this camera set; pass --use_bspg False for "
-                "the per-tap route")
+            return ("no admissible patch size covers the epipolar spans of "
+                    "this camera set")
+        self._bspg_hw = (h, w)
         # any candidate camera may fill any of the n_src slots: one group with
         # the worst-case crossing budget
-        specs = tuple(
+        return tuple(
             dataclasses.replace(
                 sp, groups=((tuple(range(n_src)), max(k for _, k in sp.groups)),))
             for sp in specs)
-        self._bspg_hw = (h, w)
-        self._bspg_specs[n_src] = specs
-        return dataclasses.replace(base, bspg_specs=specs)
 
     def adopt_plan(self, other):
         """Take over ``other``'s BSPG plans instead of planning again. A
@@ -433,8 +452,9 @@ class Evaluator:
             src["rgbs"] if delta is None else src["rgbs"] + delta)
         rcfg = self.view_render_cfg(int(src_cameras.shape[0]))
         if rcfg.bspg_specs is not None and self._bspg_hw != (h, w):
-            raise ValueError(f"BSPG plan covers {self._bspg_hw} frames, "
-                             f"not {(h, w)}")
+            rcfg = self._per_tap(rcfg, f"the BSPG plan covers "
+                                 f"{self._bspg_hw[0]}x{self._bspg_hw[1]} "
+                                 f"frames, not {h}x{w}")
         return render_single_image(
             self.bundle.nets, batch, feats, rcfg, h, w, src["rgbs"],
             src_cameras, chunk_size=args.chunk_size,

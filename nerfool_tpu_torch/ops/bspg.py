@@ -9,10 +9,11 @@ view): the block's center segment is walked at patch granularity and every
 path patch contributes its 3x3 neighbourhood (9 + 3*crossings slots, distinct
 on a monotone path). Coverage is exact when r + 2 <= P cells, which the host
 planner verifies for the scene's cameras. Each sample's exact bilinear tap is
-then rebuilt from the block's patch rows by ``ops/bspg_select.py``.
+then rebuilt from the patch table, read through the block's slot ids, by
+``ops/bspg_select.py``.
 
-The host planner is numpy; the walk, gather and selection are tensor code on
-the render device.
+The host planner is numpy; the walk and the selection run on the render
+device.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nerfool_tpu_torch.ops.bspg_select import select_taps
+from nerfool_tpu_torch.ops.bspg_select import _view_index, select_taps
 from nerfool_tpu_torch.ops.spg import (
     EPS_Z,
     SPGSpec,
@@ -30,23 +31,11 @@ from nerfool_tpu_torch.ops.spg import (
     _clip_segment,
     _clip_segment_np,
     _patch_grid,
-    _sample_ingredients,
 )
 
 # slot granularity of the planner's cost model: slot lists are costed in
 # multiples of 8, so the port picks the patch size the JAX planner picks
 KB = 8
-
-
-def _view_index(views, device):
-    """Device index tensor of a view group. Consecutive views (the
-    evaluator's one uniform group) come from ``arange`` on the device: a
-    host-to-device copy of pageable memory would synchronize the stream
-    once per chunk and stall the host's launch queue."""
-    v0 = views[0]
-    if tuple(views) == tuple(range(v0, v0 + len(views))):
-        return torch.arange(v0, v0 + len(views), device=device)
-    return torch.as_tensor(views, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,53 +319,25 @@ def _dilated_walk(ax, ay, bx, by, spec: BSPGSpec, k_path):
     return torch.cat([init, tri], dim=-1)  # [Vg, B, 9+3kc]
 
 
-def gather_block_patches(table, slots_groups, spec: BSPGSpec):
-    """table [V, Pby*Pbx, row] -> list of G [Vg, B, Ks, row]."""
-    v, n_p, row = table.shape
-    flat = table.reshape(v * n_p, row)
-    out = []
-    for (views, _), slots in zip(spec.groups, slots_groups):
-        base = (_view_index(views, slots.device).to(torch.int32)
-                * n_p)[:, None, None]
-        idx = (torch.clamp(slots, min=0) + base).reshape(-1)
-        out.append(flat.index_select(0, idx).reshape(slots.shape + (row,)))
-    return out
+def select_block_samples(table, slots_groups, gx, gy, spec: BSPGSpec, c,
+                         out=None, offset=0):
+    """Exact bilinear taps for every (ray-in-block, sample), read from the
+    patch table through each block's slot ids by
+    ``bspg_select.select_taps``, one launch per view group.
 
-
-def select_block_samples(g_groups, slots_groups, gx, gy, spec: BSPGSpec, c):
-    """Exact bilinear taps for every (ray-in-block, sample) from the block
-    patch rows, through ``bspg_select.select_taps``.
-
+    :param table: [V, Pby*Pbx, (p+1)^2 * c] packed patch table
     :param gx, gy: [V, B, n, S] normalized coords (n = rays per block)
-    :return: [V, B, n, S, c] in the table dtype
+    :param out: [V, B*n, S, C] buffer the taps are written into at channels
+        [offset, offset + c); None allocates [V, B*n, S, c]
+    :return: ``out`` ([V, B, n, S, c] when allocated here)
     """
     v, b, n, s = gx.shape
-    ix = (gx + 1.0) * 0.5 * (spec.w - 1)
-    iy = (gy + 1.0) * 0.5 * (spec.h - 1)
-    sspec = spec.as_spg()
-
-    outs = []
-    for (views, k_path), slots, g in zip(spec.groups, slots_groups, g_groups):
-        vi = _view_index(views, gx.device)
-        vg = len(views)
-        ks = spec.k_slots(k_path)
-        ing = _sample_ingredients(ix[vi].reshape(vg * b, n * s),
-                                  iy[vi].reshape(vg * b, n * s), sspec)
-        f32 = torch.float32
-        out = select_taps(
-            g.reshape(vg * b, ks, -1), slots.reshape(vg * b, ks),
-            ing["pid"], ing["ly"], ing["lx"],
-            ((1.0 - ing["fy"]) * ing["vy0"]).to(f32),
-            (ing["fy"] * ing["vy1"]).to(f32),
-            ((1.0 - ing["fx"]) * ing["vx0"]).to(f32),
-            (ing["fx"] * ing["vx1"]).to(f32),
-            spec.p, c,
-        )
-        outs.append(out.reshape(vg, b, n, s, c))
-
-    out = torch.cat(outs, dim=0)
-    order = np.concatenate([np.asarray(vs) for vs, _ in spec.groups])
-    if (order == np.arange(v)).all():
-        return out
-    inv = torch.as_tensor(np.argsort(order), device=out.device)
-    return out[inv]
+    fresh = out is None
+    if fresh:
+        out = torch.empty((v, b * n, s, c), dtype=table.dtype,
+                          device=table.device)
+    gx, gy = gx.contiguous(), gy.contiguous()
+    for (views, _), slots in zip(spec.groups, slots_groups):
+        select_taps(table, slots, views, gx, gy, out, offset, spec.p, spec.h,
+                    spec.w, spec.pbx)
+    return out.reshape(v, b, n, s, c) if fresh else out

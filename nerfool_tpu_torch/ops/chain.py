@@ -412,19 +412,24 @@ def launch_chain(lib, net, merged, emb):
 gnt_chain.launches = 0
 
 
-def chain_inputs(net, rgb_feat, ray_diff, mask, pts, ray_d):
-    """(merged, emb) for ``gnt_chain``, in ``rgb_feat``'s dtype."""
+def chain_inputs(net, rgb_feat, ray_diff, mask, pts, ray_d, merged=None):
+    """(merged, emb) for ``gnt_chain``, in ``rgb_feat``'s dtype. ``merged``:
+    a caller's ``[V, R, S, ci + 5]`` buffer that already holds rgb_feat |
+    ray_diff | mask (the BSPG render writes it in place), used as it is."""
     dt = rgb_feat.dtype
     pts_emb, views_emb = net.embeddings(pts, ray_d)
-    merged = torch.cat([rgb_feat, ray_diff.to(dt), mask.to(dt)], dim=-1)
+    if merged is None:
+        merged = torch.cat([rgb_feat, ray_diff.to(dt), mask.to(dt)], dim=-1)
     emb = torch.cat([pts_emb, views_emb], dim=-1).to(dt)
     return merged.contiguous(), emb.contiguous()
 
 
-def fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d):
+def fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d,
+                          merged=None):
     """Drop-in for ``net(rgb_feat, ray_diff, mask, pts, ray_d)`` (a
     ``GNTAggregator``) through the chain: [R, 3], or [R, 3 + S] under
-    ``ret_alpha``, in ``rgb_feat``'s dtype."""
+    ``ret_alpha``, in ``rgb_feat``'s dtype; ``merged`` as in
+    ``chain_inputs``."""
     q, attn0 = gnt_chain(net, *chain_inputs(net, rgb_feat, ray_diff, mask,
-                                            pts, ray_d))
+                                            pts, ray_d, merged))
     return net.head(q, attn0)

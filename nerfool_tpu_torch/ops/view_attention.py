@@ -69,11 +69,11 @@ def view_attention_plain(qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1, wa0,
 def _lib():
     lib = load_library("view_attention")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.view_attention_fwd.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.view_attention_fwd.argtypes = [vp] * 7 + [ci] * 4 + [vp]
     lib.view_attention_fwd.restype = ci
     lib.view_attention_max_blocks.argtypes = [ci]
     lib.view_attention_max_blocks.restype = ci
-    lib.view_attention_dims.argtypes = [ctypes.POINTER(ci)] * 5
+    lib.view_attention_dims.argtypes = [ci] + [ctypes.POINTER(ci)] * 6
     lib.view_attention_dims.restype = ci
     return lib
 
@@ -84,10 +84,12 @@ def build():
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_dims():
-    """(D, hidden, pos width, rows per tile, floats of the weight blob)"""
-    vals = [ctypes.c_int() for _ in range(5)]
-    _lib().view_attention_dims(*(ctypes.byref(v) for v in vals))
+def _kernel_dims(dtype_code):
+    """(D, hidden, pos width, rows per block step, 32-bit words of the packed
+    matrices, floats of the vector blob) of the dtype's kernel"""
+    vals = [ctypes.c_int() for _ in range(6)]
+    _lib().view_attention_dims(dtype_code,
+                               *(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
 
 
@@ -131,13 +133,57 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _weight_blob(dtype, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0, wa1, ba1, wo,
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero) as ``cvt.rna.tf32.f32`` rounds it, kept as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo): ``hi = tf32(x)``, ``lo = tf32(x - hi)``; ``hi + lo`` holds
+    ``x`` to ~2^-22 of its magnitude."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def pack_b_tf32(w):
+    """``w [K, N]`` (in, out; K and N multiples of 8) as the B fragments of
+    the kernel's three-product ``mma.sync.m16n8k8`` TF32 products: ``[K/8,
+    N/8, 32, 4]`` f32 where lane ``4 g + t`` of fragment ``(kt, nt)`` holds
+    hi and lo of ``w[8 kt + 2 t, 8 nt + g]`` and ``w[8 kt + 2 t + 1, 8 nt +
+    g]`` as (hi0, hi1, lo0, lo1): one 16-byte load per lane. The k index is
+    permuted (logical rows t and t + 4 of the step are rows 2 t and 2 t + 1)
+    so that the A fragments are pairs of neighbouring channels. Flattened:
+    ``[2 K N]``."""
+    k, n = w.shape
+    if k % 8 or n % 8:
+        raise ValueError(f"K={k}, N={n} are not multiples of 8")
+    hi, lo = tf32_split(w)
+    # k = 8 kt + 2 t + e, n = 8 nt + g -> [kt, nt, g, t, (hi, lo), e]
+    parts = torch.stack([x.reshape(k // 8, 4, 2, n // 8, 8)
+                         for x in (hi, lo)], dim=-1)  # [kt, t, e, nt, g, h]
+    return parts.permute(0, 3, 4, 1, 5, 2).reshape(-1)
+
+
+def weight_blobs(dtype, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0, wa1, ba1, wo,
                  bo):
     """The weights rounded to ``dtype`` as the module path casts them, in
-    one f32 blob in the kernel's order (``wa0`` transposed)."""
-    order = (wkv, wq, wo, wp0, bp0, wp1, bp1, wa0.t(), ba0, wa1, ba1, bo)
-    return torch.cat([w.detach().to(dtype).float().reshape(-1)
-                      for w in order])
+    the kernel's two blobs: the matrices ``Wk | Wk Wv``, ``Wq``, ``Wo``
+    packed as B fragments (float32: ``pack_b_tf32``; bfloat16:
+    ``ops/chain.py`` ``pack_b``), and the rest as one f32 vector blob in the
+    kernel's order (``wa0`` transposed)."""
+    from nerfool_tpu_torch.ops.chain import pack_b
+
+    r = lambda w: w.detach().to(dtype).float()
+    mats = [r(w) for w in (wkv, wq, wo)]
+    if dtype == torch.float32:
+        mats = torch.cat([pack_b_tf32(w) for w in mats])
+    else:
+        mats = torch.cat([pack_b(w.to(dtype)) for w in mats])
+    vecs = torch.cat([r(w).reshape(-1) for w in (
+        wp0, bp0, wp1, bp1, wa0.t(), ba0, wa1, ba1, bo)])
+    return mats.contiguous(), vecs
 
 
 def view_attention(qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0,
@@ -167,27 +213,29 @@ def view_attention(qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0,
         raise ValueError(f"dtype {qln.dtype} (float32 or bfloat16)")
     n, d = qln.shape
     v = k.shape[0]
-    kd, khid, kpd, tile_rows, w_floats = _kernel_dims()
+    code = _DTYPES[qln.dtype]
+    kd, khid, kpd, block_rows, mat_words, vec_floats = _kernel_dims(code)
     if (d, pos.shape[-1]) != (kd, kpd):
         raise ValueError(f"the kernel takes D, pos width = {(kd, kpd)}, got "
                          f"{(d, pos.shape[-1])}")
     dev = k.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    code = _DTYPES[qln.dtype]
-    blocks = min(-(-n // tile_rows), _max_blocks(index, code))
+    blocks = min(-(-n // block_rows), _max_blocks(index, code))
     if blocks < 1:
         raise RuntimeError("view_attention: one block does not fit the card")
-    blob = _weight_blob(qln.dtype, *weights)
-    if blob.numel() != w_floats:
-        raise RuntimeError(f"weight blob of {blob.numel()} floats, the "
-                           f"kernel takes {w_floats}")
+    mats, vecs = weight_blobs(qln.dtype, *weights)
+    words = mats.numel() * mats.element_size() // 4
+    if (words, vecs.numel()) != (mat_words, vec_floats):
+        raise RuntimeError(f"weight blobs of {words} words and "
+                           f"{vecs.numel()} floats, the kernel takes "
+                           f"{mat_words} and {vec_floats}")
     qln, k, pos, mask = (_aligned(t) for t in (qln, k, pos, mask))
     out = torch.empty_like(qln)
     with torch.cuda.device(dev):
         err = _lib().view_attention_fwd(
             qln.data_ptr(), k.data_ptr(), pos.data_ptr(), mask.data_ptr(),
-            blob.data_ptr(), out.data_ptr(), v, n, blocks, code,
-            torch.cuda.current_stream(dev).cuda_stream)
+            mats.data_ptr(), vecs.data_ptr(), out.data_ptr(), v, n, blocks,
+            code, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"view_attention launch failed: cudaError {err}")
     view_attention.launches += 1

@@ -17,8 +17,8 @@ per iteration and peak device memory of every timed run, and the profiled
 window's device time by kernel and by PyTorch operator, with the share of the
 window's wall time the device was busy. Last, the whole-frame render of the
 first test view from the attacked sources, on the route the flags name
-(``--gnt_fused_attn``, ``--gnt_fused_vt``, ``--use_bspg``: BSPG is planned
-on the host first, ``--use_bspg False`` renders per tap without a plan):
+(``--gnt_fused_attn``, ``--gnt_fused_vt``, ``--use_bspg``: per tap by
+default, ``--use_bspg True`` plans BSPG on the host first):
 one warm-up render, one timed, one under the profiler with the same tables.
 The attack itself gathers per tap.
 """

@@ -2,8 +2,10 @@
 plain loop over ray chunks.
 
 With BSPG specs the rays are first reordered into bh x bw pixel blocks
-(padding rays replicate the border pixel), rendered block-major, and put
-back in raster order before the image reshape.
+(padding rays replicate the border pixel), rendered block-major in chunks of
+whole blocks, and put back in raster order before the image reshape. A
+``chunk_size`` that is not a multiple of the block is rounded down to one (at
+least one block), and that is said once per chunk size and block.
 """
 from __future__ import annotations
 
@@ -15,6 +17,21 @@ from nerfool_tpu_torch.render.render_rays import (
     make_bspg_tables,
     render_rays,
 )
+
+_said_chunks = set()  # (chunk_size, bh, bw) already rounded down aloud
+
+
+def block_chunk(chunk_size, bh, bw):
+    """``chunk_size`` rounded down to whole bh x bw ray blocks, at least
+    one; the first rounding of each (chunk, block) is printed."""
+    blk = bh * bw
+    chunk = max(blk, chunk_size // blk * blk)
+    if chunk != chunk_size and (chunk_size, bh, bw) not in _said_chunks:
+        _said_chunks.add((chunk_size, bh, bw))
+        print(f"chunk_size {chunk_size} is not a multiple of the {bh}x{bw} "
+              f"ray block: BSPG renders take chunks of {chunk} rays",
+              flush=True)
+    return chunk
 
 
 def block_major_order(hs, ws, bh, bw):
@@ -49,9 +66,7 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
     tables = None
     if cfg.bspg_specs is not None:
         bh, bw = cfg.bspg_specs[0].block
-        if chunk_size % (bh * bw):
-            raise ValueError(f"chunk_size {chunk_size} is not a multiple of "
-                             f"the {bh}x{bw} ray block")
+        chunk_size = block_chunk(chunk_size, bh, bw)
         perm, inv = block_major_order(hs, ws, bh, bw)
         perm = torch.as_tensor(perm, device=ray_o.device)
         inv = torch.as_tensor(inv, device=ray_o.device)

@@ -89,8 +89,17 @@ def make_bspg_tables(src_rgbs, featmaps, bspg_specs, dtype=torch.float32):
     }
 
 
-def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d):
-    """Run the level's aggregator on gathered taps; raw output in f32."""
+def _chain_route(cfg, dtype):
+    """Whether a level's taps of ``dtype`` go to the whole-chain kernel."""
+    return (cfg.backbone == "gnt" and cfg.gnt_fused_chain
+            and dtype == torch.bfloat16)
+
+
+def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
+           merged=None):
+    """Run the level's aggregator on gathered taps; raw output in f32.
+    ``merged``: the chain's ``[V, R, S, 3 + c + 5]`` input already written
+    by the caller (BSPG), ``rgb_feat`` a view of it."""
     dt = cfg.dtype
     if dt != torch.float32:
         rgb_feat, ray_diff, mask = (rgb_feat.to(dt), ray_diff.to(dt),
@@ -99,10 +108,11 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d):
     net = nets["net_coarse" if level == 0 or cfg.single_net else "net_fine"]
     if cfg.backbone == "ibrnet":
         raw = net(rgb_feat, ray_diff, mask)
-    elif cfg.gnt_fused_chain and rgb_feat.dtype == torch.bfloat16:
+    elif _chain_route(cfg, rgb_feat.dtype):
         from nerfool_tpu_torch.ops.chain import fused_chain_aggregate
 
-        raw = fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d)
+        raw = fused_chain_aggregate(net, rgb_feat, ray_diff, mask, pts, ray_d,
+                                    merged)
     else:
         raw = net(rgb_feat, ray_diff, mask, pts, ray_d,
                   fused_attn=cfg.gnt_fused_attn, fused_vt=cfg.gnt_fused_vt,
@@ -173,13 +183,15 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
     """Coarse + fine rendering through the block segment-patch gather.
 
     Rays arrive BLOCK-MAJOR (render_image reorders raster rays into bh x bw
-    pixel blocks). One slot walk and one patch-row gather per (block, view)
-    serve both passes: fine depths stay inside [near, far], which the block
-    tube covers by construction.
+    pixel blocks). One slot walk per (block, view) serves both passes: fine
+    depths stay inside [near, far], which the block tube covers by
+    construction. The selection writes rgb and the features side by side
+    into the one [V, R, S, 3 + c] buffer the aggregator reads; for the
+    whole-chain kernel that buffer is its [V, R, S, 3 + c + 5] input, the
+    ray differences and the mask written beside the taps.
     """
     from nerfool_tpu_torch.ops.bspg import (
         build_block_slots,
-        gather_block_patches,
         select_block_samples,
     )
     from nerfool_tpu_torch.ops.spg import project_endpoints
@@ -217,7 +229,6 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
 
     slots_f = build_block_slots(pa, pb, spec_f)
     slots_r = build_block_slots(pa, pb, spec_r)
-    g_rgb = gather_block_patches(tables["rgb"], slots_r, spec_r)
     c_feat = tables["feat"][0].shape[-1] // (spec_f.p + 1) ** 2
 
     def run_level(pts_l, z_l, li):
@@ -226,16 +237,24 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
         px, py, front = project_points_planes(flat, src_cameras)
         gxb = (2.0 * px / (w - 1.0) - 1.0).reshape(v, b, npb, s)
         gyb = (2.0 * py / (h - 1.0) - 1.0).reshape(v, b, npb, s)
-        g_f = gather_block_patches(tables["feat"][li], slots_f, spec_f)
-        feat = select_block_samples(g_f, slots_f, gxb, gyb, spec_f, c_feat)
-        rgb = select_block_samples(g_rgb, slots_r, gxb, gyb, spec_r, 3)
+        dt = tables["rgb"].dtype
+        chain = _chain_route(cfg, dt)
+        ci = 3 + c_feat
+        buf = torch.empty((v, r, s, ci + (5 if chain else 0)), dtype=dt,
+                          device=flat.device)
+        select_block_samples(tables["rgb"], slots_r, gxb, gyb, spec_r, 3,
+                             buf, 0)
+        select_block_samples(tables["feat"][li], slots_f, gxb, gyb, spec_f,
+                             c_feat, buf, 3)
         dxp, dyp, dzp, dot = compute_angle_planes(flat, cam, src_cameras)
         ray_diff = torch.stack([dxp, dyp, dzp, dot], dim=-1).reshape(v, r, s, 4)
-        mask = (inbound_mask_planes(px, py, h, w) & front).to(
-            rgb.dtype).reshape(v, r, s, 1)
-        rgb_feat = torch.cat([rgb.reshape(v, r, s, 3),
-                              feat.reshape(v, r, s, c_feat)], dim=-1)
-        raw = _shade(cfg, nets, li, rgb_feat, ray_diff, mask, pts_l, ray_d)
+        mask = (inbound_mask_planes(px, py, h, w) & front).to(dt).reshape(
+            v, r, s, 1)
+        if chain:
+            buf[..., ci:ci + 4] = ray_diff
+            buf[..., ci + 4:] = mask
+        raw = _shade(cfg, nets, li, buf[..., :ci], ray_diff, mask, pts_l,
+                     ray_d, buf if chain else None)
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
         return _finalize(cfg, raw, z_l, pixel_mask)
 

@@ -1,5 +1,5 @@
-"""Port BSPG (planner, slot walk, patch gather, tap selection) against the
-JAX package. The CUDA kernel's own tests are in test_torch_kernels.py.
+"""Port BSPG (planner, slot walk, tap selection from the patch table)
+against the JAX package. The CUDA kernel's own tests are in test_torch_kernels.py.
 
 The planner and slot walk must agree exactly (plans and integer slot ids).
 Selection is exact bilinear reconstruction, so it is held at float32 to
@@ -53,6 +53,20 @@ def _blocks(x, h, w, bh, bw, s):
     x = np.asarray(x).reshape(v, h // bh, bh, w // bw, bw, s)
     return x.transpose(0, 1, 3, 2, 4, 5).reshape(
         v, (h // bh) * (w // bw), bh * bw, s)
+
+
+def _table_from_rows(g_groups, slots_groups, spec, c):
+    """A patch table holding the gathered rows G at their slot ids (rows no
+    slot names stay zero: the selection never reads them)."""
+    v = sum(len(views) for views, _ in spec.groups)
+    table = np.zeros((v, spec.pby * spec.pbx, (spec.p + 1) ** 2 * c),
+                     np.float32)
+    for (views, _), g, slots in zip(spec.groups, g_groups, slots_groups):
+        g, slots = np.asarray(g), np.asarray(slots)
+        for i, view in enumerate(views):
+            ok = slots[i] >= 0
+            table[view, slots[i][ok]] = g[i][ok]
+    return _t(table)
 
 
 @pytest.fixture(scope="module")
@@ -130,8 +144,9 @@ def test_build_block_slots_identical(scene):
 
 @pytest.mark.parametrize("c", [3, 32])
 def test_select_matches_xla_and_per_tap(scene, c):
-    """Port chain (pack, walk, gather, plain selection) == the JAX XLA
-    selection == the per-tap F.grid_sample gather."""
+    """Port chain (pack, walk, selection through the slot ids) == the JAX
+    XLA selection on its gathered rows == the per-tap F.grid_sample
+    gather."""
     rng = np.random.RandomState(c)
     images = rng.rand(4, H, W, c).astype(np.float32)
     jspec, spec = scene["jspec"], _port_spec(scene["jspec"])
@@ -146,9 +161,8 @@ def test_select_matches_xla_and_per_tap(scene, c):
     tab = pack_patch_table(_t(images), spec.p)
     np.testing.assert_array_equal(tab.numpy(), np.asarray(jtab))
     slots = bspg.build_block_slots(_t(scene["pa"]), _t(scene["pb"]), spec)
-    g = bspg.gather_block_patches(tab, slots, spec)
-    out = bspg.select_block_samples(g, slots, _t(scene["gx"]), _t(scene["gy"]),
-                                    spec, c)
+    out = bspg.select_block_samples(tab, slots, _t(scene["gx"]),
+                                    _t(scene["gy"]), spec, c)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
 
     v, b, n, s = scene["gx"].shape
@@ -166,13 +180,13 @@ def test_select_matches_pallas_full_width(scene):
     jspec = scene["jspec"]
     jslots = jbspg.build_block_slots(jnp.asarray(scene["pa"]),
                                      jnp.asarray(scene["pb"]), jspec)
-    jg = jbspg.gather_block_patches(
-        jbspg.pack_patch_table(jnp.asarray(images), jspec.p), jslots, jspec)
+    jtab = jbspg.pack_patch_table(jnp.asarray(images), jspec.p)
+    jg = jbspg.gather_block_patches(jtab, jslots, jspec)
     ref = jbspg.select_block_samples(
         jg, jslots, jnp.asarray(scene["gx"]), jnp.asarray(scene["gy"]),
         jspec, 3, use_pallas=True)
     out = bspg.select_block_samples(
-        [_t(g) for g in jg], [_t(s) for s in jslots], _t(scene["gx"]),
+        _t(jtab), [_t(s) for s in jslots], _t(scene["gx"]),
         _t(scene["gy"]), _port_spec(jspec), 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
@@ -195,7 +209,44 @@ def test_select_matches_windowed_pallas(c):
                                          debug=dbg)
     assert any(k < ks for k, ks, _ in dbg), dbg
     out = bspg.select_block_samples(
-        [_t(x) for x in g], [_t(x) for x in slots], _t(gxb), _t(gyb),
-        _port_spec(jspec), c)
+        _table_from_rows(g, slots, jspec, c), [_t(x) for x in slots],
+        _t(gxb), _t(gyb), _port_spec(jspec), c)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_select_counts_repeats_pads_misses_and_edges(scene):
+    """The selection through the slot ids against the JAX XLA selection on
+    its gathered rows, on slot lists edited to hold a repeated id (counted
+    twice), -1 pads and ids no sample taps (so some samples' pids are in no
+    slot), with a quarter of the samples moved past the image's edges."""
+    rng = np.random.RandomState(5)
+    c = 3
+    images = rng.rand(4, H, W, c).astype(np.float32)
+    jspec, spec = scene["jspec"], _port_spec(scene["jspec"])
+    slots = [np.array(x) for x in jbspg.build_block_slots(
+        jnp.asarray(scene["pa"]), jnp.asarray(scene["pb"]), jspec)]
+    for x in slots:
+        x[..., 1] = x[..., 0]       # repeated: the first id counts twice
+        x[..., 2] = -1              # a pad inside the list
+        x[..., 3] = jspec.pby * jspec.pbx - 1  # the grid's last patch
+        x[..., 4:7] = -1            # drops three ids: their taps miss
+    gx, gy = np.array(scene["gx"]), np.array(scene["gy"])
+    off = rng.rand(*gx.shape) < 0.25
+    gx[off] *= 1.3
+    gy[off] = np.sign(gy[off]) * (1.0 + rng.rand(int(off.sum())))
+    jtab = jbspg.pack_patch_table(jnp.asarray(images), jspec.p)
+    jslots = [jnp.asarray(x) for x in slots]
+    ref = np.asarray(jbspg.select_block_samples(
+        jbspg.gather_block_patches(jtab, jslots, jspec), jslots,
+        jnp.asarray(gx), jnp.asarray(gy), jspec, c))
+    out = bspg.select_block_samples(_t(jtab), [_t(x) for x in slots], _t(gx),
+                                    _t(gy), spec, c)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+    # the edits matter: taps of the repeated patch doubled, others zeroed
+    once = bspg.select_block_samples(
+        _t(jtab), bspg.build_block_slots(_t(scene["pa"]), _t(scene["pb"]),
+                                         spec), _t(gx), _t(gy), spec, c)
+    ratio = out.numpy() / np.where(once.numpy() == 0, 1, once.numpy())
+    assert np.isclose(ratio, 2.0).any() and (
+        (out.numpy() == 0) & (once.numpy() != 0)).any()

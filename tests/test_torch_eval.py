@@ -57,10 +57,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_argv(tmp_path, *extra):
+    """The port's flags at the small size, on the BSPG route (the per-tap
+    gather is the port's default; ``extra`` may say ``--use_bspg False``)."""
     return ["--eval_dataset", "synthetic", "--backbone", "ibrnet",
             "--N_samples", "12", "--N_importance", "0", "--chunk_size", "256",
             "--num_source_views", "4", "--rootdir", str(tmp_path),
-            "--device", "cpu", "--dataset_kwargs", json.dumps(SMALL), *extra]
+            "--device", "cpu", "--dataset_kwargs", json.dumps(SMALL),
+            "--use_bspg", "True", *extra]
 
 
 # GNT at small depth: single_net, ret_alpha (as configs/gnt/*.txt set it)
@@ -240,7 +243,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_port_config_defaults_equal_the_jax_packages(tmp_path):
     """The port's own flag parser: every flag of the JAX package's parser
     with the same default, from no arguments and from both slice configs;
-    ``port_parser`` adds only the port's five flags."""
+    ``port_parser`` adds only the port's five flags and changes one default:
+    whole-frame renders take the per-tap gather unless ``--use_bspg True``
+    (as the JAX evaluator renders per tap off the TPU)."""
     for argv in ([], ["--config", os.path.join(REPO, "configs/gnt/gnt_full.txt")],
                  ["--config", os.path.join(REPO, "configs/ibrnet/eval_llff.txt"),
                   "--view_specific", "--adv_iters", "1000", "--epsilon", "8",
@@ -250,7 +255,9 @@ def test_port_config_defaults_equal_the_jax_packages(tmp_path):
         got = vars(port_parser().parse_args(argv))
         assert set(got) - set(ref) == {"device", "seed", "max_views",
                                        "dataset_kwargs", "gnt_fused_vt"}
-        assert {k: got[k] for k in ref} == ref
+        assert ref["use_bspg"] is True and got["use_bspg"] is False
+        assert {k: got[k] for k in ref if k != "use_bspg"} == {
+            k: v for k, v in ref.items() if k != "use_bspg"}
 
 
 def test_port_synthetic_dataset_equals_the_jax_packages(tmp_path):

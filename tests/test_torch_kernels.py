@@ -28,62 +28,137 @@ from nerfool_tpu_torch.ops import view_attention as va
 torch.set_num_threads(2)
 
 
-def _taps_inputs(rng, n_rv=6, ks=21, ns=40, p=4, c=3, dtype=torch.float32,
-                 device="cpu"):
-    """Random selection operands: slot lists with -1 pads and a repeated id
-    (the contract sums every matching slot), pids drawn from the slots."""
-    slots = rng.randint(0, 60, (n_rv, ks)).astype(np.int32)
-    slots[:, -3:] = -1
-    slots[:, 1] = slots[:, 0]
-    pid = np.take_along_axis(slots, rng.randint(0, ks - 3, (n_rv, ns)), 1)
-    pid[:, :2] = 61  # matches no slot
-    f = lambda *s: torch.as_tensor(rng.rand(*s).astype(np.float32),
-                                   device=device)
-    i = lambda x: torch.as_tensor(x.astype(np.int32), device=device)
-    g = f(n_rv, ks, (p + 1) ** 2 * c).to(dtype)
-    return (g, i(slots), i(pid), i(rng.randint(0, p, (n_rv, ns))),
-            i(rng.randint(0, p, (n_rv, ns))), f(n_rv, ns), f(n_rv, ns),
-            f(n_rv, ns), f(n_rv, ns), p, c)
+# views of the selection group and the neighbouring channels of the buffer
+# the taps are written into: everything else must keep the sentinel
+GROUP, OFFSET, SPARE, SENTINEL = (0, 2), 2, 5, 7.0
 
 
-def _taps_loop(g, slots, pid, ly, lx, wy0, wy1, wx0, wx1, p, c):
-    """The contract written as loops (numpy, float64)."""
-    g = g.double().numpy().reshape(g.shape[0], g.shape[1], p + 1, p + 1, c)
-    n_rv, ns = pid.shape
-    out = np.zeros((n_rv, ns, c))
-    for r in range(n_rv):
-        for s in range(ns):
-            y, x = int(ly[r, s]), int(lx[r, s])
-            for k in np.nonzero(slots[r].numpy() == int(pid[r, s]))[0]:
-                for dy, wy in ((0, wy0[r, s]), (1, wy1[r, s])):
-                    for dx, wx in ((0, wx0[r, s]), (1, wx1[r, s])):
-                        out[r, s] += float(wy * wx) * g[r, k, y + dy, x + dx]
+def _taps_inputs(rng, v=3, b=4, n=4, s=10, p=4, h=11, w=13, c=3, ks=21,
+                 dtype=torch.float32, device="cpu"):
+    """Random selection operands: a patch table of V views, the slot lists
+    of the views in GROUP with -1 pads and a repeated id (the contract sums
+    every matching slot), coordinates of which half fall in a slot's patch,
+    some past the image's edge (zeros padding), the rest anywhere, many in
+    no slot's patch; a [V, B*n, S, c + SPARE] buffer of SENTINEL."""
+    pby, pbx = -(-(h + 1) // p), -(-(w + 1) // p)
+    table = rng.rand(v, pby * pbx, (p + 1) ** 2 * c).astype(np.float32)
+    slots = rng.randint(0, pby * pbx, (len(GROUP), b, ks)).astype(np.int32)
+    slots[..., 1] = slots[..., 0]
+    slots[..., -3:] = -1
+    # base cell cb of a coordinate x is floor(x) + 1 (clipped): a patch q
+    # holds cells [q p, q p + p)
+    pick = np.take_along_axis(np.broadcast_to(slots[:, :, None], (
+        len(GROUP), b, n * s, ks)), rng.randint(0, ks - 3, (
+            len(GROUP), b, n * s, 1)), -1)[..., 0]
+    cell = lambda q, lim: np.minimum(q * p + rng.randint(0, p, q.shape), lim)
+    xs = cell(pick % pbx, w) - 1 + rng.rand(*pick.shape)
+    ys = cell(pick // pbx, h) - 1 + rng.rand(*pick.shape)
+    gx = rng.uniform(-1.15, 1.15, (v, b, n * s))
+    gy = rng.uniform(-1.15, 1.15, (v, b, n * s))
+    half = rng.rand(len(GROUP), b, n * s) < 0.5
+    for i, view in enumerate(GROUP):
+        gx[view] = np.where(half[i], 2.0 * xs[i] / (w - 1) - 1.0, gx[view])
+        gy[view] = np.where(half[i], 2.0 * ys[i] / (h - 1) - 1.0, gy[view])
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    out = torch.full((v, b * n, s, c + SPARE), SENTINEL, dtype=dtype,
+                     device=device)
+    return dict(table=f(table).to(dtype),
+                slots=torch.as_tensor(slots, device=device), views=GROUP,
+                gx=f(gx.reshape(v, b, n, s)), gy=f(gy.reshape(v, b, n, s)),
+                out=out, offset=OFFSET, p=p, h=h, w=w, pbx=pbx)
+
+
+def _select(a, **over):
+    a = dict(a, **over)
+    return bspg_select.select_taps(a["table"], a["slots"], a["views"],
+                                   a["gx"], a["gy"], a["out"], a["offset"],
+                                   a["p"], a["h"], a["w"], a["pbx"])
+
+
+def _taps_loop(a):
+    """The contract as m(rv, s) x the bilinear tap of table row pid (numpy,
+    the coordinates' float32 ingredients, sums in float64): [Vg, B, ns, c]."""
+    table = a["table"].double().cpu().numpy()
+    p, h, w, pbx = a["p"], a["h"], a["w"], a["pbx"]
+    c = table.shape[-1] // (p + 1) ** 2
+    table = table.reshape(table.shape[0], -1, p + 1, p + 1, c)
+    slots = a["slots"].cpu().numpy()
+    vg, b, _ = slots.shape
+    out = np.zeros((vg, b, a["gx"][0, 0].numel(), c))
+    one, half = np.float32(1), np.float32(0.5)
+    for i, view in enumerate(a["views"]):
+        gx = a["gx"][view].reshape(b, -1).cpu().numpy()
+        gy = a["gy"][view].reshape(b, -1).cpu().numpy()
+        for blk in range(b):
+            for s in range(gx.shape[1]):
+                ix = (gx[blk, s] + one) * half * np.float32(w - 1)
+                iy = (gy[blk, s] + one) * half * np.float32(h - 1)
+                x0, y0 = np.floor(ix), np.floor(iy)
+                cbx = int(min(max(x0, -1), w - 1)) + 1
+                cby = int(min(max(y0, -1), h - 1)) + 1
+                pid = (cby // p) * pbx + cbx // p
+                m = int((slots[i, blk] == pid).sum())
+                ly, lx = cby % p, cbx % p
+                for dy, wy in ((0, one - (iy - y0)), (1, iy - y0)):
+                    for dx, wx in ((0, one - (ix - x0)), (1, ix - x0)):
+                        if 0 <= y0 + dy <= h - 1 and 0 <= x0 + dx <= w - 1:
+                            out[i, blk, s] += m * float(wy) * float(wx) * \
+                                table[view, pid, ly + dy, lx + dx]
     return out
+
+
+def _check_written(a, res, ref, rtol, atol):
+    """``res`` holds ``ref`` at the group's views and channels [OFFSET,
+    OFFSET + c); every other entry of the buffer keeps SENTINEL."""
+    v, b, n, s = a["gx"].shape
+    c = ref.shape[-1]
+    got = res.float().cpu().reshape(v, b, n * s, -1).numpy()
+    vi = list(a["views"])
+    for i, view in enumerate(vi):
+        np.testing.assert_allclose(got[view, ..., OFFSET:OFFSET + c], ref[i],
+                                   rtol=rtol, atol=atol)
+    keep = np.ones(got.shape, bool)
+    keep[vi, ..., OFFSET:OFFSET + c] = False
+    assert (got[keep] == SENTINEL).all()
 
 
 @pytest.mark.parametrize("c", [3, 32])
 def test_plain_selection_matches_contract(c):
-    """The plain version sums every matching slot; unmatched pids give 0."""
-    args = _taps_inputs(np.random.RandomState(c), c=c)
+    """The plain version (gathered rows, one-hot einsum) equals m(rv, s) x
+    the bilinear tap of the table row: repeated slots count twice, pads and
+    pids in no slot give 0, corners off the image read as zeros; it writes
+    only its views and channels of the buffer."""
+    a = _taps_inputs(np.random.RandomState(c), c=c)
     before = bspg_select.select_taps.launches
-    out = bspg_select.select_taps(*args)
+    res = _select(a)
     assert bspg_select.select_taps.launches == before  # CPU: no launch
-    np.testing.assert_allclose(out.numpy(), _taps_loop(*args), rtol=1e-5,
-                               atol=1e-6)
-    assert not out[:, :2].any()
+    assert res is a["out"]
+    ref = _taps_loop(a)
+    _check_written(a, res, ref, 1e-5, 1e-6)
+    slots = a["slots"].numpy()
+    assert (ref != 0).any() and (ref == 0).all(-1).any()
+    assert (slots[..., 1] == slots[..., 0]).all() and (slots < 0).any()
 
 
 def test_select_taps_rejects_bad_inputs():
-    args = list(_taps_inputs(np.random.RandomState(0)))
+    a = _taps_inputs(np.random.RandomState(0))
     with pytest.raises(ValueError, match="dtype"):
-        bspg_select.select_taps(args[0].double(), *args[1:])
+        _select(a, table=a["table"].double())
     with pytest.raises(ValueError, match="int32"):
-        bspg_select.select_taps(args[0], args[1].long(), *args[2:])
+        _select(a, slots=a["slots"].long())
     with pytest.raises(ValueError, match="row"):
-        bspg_select.select_taps(*args[:-2], args[-2] + 1, args[-1])
-    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+        _select(a, p=a["p"] + 1)
+    with pytest.raises(ValueError, match="channels"):
+        _select(a, offset=SPARE + 1)
+    with pytest.raises(ValueError, match="out must be"):
+        _select(a, out=a["out"][:, :-1])
+    with pytest.raises(ValueError, match="views"):
+        _select(a, views=(0, 3))
+    meta = {k: t.to("meta") if isinstance(t, torch.Tensor) else t
+            for k, t in a.items()}
     with pytest.raises(ValueError, match="device"):
-        bspg_select.select_taps(*meta)
+        _select(meta)
 
 
 # ---- on the card: the CUDA kernel against its plain version ----
@@ -97,34 +172,42 @@ def _require_cuda():
 @pytest.mark.parametrize("c", [3, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(c, dtype):
-    """f32 tables: the sums differ in order only, a few f32 ulps of the
-    output (outputs reach ~4 here, where an ulp is 4.8e-7): 2e-6 relative
-    plus 1e-6 absolute. bf16 tables: both sides
-    accumulate in f32 and round once to bf16, so they differ by at most one
-    bf16 ulp of the output, 2^-7 relative."""
+    """The kernel against the plain version on the same buffer layout (its
+    neighbouring channels and other views untouched). f32 tables: the sums
+    differ in order only, a few f32 ulps of the output (outputs reach ~4
+    here, where an ulp is 4.8e-7): 2e-6 relative plus 1e-6 absolute. bf16
+    tables: both sides accumulate in f32 and round once to bf16, so they
+    differ by at most one bf16 ulp of the output, 2^-7 relative."""
     _require_cuda()
-    args = _taps_inputs(np.random.RandomState(c), n_rv=64, ks=120, ns=2048,
-                        p=12, c=c, dtype=dtype, device="cuda")
+    a = _taps_inputs(np.random.RandomState(c), v=4, b=64, n=16, s=128, p=12,
+                     h=95, w=126, c=c, ks=120, dtype=dtype, device="cuda")
     before = bspg_select.select_taps.launches
-    out = bspg_select.select_taps(*args)
+    out = _select(a)
     torch.cuda.synchronize()
     assert bspg_select.select_taps.launches == before + 1
-    ref = bspg_select.select_taps_plain(*args).float()
-    out = out.float()
+    cpu = {k: t.cpu() if isinstance(t, torch.Tensor) else t
+           for k, t in a.items()}
+    cpu["out"] = torch.full_like(cpu["out"], SENTINEL)
+    ref = _select(cpu).float()
+    v, b, n, s = a["gx"].shape
+    ref = ref.reshape(v, b, n * s, -1)[list(GROUP), ..., OFFSET:OFFSET + c]
     if dtype == torch.float32:
-        torch.testing.assert_close(out, ref, rtol=2e-6, atol=1e-6)
+        _check_written(a, out, ref.numpy(), 2e-6, 1e-6)
     else:
-        tol = 2.0 ** -7 * torch.maximum(out.abs(), ref.abs()) + 1e-6
-        assert bool(((out - ref).abs() <= tol).all())
+        got = out.float().cpu().reshape(v, b, n * s, -1)[
+            list(GROUP), ..., OFFSET:OFFSET + c]
+        tol = 2.0 ** -7 * torch.maximum(got.abs(), ref.abs()) + 1e-6
+        assert bool(((got - ref).abs() <= tol).all())
+        _check_written(a, out, got.numpy(), 0, 0)
 
 
 @pytest.mark.cuda
 def test_kernel_raises_on_bad_layout():
     _require_cuda()
-    args = list(_taps_inputs(np.random.RandomState(0), device="cuda"))
+    a = _taps_inputs(np.random.RandomState(0), device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
-        bspg_select.select_taps(args[0].transpose(0, 1).contiguous()
-                                .transpose(0, 1), *args[1:])
+        _select(a, table=a["table"].transpose(0, 1).contiguous()
+                .transpose(0, 1))
 
 
 # ---- the whole-chain GNT aggregation (ops/chain.py, csrc/gnt_chain.cu) ----
@@ -695,14 +778,144 @@ def test_view_attention_rejects_bad_inputs():
         va.view_attention(*(t.to("meta") for t in args))
 
 
+def _tf32_fragment_product(a, packed, k, n):
+    """``a [16, K] @ W`` through ``pack_b_tf32``'s blob read as the kernel
+    reads it (numpy, float64): lane (g, t) holds A's rows g and g + 8 at the
+    step's channels 8 kt + 2 t (logical column t) and 8 kt + 2 t + 1
+    (logical column t + 4), and loads (hi0, hi1, lo0, lo1) of fragment
+    (kt, nt); ``mma.m16n8k8`` multiplies the logical A [16, 8] by the
+    logical B [8, 8] (b0 at row t, b1 at row t + 4, column g)."""
+    blob = np.asarray(packed, np.float64).reshape(k // 8, n // 8, 32, 4)
+    out = np.zeros((16, n))
+    for kt in range(k // 8):
+        am = np.zeros((16, 8))
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in (g, g + 8):
+                am[r, t] = a[r, 8 * kt + 2 * t]
+                am[r, t + 4] = a[r, 8 * kt + 2 * t + 1]
+        for nt in range(n // 8):
+            bm = np.zeros((8, 8))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                hi0, hi1, lo0, lo1 = blob[kt, nt, lane]
+                bm[t, g], bm[t + 4, g] = hi0 + lo0, hi1 + lo1
+            out[:, 8 * nt:8 * nt + 8] += am @ bm
+    return out
+
+
+def test_packed_tf32_weights_reproduce_products():
+    """``pack_b_tf32`` read back through the kernel's lane indexing gives
+    ``A @ W`` (hi + lo holds each weight to ~2^-22), and every hi and lo is
+    a TF32 value (13 low mantissa bits clear)."""
+    rng = np.random.RandomState(0)
+    for k, n in ((64, 128), (64, 64)):
+        w = torch.as_tensor(rng.randn(k, n).astype(np.float32))
+        a = rng.randn(16, k)
+        packed = va.pack_b_tf32(w)
+        assert packed.numel() == 2 * k * n
+        assert not (packed.view(torch.int32) & 0x1FFF).any()
+        got = _tf32_fragment_product(a, packed, k, n)
+        ref = a @ w.double().numpy()
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_packed_bf16_kernel_fragments_reproduce_products():
+    """The bf16 route's A fragments (32-bit words 8 kt + t and 8 kt + 4 + t
+    of rows g and g + 8: channels 16 kt + 2 t and 16 kt + 8 + 2 t, pairs)
+    against ``pack_b``'s B fragments reproduce ``A @ W`` on bf16 values."""
+    rng = np.random.RandomState(1)
+    w = torch.as_tensor(rng.randn(64, 128).astype(np.float32)).bfloat16()
+    a = torch.as_tensor(rng.randn(16, 64).astype(np.float32)).bfloat16()
+    blob = chain.pack_b(w).float().numpy().reshape(4, 16, 32, 4)
+    av = a.float().numpy()
+    out = np.zeros((16, 128))
+    for kt in range(4):
+        am = np.zeros((16, 16))
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for r in (g, g + 8):
+                for c in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9):
+                    am[r, c] = av[r, 16 * kt + c]
+        for nt in range(16):
+            bm = np.zeros((16, 8))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for e in range(4):
+                    bm[2 * t + (e & 1) + 8 * (e >> 1), g] = blob[kt, nt, lane,
+                                                                 e]
+            out[:, 8 * nt:8 * nt + 8] += am @ bm
+    ref = av.astype(np.float64) @ w.float().double().numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
+
+
+def _split_matmul(a, w):
+    """``a @ w`` as the kernel's three TF32 products, summed in f32."""
+    ah, al = va.tf32_split(a)
+    wh, wl = va.tf32_split(w)
+    return al @ wh + ah @ wl + ah @ wh
+
+
+def _va_emulated(qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0,
+                 wa1, ba1, wo, bo, matmul):
+    """The f32 view attention with its three D-wide products (qln Wq, k
+    [Wk | Wk Wv], the output product) taken through ``matmul`` and the rest
+    in f32, as the kernel's f32 route computes them."""
+    d = qln.shape[-1]
+    qp = matmul(qln, wq)
+    kv = matmul(k.reshape(-1, d), wkv).reshape(k.shape[0], -1, 2 * d)
+    kp, vv = kv[..., :d], kv[..., d:]
+    p = torch.relu(pos @ wp0 + bp0) @ wp1 + bp1
+    a = torch.relu((kp - qp[None] + p) @ wa0 + ba0) @ wa1 + ba1
+    a = a.masked_fill(mask == 0, -1e9)
+    x = torch.sum((vv + p) * torch.softmax(a, dim=0), dim=0)
+    return matmul(x, wo) + bo
+
+
+def test_view_attention_tf32_split_within_f32_tolerance():
+    """K4's f32 route: its products as three TF32 products (hi hi + hi lo +
+    lo hi), emulated on the CPU at the slice's widths (V = 10 views, D = 64,
+    4096 rows), stay under the 1e-5 of scale that the card holds the kernel
+    to against the plain version, as close to float64 as the plain f32
+    version is; one TF32 product alone (TF32 mode) would not."""
+    args = _va_case(10, 4096, seed=6, masked_rows=40)
+    with torch.no_grad():
+        truth = va.view_attention_plain(*(t.double() for t in args))
+        plain = va.view_attention_plain(*args)
+        split = _va_emulated(*args, matmul=_split_matmul)
+        tf32 = _va_emulated(*args, matmul=lambda a, w: va.tf32_round(a)
+                            @ va.tf32_round(w))
+    scale = max(1.0, float(truth.abs().max()))
+    err = lambda x: float((x.double() - truth).abs().max()) / scale
+    assert err(split) <= 1e-6 and err(plain) <= 1e-6
+    assert float((split - plain).abs().max()) <= 1e-5 * scale
+    assert err(tf32) > 1e-5
+
+
+def test_tf32_round_matches_round_to_nearest_away():
+    """``tf32_round`` keeps 10 mantissa bits, to nearest with ties away from
+    zero (``cvt.rna``), in both signs."""
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, -(1.0 + 2.0 ** -11),
+                      3.0, 0.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, 1.0,
+                         -(1.0 + 2.0 ** -10), 3.0, 0.0])
+    assert torch.equal(va.tf32_round(x), want)
+    hi, lo = va.tf32_split(torch.tensor([1.0 + 2.0 ** -20]))
+    assert float(hi) == 1.0 and float(lo) == 2.0 ** -20
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("v,n,masked_rows", [(3, 15, 4), (10, 64, 0),
-                                             (10, 1000, 70), (4, 17000, 5)])
+                                             (10, 1000, 70), (4, 17000, 5),
+                                             (9, 4099, 3)])
 def test_view_attention_kernel_matches_plain_f32(v, n, masked_rows):
-    """f32: kernel and plain differ in summation order only (4x4-tiled FMA
-    products against cuBLAS, an online softmax against a two-pass one): 1e-5
-    of the output's scale. Covers N below one tile, N not a multiple of the
-    tile, more tiles than blocks, and rows masked in every view."""
+    """f32: the kernel's products are three TF32 products each (~2^-21 of
+    every term) summed in another order than cuBLAS's, its softmax over the
+    views online against a two-pass one: 1e-5 of the output's scale. Covers
+    N below one warp's 8 rows and below a block's 64, N not a multiple of
+    either, more groups than warps, odd V (a last view pair of one view) and
+    rows masked in every view."""
     _require_cuda()
     args = _va_case(v, n, seed=n, device="cuda", masked_rows=masked_rows)
     before = va.view_attention.launches
@@ -717,14 +930,16 @@ def test_view_attention_kernel_matches_plain_f32(v, n, masked_rows):
 
 
 @pytest.mark.cuda
-def test_view_attention_kernel_bf16_within_derived_bound():
+@pytest.mark.parametrize("v,n,masked_rows", [(10, 5000, 9), (3, 77, 5)])
+def test_view_attention_kernel_bf16_within_derived_bound(v, n, masked_rows):
     """bf16: kernel and plain bf16 against plain f32 on the same bf16 inputs
-    and bf16-valued weights. The plain bf16 version rounds every product;
-    the kernel keeps f32 inside and rounds only its output, so its error may
-    not exceed the plain version's."""
+    and bf16-valued weights. The plain bf16 version rounds after every
+    operation; the kernel keeps f32 inside but for the output product's
+    operand and rounds its output, so its error may not exceed the plain
+    version's."""
     _require_cuda()
-    args = _va_case(10, 5000, seed=3, device="cuda", dtype=torch.bfloat16,
-                    masked_rows=9)
+    args = _va_case(v, n, seed=3, device="cuda", dtype=torch.bfloat16,
+                    masked_rows=masked_rows)
     with torch.no_grad():
         ref = va.view_attention_plain(
             *(t.bfloat16().float() for t in args))

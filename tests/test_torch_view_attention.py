@@ -243,7 +243,9 @@ def test_shade_passes_the_render_configs_flags(nets, monkeypatch):
 
 def test_evaluator_reads_the_flag_for_renders_only(tmp_path):
     """``--gnt_fused_vt`` reaches the whole-frame render config and never
-    the differentiated step's; K2's bf16 route keeps precedence."""
+    the differentiated step's; K2's bf16 route keeps precedence. ``auto``,
+    the default, resolves to off on the CPU; True and False parse as on and
+    off."""
     small = {"n_views": 6, "h": 48, "w": 64}
     argv = ["--eval_dataset", "synthetic", "--backbone", "gnt",
             "--trans_depth", "2", "--ret_alpha", "--N_samples", "12",
@@ -251,8 +253,14 @@ def test_evaluator_reads_the_flag_for_renders_only(tmp_path):
             "--num_source_views", "4", "--rootdir", str(tmp_path), "--device",
             "cpu", "--dataset_kwargs", json.dumps(small), "--use_bspg",
             "False", "--gnt_fused_attack", "True"]
-    assert port_eval_adv.parse_args(argv).gnt_fused_vt is False
+    assert port_eval_adv.parse_args(argv).gnt_fused_vt == "auto"
+    assert port_eval_adv.parse_args(
+        argv + ["--gnt_fused_vt", "False"]).gnt_fused_vt == "off"
+    ev = Evaluator(port_eval_adv.parse_args(argv), dataset_kwargs=small,
+                   device="cpu", seed=0)
+    assert not ev.view_render_cfg(4).gnt_fused_vt
     args = port_eval_adv.parse_args(argv + ["--gnt_fused_vt", "True"])
+    assert args.gnt_fused_vt == "on"
     ev = Evaluator(args, dataset_kwargs=small, device="cpu", seed=0)
     assert ev.view_render_cfg(4).gnt_fused_vt
     grad_cfg = ev._grad_render_cfg()
