@@ -53,7 +53,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
      outputs and one that feeds ``out`` only; the forward alone in f32 at
      the two shapes the attacked GNT render gives it (a whole chunk of rays
      and the shorter last chunk); CUDA-event timings of both kernels, both
-     plain versions and the unfused module path with autograd
+     plain versions and the unfused module path with autograd, and of the
+     forward at the whole chunk too; the forward's bound at the rate each
+     part runs at beside the bound with every operation on the CUDA cores,
+     and its registers, spills and resident blocks
  11. the GNT attack slice: ``configs/gnt/gnt_full.txt`` in f32, 10 source
      views, ``--view_specific --use_adam --adam_lr 1e-3 --adv_lr 1 --epsilon
      8 --gnt_fused_attack True``: ``Evaluator.attack_view_specific`` on one
@@ -64,7 +67,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
      with ``--gnt_fused_attn on`` and the default ``--gnt_fused_vt auto``
      (K1 for the taps, K3 forward and K4 launches = chunks x depth) on the
      BSPG plan of phase 9, held against the same render through the unfused
-     ray attention (``--gnt_fused_attn off``)
+     ray attention (``--gnt_fused_attn off``); then that render in turns
+     through K3 and the module path's ray attention (on, off, off, on)
  12. the IBRNet attack: ``configs/ibrnet/eval_llff.txt`` with the same
      attack flags (N_rand 512) on the model and plan of phase 6: 2 warm-up
      iterations then 10 timed, the constraints on ``delta``, then the
@@ -202,8 +206,10 @@ TOL_CHAIN_F32_REL = 1e-4
 # both softmaxes. The plain bf16 chain rounds all of those as well, after
 # every op, so the kernel's error may be no larger than the plain chain's
 CHAIN_BF16_FACTOR = 1.0
-# K3 in f32: summation order only (online softmax against a two-pass one,
-# 4x4-tiled products against cuBLAS): 1e-5 of each tensor's scale
+# K3 in f32: the forward's products are three TF32 products each, added
+# in f32 every one or two k steps (1.6e-7 of scale from float64 on an H100,
+# plain f32 7.9e-8), its softmax online against a two-pass one; the
+# backward differs in summation order only: 1e-5 of each tensor's scale
 TOL_RA_F32_REL = 1e-5
 # K3 in bf16, as K2: against the plain f32 version on the same bf16 inputs
 # and bf16-valued weights the kernels, which keep f32 inside and round only
@@ -221,8 +227,11 @@ TOL_VA_F32_REL = 1e-5
 VA_BF16_FACTOR = 1.0
 # the fused attack step against the unfused module path, one step from the
 # same delta and rays: the bounds of tests/test_ra_vjp.py, loss 1e-5
-# relative and the delta update 2e-5. The two routes differ in summation
-# order in the ray attention only (~1e-7 relative), which the ResUNet's deep
+# relative and the delta update 2e-5. The two routes differ in the ray
+# attention's rounding only (~1e-7 relative with the FMA forward, ~2e-7
+# with the tensor-core one, whose tensor-core additions are flushed to f32
+# every few k steps: without that, 3.3e-7 brought the share below to
+# 0.99900-0.99908 on an H100), which the ResUNet's deep
 # InstanceNorm backward spreads over delta's gradient g as absolute noise
 # (measured on an H100 at the slice's size: max 0.5-1.9e-8 = 0.5-1.8e-4 of
 # the largest entry, rms 2.5-2.8e-10 against g's rms of 4.7e-6). Adam's
@@ -235,7 +244,8 @@ VA_BF16_FACTOR = 1.0
 #   of them, at most half may be) to 1e-2 in relative L2 of that subset
 #   (3.4-4.8e-4 measured): a fault confined to small gradients fails here;
 # - the update to 2e-5 wherever |g| exceeds the floor (1e-7 measured), and
-#   at least 0.999 of ALL entries within 2e-5 (0.9998-0.99993 measured)
+#   at least 0.999 of ALL entries within 2e-5 (0.9998-0.99993 measured;
+#   0.99971 with the tensor-core forward)
 TOL_STEP_LOSS_REL = 1e-5
 TOL_STEP_DELTA_ABS = 2e-5
 STEP_GRAD_FLOOR = 1e-6
@@ -246,9 +256,10 @@ TOL_STEP_GRAD_L2 = 1e-3
 TOL_STEP_SMALL_GRAD_L2 = 1e-2
 TOL_STEP_GRAD_COS = 0.9999
 # the attacked f32 GNT render with the fused ray attention against the same
-# render through the unfused module path, on the card: summation order in
-# the ray attention only (measured rgb 4.2e-7, depth 7.2e-7 at depths of
-# 2-6, compositing weights 3.3e-9)
+# render through the unfused module path, on the card: the ray attention's
+# rounding only (with the FMA forward: rgb 4.2e-7, depth 7.2e-7 at depths
+# of 2-6, compositing weights 3.3e-9; with the tensor-core forward on an
+# H100: rgb 2.0e-6, depth 1.7e-6, weights 4.7e-9)
 TOL_FUSED_RENDER = {"rgb": 1e-5, "depth": 2e-5, "weights": 1e-6}
 # the attacked f32 GNT render with the view-attention kernel against the
 # same render with the module's view attention (both with the fused ray
@@ -636,7 +647,9 @@ def chain_bound(row, ci=35, d=64, pe=63):
 
 
 def ra_bounds(r, s, dtype, d=64):
-    """K3 at [r, s, d]: (forward, backward) bounds. Forward: qkv, scores,
+    """K3 at [r, s, d]: (forward, backward) bounds with every operation at
+    the rate of the dtype on the CUDA cores (the backward kernel's, and the
+    forward's before it moved onto the tensor cores). Forward: qkv, scores,
     AV and the output product. Backward: the qkv, score and AV products
     again (nothing is saved) plus two products for each of the four."""
     size = 4 if dtype == "f32" else 2
@@ -646,6 +659,23 @@ def ra_bounds(r, s, dtype, d=64):
     fwd_bytes = size * (2 * r * s * d + r * s) + w_bytes
     bwd_bytes = size * (3 * r * s * d + r * s) + 2 * w_bytes
     return bound_ms(fwd_bytes, fwd, dtype), bound_ms(bwd_bytes, bwd, dtype)
+
+
+def ra_fwd_bound(r, s, dtype, d=64, n_heads=4):
+    """K3's forward at [r, s, d] at the rate each part of its arithmetic
+    runs at: the four products on the tensor cores as three TF32 products
+    each (the kernel's route for both dtypes) at the TF32 rate, the softmax
+    (max, subtract, exponent and sum per score and head) at the f32 rate,
+    the two times added; or x in, out and attn0 written and the weights
+    once at the memory rate, whichever is larger."""
+    size = 4 if dtype == "f32" else 2
+    mma = r * s * (2 * d * 3 * d + 4 * s * d + 2 * d * d)
+    soft = r * n_heads * s * s * 4
+    ops_ms = (3 * mma / PEAK_FLOPS["tf32"] + soft / PEAK_FLOPS["f32"]) * 1e3
+    n_bytes = size * (2 * r * s * d + r * s) + 4 * (d * 3 * d + d * d + d)
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (by_bytes, "bytes") if by_bytes >= ops_ms else (ops_ms,
+                                                             "operations")
 
 
 def ra_operands(r, s, dtype, seed, d=64):
@@ -741,11 +771,25 @@ def check_ray_attention(card, render_rays):
                 for n, a, b in zip(RA_NAMES, got, ref)}
         tols = {n: TOL_RA_F32_REL * max(1.0, float(b.abs().max()))
                 for n, b in zip(RA_NAMES, ref)}
-        rows.append(dict(shape="render chunk", dtype="f32", rays=r, samples=s,
-                         cotangent=None, errs=errs, tols=tols))
+        row = dict(shape="render chunk", dtype="f32", rays=r, samples=s,
+                   cotangent=None, errs=errs, tols=tols)
+        if r == max(render_rays):
+            # the forward's time at the shape of most of its launches in
+            # the attacked renders
+            row.update(
+                ms=time_ms(lambda: ra.ray_attention_fwd(x, wqkv, wo, bo), 20),
+                plain_ms=time_ms(lambda: ra.ray_attention_plain(
+                    x, wqkv, wo, bo), 5))
+            row["bound_ms"], row["bound_by"] = ra_fwd_bound(r, s, "f32")
+            row["bound_fma_ms"] = ra_bounds(r, s, "f32")[0][0]
+        rows.append(row)
         log("K3", f"f32 [R={r} S={s}] forward only (render chunk): max abs "
             "err " + ", ".join(f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})"
-                               for n in errs) + f"; {card}")
+                               for n in errs)
+            + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+               f" bound {row['bound_ms']:.4f} ms by {row['bound_by']} (all "
+               f"on the CUDA cores {row['bound_fma_ms']:.4f} ms)"
+               if "ms" in row else "") + f"; {card}")
         if not (all(errs[n] <= tols[n] for n in errs) and all(
                 bool(torch.isfinite(t).all()) for t in got)):
             raise AssertionError(f"ray_attention_fwd disagrees with its "
@@ -782,7 +826,7 @@ def check_ray_attention(card, render_rays):
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         x, wqkv, wo, bo, gout, gattn0 = ra_operands(r, s, dtype, seed=12)
         t = dict(
-            fwd_ms=time_ms(lambda: ra.ray_attention_fwd(x, wqkv, wo, bo), 10),
+            fwd_ms=time_ms(lambda: ra.ray_attention_fwd(x, wqkv, wo, bo), 20),
             bwd_ms=time_ms(lambda: ra.ray_attention_bwd(
                 x, wqkv, wo, gout, gattn0), 10),
             bwd_no_dw_ms=time_ms(lambda: ra.ray_attention_bwd(
@@ -806,12 +850,19 @@ def check_ray_attention(card, render_rays):
 
         t["module_fwd_bwd_ms"] = time_ms(lambda: module_step(False), 5)
         t["fused_fwd_bwd_ms"] = time_ms(lambda: module_step(True), 5)
-        (fb, fby), (bb, bby) = ra_bounds(r, s, dt)
-        t.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
-                 bwd_bound_by=bby)
+        (ffma, _), (bb, bby) = ra_bounds(r, s, dt)
+        fb, fby = ra_fwd_bound(r, s, dt)
+        t.update(fwd_bound_ms=fb, fwd_bound_by=fby, fwd_bound_fma_ms=ffma,
+                 bwd_bound_ms=bb, bwd_bound_by=bby,
+                 fwd_resources=ra.fwd_kernel_resources(s, dtype))
         times[dt] = t
-        log("K3", f"{dt} [R={r} S={s}] forward kernel {t['fwd_ms']:.3f} ms "
-            f"(plain {t['plain_fwd_ms']:.3f}, bound {fb:.3f} by {fby}); "
+        res = t["fwd_resources"]
+        log("K3", f"{dt} [R={r} S={s}] forward kernel {t['fwd_ms']:.4f} ms "
+            f"(plain {t['plain_fwd_ms']:.3f}, bound {fb:.4f} by {fby}, all "
+            f"on the CUDA cores {ffma:.4f}; {res['registers']} registers x "
+            f"{res['threads']} threads, {res['spill_bytes']} bytes spilled "
+            f"per thread, {res['smem_bytes']} B shared memory, "
+            f"{res['blocks']} blocks resident); "
             f"backward kernel {t['bwd_ms']:.3f} ms, {t['bwd_no_dw_ms']:.3f} "
             f"without weight gradients (plain {t['plain_bwd_ms']:.3f}, bound "
             f"{bb:.3f} by {bby}); forward+backward to x: fused Function "
@@ -953,6 +1004,31 @@ def attacked_render(name, ev, data, src, delta, card):
         f"{stats['k3_fwd_launches']}, backward {stats['k3_bwd_launches']}, "
         f"view_attention {stats['k4_launches']}; {card}")
     return stats
+
+
+def attn_route_ab(name, ev, data, src, delta, card, exp_k3):
+    """The attacked whole-frame render of one view in turns through K3 and
+    through the module path's ray attention (``--gnt_fused_attn`` on, off,
+    off, on); an ``on`` turn must launch K3's forward ``exp_k3`` times and
+    an ``off`` turn none. Returns [(mode, rays/s), ...]."""
+    from nerfool_tpu_torch.ops import ray_attention as ra
+
+    turns = []
+    for mode in ("on", "off", "off", "on"):
+        ev.args.gnt_fused_attn = mode
+        before = ra.ray_attention_fwd.launches
+        ret, seconds = timed_render(ev, data, src, delta, None)
+        launched = ra.ray_attention_fwd.launches - before
+        if launched != (exp_k3 if mode == "on" else 0):
+            raise AssertionError(f"{name}: --gnt_fused_attn {mode} launched "
+                                 f"the ray attention {launched} times")
+        hs, ws = ret["rgb"].shape[:2]
+        turns.append((mode, hs * ws / seconds))
+    ev.args.gnt_fused_attn = "on"
+    log(name, "attacked render in turns, rays/s: " + ", ".join(
+        f"{'K3' if m == 'on' else 'module'} {x:.1f}" for m, x in turns)
+        + f"; {card}")
+    return turns
 
 
 def fused_against_unfused_step(ev, data, delta, card):
@@ -1716,6 +1792,8 @@ def main():
                 exp_k3, 0, exp_k1, exp_k3):
         raise AssertionError(f"attacked GNT render launches {gnt_adv}, "
                              f"expected K3 and K4 {exp_k3}, K1 {exp_k1}")
+    gnt_adv["attn_ab_rays_per_s"] = attn_route_ab(
+        "GNT attack", aev, data, src, delta, card, exp_k3)
     del aev, delta, src
 
     # 12. the IBRNet attack, on the model and the plan of phase 6
@@ -1790,6 +1868,7 @@ def main():
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
+    ra_chunk = next(r for r in ra_rows if "ms" in r)
     ra_source = "nerfool_tpu_torch/csrc/ray_attention.cu"
     # no single PyTorch call computes any of these functions (a one-hot
     # gather of patch taps; a whole transformer chain; an attention that
@@ -1830,7 +1909,13 @@ def main():
         "max_abs_err": max(ra_errs["out"], ra_errs["attn0"]),
         "ms": ra_f32["fwd_ms"], "plain_ms": ra_f32["plain_fwd_ms"],
         "bound_ms": ra_f32["fwd_bound_ms"],
-        "bound_by": ra_f32["fwd_bound_by"], "library_ms": None,
+        "bound_by": ra_f32["fwd_bound_by"],
+        "bound_fma_ms": ra_f32["fwd_bound_fma_ms"], "library_ms": None,
+        "render_chunk": {k: ra_chunk[k] for k in (
+            "rays", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fma_ms")},
+        "resources": ra_f32["fwd_resources"],
+        "render_ab_rays_per_s": gnt_adv["attn_ab_rays_per_s"],
         "shapes": ra_rows, "times": ra_times}, {
         "name": "ray_attention_bwd", "route": "cuda", "source": ra_source,
         "replaces": "nerfool_tpu/ops/ra_kernel.py:198",

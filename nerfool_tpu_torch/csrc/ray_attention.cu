@@ -16,42 +16,96 @@
 // is saved by the forward but x and the weights: the backward recomputes qkv
 // and the softmax.
 //
-// Design. One thread block per ray at a time, a persistent grid walks over
-// the rays; the ray's x [S, D] and qkv [S, 3D] live in shared memory in f32
-// (S * 1 KB: 192 KB at S = 192, under the 227 KB a block may take), so no
-// score or probability ever reaches device memory. Any S up to that limit is
-// taken as it is: no padding, no key mask.
-//  - forward: the four matrix products are block-wide 4x4-register-tiled FMA
-//    loops; the softmax is online, one thread per (head, query row), the
-//    output overwriting the row's own q slot; attn0 is a separate pass over
-//    query row 0 before that.
-//  - backward: a [S, S] probability matrix of one head (147 KB) does not fit
-//    beside qkv, so it works head by head in the flash form. Per head it
-//    recomputes q_h | k_h | v_h [S, 48] and go_h = gout @ Wo_h^T [S, 16];
-//    pass 1 (a thread per query row) redoes the online softmax and keeps
-//    the row's max m_i, 1 / sum l_i, o_i, and delta_i = sum_j p_ij dp_ij;
-//    pass 2 (a thread per query row) sums dq_i = sum_j ds_ij k_j; pass 3 (a
-//    thread per key) sums dk_j = sum_i ds_ij q_i and dv_j = sum_i p_ij go_i,
-//    with dp_ij = go_i . v_j and ds_ij = p_ij (dp_ij - delta_i) / sqrt(HD).
-//    The attn0 cotangent adds gattn0 / NH to dp on query row 0 only. The
-//    head's dq | dk | dv go to a per-block f32 scratch in device memory
-//    (allocated by the wrapper, 147 KB per block, L2 resident); after the
-//    last head the scratch is read back over the dead per-head buffers and
-//    dx = gqkv @ Wqkv^T and dWqkv += x^T gqkv run as two products. dWo +=
-//    o_h^T gout runs per head. The weight gradients accumulate in the
-//    block's own [D, 3D] and [D, D] partials (zeroed by the wrapper), every
-//    element owned by one thread, so the sum over the partials outside is
-//    deterministic; there are no atomics.
+// Design of the forward: one thread block per ray at a time, a persistent
+// grid walks the rays (r = blockIdx.x + k * gridDim.x; at R = 800 on 132 SMs
+// with two blocks each that is 3.03 rays a block, so the last round holds 8
+// rays, each then alone on its SM). Every product runs on the tensor cores
+// with mma.sync.m16n8k8, float32 computed as three TF32 products, a_hi b_hi +
+// a_hi b_lo + a_lo b_hi. The weights are split on the card to nearest
+// (ra_pack_kernel, pack_b_tf32's layout); every other operand is split in
+// the kernel in two instructions (hi = x with its 13 low mantissa bits
+// cleared, lo = x - hi read truncated by the tensor cores: ~2^-20 of x;
+// cvt.rna for both halves measured 25% slower for no gain on the card).
+// The tensor cores add into their f32 accumulator truncating, which along
+// a chain of 24 mma gave 3.3e-7 of scale against float64 (plain f32:
+// 7.9e-8); so the three products of a k step (of two k steps in the k | v
+// product) go through a zeroed accumulator and are added in f32, and p v
+// accumulates per key step: 1.6e-7, for 8% of the time. The softmax
+// statistics, its running max and sum and every accumulator stay f32.
+//  - phase 1, k | v = x [Wk | Wv]: a warp takes 32 rows (two m16 tiles, so
+//    each 16-byte B fragment of the weights serves two tiles); the A
+//    fragments are read from x in device memory, rows past S clamped to row
+//    S - 1. K [Sp][72] and V [Sp][68] f32 go to shared memory once per ray,
+//    Sp = S rounded up to the 32-key step: 564 B a sample with attn0's row,
+//    108,288 B at S = 192, so two blocks fit an SM. The row strides make the
+//    fragment loads of phase 2 conflict-free (K: 8-byte loads of two
+//    neighbouring channels, 72 = 8 mod 32; V: two rows 2t, 2t + 1 apart,
+//    2 * 68 = 8 mod 32).
+//  - phase 2, flash form per 16-query tile: a warp takes a tile and walks
+//    the four heads. q_h = x Wq_h is computed into registers (the Q third
+//    of the qkv product, never stored) and scaled by log2(e) / sqrt(HD), so
+//    the softmax runs on ex2; per 32-key step the scores q_h k_h^T (four
+//    n-tiles), keys past S set to the fill -1e9 (not -inf), the online
+//    softmax per query row (quad reductions; the row sum stays a per-lane
+//    partial until the end), and o_h = o_h c + p v_h. The k index of each
+//    step is permuted (logical columns t and t + 4 are channels 2t and
+//    2t + 1 of the step), so the C fragments of one product are the A
+//    fragments of the next as they are: q -> scores, p -> p v, o -> o Wo;
+//    the weights are packed in the same order (hi and lo of two rows of a
+//    column, one 16-byte __ldg per lane). q and p v alternate their k steps
+//    between two accumulators (shorter chains of dependent mma). out =
+//    sum_h o_h Wo_h + bo accumulates in 32 registers across the heads;
+//    rows below S are stored.
+//  - attn0: once a head's max and sum are final, a second pass over row 0's
+//    scores on the CUDA cores (q row 0 broadcast from quad 0, a key per
+//    lane) adds p_0j / NH into a shared [Sp] f32 row, written out after the
+//    fourth head. Tile 0 goes to the last warp, which has the fewest tiles.
+//  - two block barriers per ray (K and V written; K and V read). Rows past
+//    S are computed on clamped inputs and never stored.
+//  - 6 warps a block and two blocks an SM (168 registers, 64 bytes of
+//    spills): at S = 192 each warp has two query tiles and one 32-row
+//    group. 4 warps (no spills) and 8 warps (128 registers, 248 bytes of
+//    spills) measured ~6% and ~20% slower (profile_ray_attention.py).
+// The weights' B fragments are read from device memory through L1 (packed
+// Wqkv 96 KB and Wo 32 KB do not fit in shared memory beside K and V at two
+// blocks per SM): 64 KB per 32 rows in phase 1 and 64 KB per 16-query tile
+// in phase 2, ~1.2 MB of L2 reads per ray at S = 192.
+// What bounds the forward: 15.7 MFLOP per ray (qkv, scores, AV 4.7 each,
+// out 1.6) against 98 KB of compulsory traffic, so operations: three TF32
+// products of each at 495 TFLOP/s plus the softmax at the f32 rate. Of its
+// warps' clocks (a build with -DRA_FWD_STAMPS) the flash steps take ~42%,
+// the k | v products ~31% and the q products ~14%: the flash steps run
+// ~5 non-mma instructions per mma (the splits of K, P and V, ex2, the max
+// and the rescale), and the products fed by the weights' L2 reads take ~2x
+// the clocks per mma of the flash steps.
 //
-// What bounds it: 15.7 MFLOP per ray forward (qkv, scores, AV 4.7 each, out
-// 1.6) against 98 KB of compulsory traffic, so operations, on the CUDA cores
-// in f32 FMA. The backward's minimum is about 2.5x the forward's; the
-// recompute in three passes makes it about 4x in the attention part. Tensor
-// cores (mma.sync on the [S, 64] x [64, 192] products) and a second block per
-// SM are left for later work.
+// Design of the backward: one block per ray, a persistent grid; x [S, D]
+// and the per-head buffers in shared memory in f32 (S * 1 KB). A [S, S]
+// probability matrix of one head (147 KB) does not fit, so it works head by
+// head in the flash form with block-wide 4x4-register-tiled FMA products.
+// Per head it recomputes q_h | k_h | v_h [S, 48] and go_h = gout @ Wo_h^T
+// [S, 16]; pass 1 (a thread per query row) redoes the online softmax and
+// keeps the row's max m_i, 1 / sum l_i, o_i, and delta_i = sum_j p_ij dp_ij;
+// pass 2 (a thread per query row) sums dq_i = sum_j ds_ij k_j; pass 3 (a
+// thread per key) sums dk_j = sum_i ds_ij q_i and dv_j = sum_i p_ij go_i,
+// with dp_ij = go_i . v_j and ds_ij = p_ij (dp_ij - delta_i) / sqrt(HD). The
+// attn0 cotangent adds gattn0 / NH to dp on query row 0 only. The head's
+// dq | dk | dv go to a per-block f32 scratch in device memory (allocated by
+// the wrapper, 147 KB per block, L2 resident); after the last head the
+// scratch is read back over the dead per-head buffers and dx = gqkv @
+// Wqkv^T and dWqkv += x^T gqkv run as two products. dWo += o_h^T gout runs
+// per head. The weight gradients accumulate in the block's own [D, 3D] and
+// [D, D] partials (zeroed by the wrapper), every element owned by one
+// thread, so the sum over the partials outside is deterministic; there are
+// no atomics. Its minimum is about 2.5x the forward's; the recompute in
+// three passes makes it about 4x in the attention part, all on the CUDA
+// cores in f32 FMA.
 //
 // x, gout, gattn0, out, attn0 and dx are float32 or bfloat16; all arithmetic
-// is f32. Weights arrive as f32 (bf16-valued on the bf16 route).
+// is f32 (the forward's products as split TF32, loading bf16 as f32 and
+// rounding its outputs). The forward's Wqkv and Wo arrive packed as TF32 B
+// fragments (pack_b_tf32), bo as f32; the backward's weights as f32
+// (bf16-valued on the bf16 route).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,8 +119,38 @@ constexpr int NH = 4;        // heads
 constexpr int HD = D / NH;   // head width
 constexpr int D3 = 3 * D;    // q | k | v
 constexpr int H3 = 3 * HD;   // q_h | k_h | v_h
-constexpr int FWD_THREADS = 384;
 constexpr int BWD_THREADS = 256;
+
+// The forward's warps per block, blocks per SM, how it splits f32 into TF32
+// halves (split()) and whether it adds each k step's products in f32
+// (mma3_acc; the k | v product every RA_FWD_KV_FLUSH k steps): a build may
+// set others (-DRA_FWD_WARPS=, -DRA_FWD_MIN_BLOCKS=, -DRA_FWD_SPLIT=,
+// -DRA_FWD_FLUSH=, -DRA_FWD_KV_FLUSH=) to compare them
+// (profile_ray_attention.py).
+#ifndef RA_FWD_WARPS
+#define RA_FWD_WARPS 6
+#endif
+#ifndef RA_FWD_MIN_BLOCKS
+#define RA_FWD_MIN_BLOCKS 2
+#endif
+#ifndef RA_FWD_SPLIT
+#define RA_FWD_SPLIT 0
+#endif
+#ifndef RA_FWD_FLUSH
+#define RA_FWD_FLUSH 1
+#endif
+#ifndef RA_FWD_KV_FLUSH
+#define RA_FWD_KV_FLUSH 2
+#endif
+constexpr int FWD_WARPS = RA_FWD_WARPS;
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+// k steps of the k | v product per f32 addition (all of them: none)
+constexpr int KV_FLUSH = RA_FWD_FLUSH ? RA_FWD_KV_FLUSH : D / 8;
+constexpr int KSTEP = 32;       // keys per online-softmax step
+constexpr int LDK = D + 8;      // K row stride in shared memory, floats
+constexpr int LDV = D + 4;      // V row stride
+constexpr int NT = D / 8;       // n-tiles of a D-wide product
+constexpr int QKV_NT = D3 / 8;  // n-tiles of packed Wqkv
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -163,19 +247,6 @@ __device__ __forceinline__ void block_mm_tn(const float* A, int lda, int M,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float dot_hd(const float* a, const float* b) {
   float acc = 0.f;
 #pragma unroll
@@ -183,85 +254,475 @@ __device__ __forceinline__ float dot_hd(const float* a, const float* b) {
   return acc;
 }
 
-// Forward. grid: persistent, blockIdx.x walks rays r = blockIdx.x + k *
-// gridDim.x. x [R, S, D]; wqkv [D, 3D]; wo [D, D]; bo [D]; out [R, S, D];
-// attn0 [R, S]. Shared memory: (S * D + S * 3D) floats.
+// ---- forward helpers: split TF32 on mma.sync.m16n8k8 ----
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, hi a TF32 value and lo = x - hi exact in f32, read as TF32:
+//  RA_FWD_SPLIT 0: hi = x with its 13 low mantissa bits cleared and lo read
+//    truncated by the tensor cores, x to ~2^-20 of itself in two
+//    instructions;
+//  1: hi and lo rounded to nearest (cvt.rna), ~2^-22.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+#if RA_FWD_SPLIT == 0
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+#else
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+#endif
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three TF32 products, small terms first; b = (hi0, hi1, lo0,
+// lo1) as pack_b_tf32 lays a lane's B fragment out
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint4 b) {
+  mma_tf32(c, al, b.x, b.y);
+  mma_tf32(c, ah, b.z, b.w);
+  mma_tf32(c, ah, b.x, b.y);
+}
+
+// the same with the B fragment (rows t and t + 4 of the logical step) split
+// here
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint4 b;
+  split(b0, b.x, b.z);
+  split(b1, b.y, b.w);
+  mma3(c, ah, al, b);
+}
+
+// c += a b as mma3 does; with RA_FWD_FLUSH the three products go through a
+// zeroed accumulator and are added to c in f32. The tensor cores add into
+// their f32 accumulator truncating, so along a chain of mma the error grows
+// with its length; this keeps every chain at three.
+template <typename... B>
+__device__ __forceinline__ void mma3_acc(float (&c)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], B... b) {
+#if RA_FWD_FLUSH
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ah, al, b...);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+#else
+  mma3(c, ah, al, b...);
+#endif
+}
+
+// A fragment from the C fragment of the same 16 rows: logical columns t and
+// t + 4 of the step are the C fragment's channels 2t and 2t + 1, times f
+__device__ __forceinline__ void c_to_a(const float (&c)[4], float f,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float a[4] = {c[0] * f, c[2] * f, c[1] * f, c[3] * f};
+  split4(a, ah, al);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the split A fragment of x rows (r0, r1) at k step kt (channels 8 kt + 2t,
+// 8 kt + 2t + 1)
 template <typename T>
-__global__ void __launch_bounds__(FWD_THREADS) ra_fwd_kernel(
-    const T* __restrict__ x, const float* __restrict__ wqkv,
-    const float* __restrict__ wo, const float* __restrict__ bo,
-    T* __restrict__ out, T* __restrict__ attn0, int R, int S) {
+__device__ __forceinline__ void x_frag(const T* xr, int r0, int r1, int kt,
+                                       int t, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const float2 u = ld2(xr + r0 * D + 8 * kt + 2 * t);
+  const float2 w = ld2(xr + r1 * D + 8 * kt + 2 * t);
+  const float a[4] = {u.x, w.x, u.y, w.y};
+  split4(a, ah, al);
+}
+
+// the scores of one 32-key step for query rows (g, g + 8) of head h: s[nt]
+// is the C fragment of keys j0 + 8 nt + (2t, 2t + 1); keys past S get -1e9
+__device__ __forceinline__ void scores(float (&s)[4][4], const float* Ks,
+                                       const uint32_t (&qh)[2][4],
+                                       const uint32_t (&ql)[2][4], int h,
+                                       int j0, int S, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    const float* kr = Ks + (j0 + 8 * nt + g) * LDK + h * HD + 2 * t;
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * kt);
+      mma3(s[nt], qh[kt], ql[kt], kv.x, kv.y);
+    }
+  }
+  if (j0 + KSTEP > S) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + 8 * nt + 2 * t + (e & 1) >= S) s[nt][e] = -1e9f;
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// f32 rounded to TF32 to nearest, ties away from zero (cvt.rna's rounding,
+// in integer arithmetic as ops/view_attention.py tf32_round does it)
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// Packs wqkv [D][3D] and wo [D][D] (f32, in x out) as the forward's B
+// fragments, in ops/view_attention.py pack_b_tf32's layout: wp [D/8][3D/8]
+// [32][4] then [D/8][D/8][32][4], lane 4g + t of fragment (kt, nt) holding
+// (hi, hi, lo, lo) of rows 8 kt + 2t and 8 kt + 2t + 1 of column 8 nt + g.
+// One thread per lane and fragment.
+__global__ void ra_pack_kernel(const float* __restrict__ wqkv,
+                               const float* __restrict__ wo,
+                               float4* __restrict__ wp) {
+  constexpr int NQ = (D / 8) * QKV_NT * 32;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NQ + (D / 8) * NT * 32) return;
+  const bool is_o = i >= NQ;
+  const int j = is_o ? i - NQ : i;
+  const int ntot = is_o ? NT : QKV_NT;
+  const int lane = j & 31, nt = (j >> 5) % ntot, kt = (j >> 5) / ntot;
+  const int g = lane >> 2, t = lane & 3;
+  const float* w =
+      (is_o ? wo : wqkv) + (8 * kt + 2 * t) * 8 * ntot + 8 * nt + g;
+  const float w0 = w[0], w1 = w[8 * ntot];
+  const float h0 = tf32_rna(w0), h1 = tf32_rna(w1);
+  wp[i] = make_float4(h0, h1, tf32_rna(w0 - h0), tf32_rna(w1 - h1));
+}
+
+// A build with -DRA_FWD_STAMPS adds, in block 0, each warp's clocks by
+// stage of the forward to ra_fwd_cycles (profile_ray_attention.py reads
+// them): k | v products, the wait at the first barrier, the q products, the
+// flash steps, attn0's pass, the out product and stores, the wait at the
+// second barrier.
+#ifdef RA_FWD_STAMPS
+constexpr int FWD_STAGES = 7;
+__device__ unsigned long long ra_fwd_cycles[FWD_STAGES];
+#define STAMP_INIT() long long stamp_ = clock64()
+#define STAMP(i)                                                        \
+  do {                                                                  \
+    const long long now_ = clock64();                                   \
+    if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)                     \
+      atomicAdd(&ra_fwd_cycles[i], (unsigned long long)(now_ - stamp_)); \
+    stamp_ = now_;                                                      \
+  } while (0)
+#else
+#define STAMP_INIT() \
+  do {               \
+  } while (0)
+#define STAMP(i) \
+  do {           \
+  } while (0)
+#endif
+
+// Forward. grid: persistent, blockIdx.x walks rays r = blockIdx.x + k *
+// gridDim.x. x [R, S, D]; wqkv_p packed Wqkv [D/8][3D/8][32][4] and wo_p
+// packed Wo [D/8][D/8][32][4] (pack_b_tf32); bo [D]; out [R, S, D]; attn0
+// [R, S]. Shared memory (fwd_smem_bytes): K [Sp][LDK], V [Sp][LDV], attn0's
+// row [Sp], f32.
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS, RA_FWD_MIN_BLOCKS)
+    ra_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv_p,
+                  const float* __restrict__ wo_p,
+                  const float* __restrict__ bo, T* __restrict__ out,
+                  T* __restrict__ attn0, int R, int S) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;            // [S][D]; then sc [NH][S] and stats [2 * NH]
-  float* qkv = xs + S * D;     // [S][3D]; the q slots end as concat_h(o_h)
-  const float scale = 1.f / sqrtf((float)HD);
+  const int sp = (S + KSTEP - 1) / KSTEP * KSTEP;
+  float* Ks = smem;
+  float* Vs = Ks + sp * LDK;
+  float* a0s = Vs + sp * LDV;
+  const uint4* Wq = reinterpret_cast<const uint4*>(wqkv_p);
+  const uint4* Wo = reinterpret_cast<const uint4*>(wo_p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qtiles = (S + 15) / 16;
+  const int shift = qtiles >= FWD_WARPS ? qtiles - FWD_WARPS + 1 : 0;
+  STAMP_INIT();
 
   for (int r = blockIdx.x; r < R; r += gridDim.x) {
     const T* xr = x + (size_t)r * S * D;
-    for (int e = threadIdx.x; e < S * D; e += blockDim.x) xs[e] = ld(xr + e);
-    __syncthreads();
-    block_mm(xs, D, S, wqkv, D3, D, D3,
-             [&](int m, int n, float v) { qkv[m * D3 + n] = v; });
-    __syncthreads();
 
-    // attn0: the softmax row of query 0 per head, averaged over the heads
-    float* sc = xs;
-    float* stats = xs + NH * S;
-    for (int e = threadIdx.x; e < NH * S; e += blockDim.x) {
-      const int h = e / S, j = e - h * S;
-      sc[e] = dot_hd(qkv + h * HD, qkv + j * D3 + D + h * HD) * scale;
-    }
-    __syncthreads();
-    if (threadIdx.x < 32 * NH) {
-      const int h = threadIdx.x >> 5, lane = threadIdx.x & 31;
-      float mx = -INFINITY;
-      for (int j = lane; j < S; j += 32) mx = fmaxf(mx, sc[h * S + j]);
-      mx = warp_max(mx);
-      float den = 0.f;
-      for (int j = lane; j < S; j += 32) den += expf(sc[h * S + j] - mx);
-      den = warp_sum(den);
-      if (lane == 0) { stats[2 * h] = mx; stats[2 * h + 1] = 1.f / den; }
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < S; j += blockDim.x) {
-      float a = 0.f;
+    // phase 1: k | v of 32 rows per warp step into shared memory
+    for (int row0 = warp * 32; row0 < sp; row0 += FWD_WARPS * 32) {
+      int rows[2][2];
 #pragma unroll
-      for (int h = 0; h < NH; ++h)
-        a += expf(sc[h * S + j] - stats[2 * h]) * stats[2 * h + 1];
-      st(attn0 + (size_t)r * S + j, a * (1.f / NH));
-    }
-    __syncthreads();
-
-    // one thread per (head, query row): online softmax over the keys; the
-    // output overwrites the row's own q_h slot, which no other thread reads
-    for (int item = threadIdx.x; item < NH * S; item += blockDim.x) {
-      const int h = item / S, qi = item - h * S;
-      float* qrow = qkv + qi * D3 + h * HD;
-      float qv[HD], o[HD];
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int c = 0; c < HD; ++c) { qv[c] = qrow[c]; o[c] = 0.f; }
-      float mx = -INFINITY, den = 0.f;
-      for (int j = 0; j < S; ++j) {
-        const float* kj = qkv + j * D3 + D + h * HD;
-        const float sv = dot_hd(qv, kj) * scale;
-        const float mn = fmaxf(mx, sv);
-        const float corr = expf(mx - mn);
-        const float pj = expf(sv - mn);
-        den = fmaf(den, corr, pj);
+        for (int i = 0; i < 2; ++i)
+          rows[m][i] = min(row0 + 16 * m + 8 * i + g, S - 1);
 #pragma unroll
-        for (int c = 0; c < HD; ++c) o[c] = fmaf(o[c], corr, pj * kj[D + c]);
-        mx = mn;
+      for (int half = 0; half < 2; ++half) {  // k, then v
+        float acc[2][NT][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+        // KV_FLUSH k steps at a time into a zeroed accumulator, added to
+        // acc in f32 (all eight on the tensor cores without RA_FWD_FLUSH)
+#pragma unroll 1
+        for (int k0 = 0; k0 < D / 8; k0 += KV_FLUSH) {
+          float tk[2][NT][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) tk[m][nt][e] = 0.f;
+#pragma unroll 2
+          for (int kt = k0; kt < k0 + KV_FLUSH; ++kt) {
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              x_frag(xr, rows[m][0], rows[m][1], kt, t, ah[m], al[m]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint4 b = __ldg(
+                  Wq + ((kt * QKV_NT + NT * (1 + half) + nt) << 5) + lane);
+              mma3(tk[0][nt], ah[0], al[0], b);
+              mma3(tk[1][nt], ah[1], al[1], b);
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][nt][e] += tk[m][nt][e];
+        }
+        float* dst = half ? Vs : Ks;
+        const int ld = half ? LDV : LDK;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          float* d0 = dst + (row0 + 16 * m + g) * ld + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            st2(d0 + 8 * nt, acc[m][nt][0], acc[m][nt][1]);
+            st2(d0 + 8 * ld + 8 * nt, acc[m][nt][2], acc[m][nt][3]);
+          }
+        }
       }
-      const float inv = 1.f / den;
+    }
+    STAMP(0);
+    __syncthreads();
+    STAMP(1);
+
+    // phase 2: flash attention per 16-query tile, all heads, then Wo. Tile
+    // 0 (with attn0's extra pass) goes to the last warp, which has the
+    // fewest tiles
+    for (int idx = warp; idx < qtiles; idx += FWD_WARPS) {
+      const int qt = (idx + shift) % qtiles;
+      const int r0 = min(qt * 16 + g, S - 1), r1 = min(qt * 16 + g + 8, S - 1);
+      float acc[NT][4];
 #pragma unroll
-      for (int c = 0; c < HD; ++c) qrow[c] = o[c] * inv;
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+#pragma unroll 1
+      for (int h = 0; h < NH; ++h) {
+        // q_h = x Wq_h; the k steps alternate between two accumulators
+        // (shorter mma chains)
+        float q[2][2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) q[i][n][e] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < D / 8; ++kt) {
+          uint32_t ah[4], al[4];
+          x_frag(xr, r0, r1, kt, t, ah, al);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma3_acc(q[kt & 1][n], ah, al,
+                 __ldg(Wq + ((kt * QKV_NT + 2 * h + n) << 5) + lane));
+        }
+        // scores in log2 units: q / sqrt(HD) * log2(e)
+        constexpr float QSCALE = 0.25f * 1.4426950408889634f;
+        uint32_t qh[2][4], ql[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[0][n][e] += q[1][n][e];
+          c_to_a(q[0][n], QSCALE, qh[n], ql[n]);
+        }
+        STAMP(2);
+
+        float o[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+#pragma unroll 1
+        for (int j0 = 0; j0 < sp; j0 += KSTEP) {
+          float s[4][4];
+          scores(s, Ks, qh, ql, h, j0, S, g, t);
+          float x0 = s[0][0], x1 = s[0][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            x0 = fmaxf(x0, fmaxf(s[nt][0], s[nt][1]));
+            x1 = fmaxf(x1, fmaxf(s[nt][2], s[nt][3]));
+          }
+          const float n0 = fmaxf(m0, quad_max(x0));
+          const float n1 = fmaxf(m1, quad_max(x1));
+          const float c0 = ex2(m0 - n0), c1 = ex2(m1 - n1);
+          m0 = n0;
+          m1 = n1;
+          float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            s[nt][0] = ex2(s[nt][0] - n0);
+            s[nt][1] = ex2(s[nt][1] - n0);
+            s[nt][2] = ex2(s[nt][2] - n1);
+            s[nt][3] = ex2(s[nt][3] - n1);
+            p0 += s[nt][0] + s[nt][1];
+            p1 += s[nt][2] + s[nt][3];
+          }
+          l0 = fmaf(l0, c0, p0);
+          l1 = fmaf(l1, c1, p1);
+          // this step's p v (key step kk of P is the scores' n-tile kk),
+          // the even and odd kk in two accumulators, then o = o c + p v in
+          // f32
+          float pv[2][2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) pv[i][n][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t ph[4], pl[4];
+            c_to_a(s[kk], 1.f, ph, pl);
+            const float* vr = Vs + (j0 + 8 * kk + 2 * t) * LDV + h * HD + g;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              mma3(pv[kk & 1][n], ph, pl, vr[8 * n], vr[LDV + 8 * n]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            o[n][0] = fmaf(o[n][0], c0, pv[0][n][0] + pv[1][n][0]);
+            o[n][1] = fmaf(o[n][1], c0, pv[0][n][1] + pv[1][n][1]);
+            o[n][2] = fmaf(o[n][2], c1, pv[0][n][2] + pv[1][n][2]);
+            o[n][3] = fmaf(o[n][3], c1, pv[0][n][3] + pv[1][n][3]);
+          }
+        }
+        STAMP(3);
+        const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+
+        if (qt == 0) {
+          // attn0: a second pass over row 0's scores of this head, now that
+          // its max and sum are final, on the CUDA cores: q row 0 (lanes
+          // t of quad 0 hold its channels 2t, 2t + 1 of each n-tile) to
+          // every lane, a key per lane, p / NH added into the shared row
+          float q0[HD];
+#pragma unroll
+          for (int c = 0; c < HD; ++c)
+            q0[c] = __shfl_sync(0xffffffffu, QSCALE * q[0][c >> 3][c & 1],
+                                (c & 7) >> 1);
+          const float mr = __shfl_sync(0xffffffffu, m0, 0);
+          const float ir = __shfl_sync(0xffffffffu, i0, 0) * (1.f / NH);
+          for (int j = lane; j < S; j += 32) {
+            const float4* kr =
+                reinterpret_cast<const float4*>(Ks + j * LDK + h * HD);
+            float sv = 0.f;
+#pragma unroll
+            for (int c4 = 0; c4 < HD / 4; ++c4) {
+              const float4 kv = kr[c4];
+              sv = fmaf(q0[4 * c4], kv.x, sv);
+              sv = fmaf(q0[4 * c4 + 1], kv.y, sv);
+              sv = fmaf(q0[4 * c4 + 2], kv.z, sv);
+              sv = fmaf(q0[4 * c4 + 3], kv.w, sv);
+            }
+            const float p = ex2(sv - mr) * ir;
+            a0s[j] = h == 0 ? p : a0s[j] + p;
+          }
+        }
+        STAMP(4);
+
+        // out += o_h Wo_h: k step 2h + n of Wo is o's n-tile n
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float on[4] = {o[n][0] * i0, o[n][1] * i0, o[n][2] * i1,
+                               o[n][3] * i1};
+          uint32_t ah[4], al[4];
+          c_to_a(on, 1.f, ah, al);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma3_acc(acc[nt], ah, al,
+                 __ldg(Wo + (((2 * h + n) * NT + nt) << 5) + lane));
+        }
+        STAMP(5);
+      }
+
+      T* outr = out + (size_t)r * S * D;
+      const int row = qt * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = 8 * nt + 2 * t;
+        const float b0 = __ldg(bo + c), b1 = __ldg(bo + c + 1);
+        if (row < S) st2(outr + row * D + c, acc[nt][0] + b0, acc[nt][1] + b1);
+        if (row + 8 < S)
+          st2(outr + (row + 8) * D + c, acc[nt][2] + b0, acc[nt][3] + b1);
+      }
+      if (qt == 0) {
+        __syncwarp();
+        for (int j = lane; j < S; j += 32)
+          st(attn0 + (size_t)r * S + j, a0s[j]);
+      }
+      STAMP(5);
     }
     __syncthreads();
-    T* outr = out + (size_t)r * S * D;
-    block_mm(qkv, D3, S, wo, D, D, D, [&](int m, int n, float v) {
-      st(outr + m * D + n, v + __ldg(bo + n));
-    });
-    __syncthreads();
+    STAMP(6);
   }
 }
 
@@ -421,15 +882,22 @@ __global__ void __launch_bounds__(BWD_THREADS) ra_bwd_kernel(
   }
 }
 
+// the backward's dynamic shared memory
 size_t smem_bytes(int S) {
   return sizeof(float) * (size_t)S * (D + D3);
+}
+
+// the forward's: K, V and attn0's row for S rounded up to the key step
+size_t fwd_smem_bytes(int S) {
+  const size_t sp = (size_t)(S + KSTEP - 1) / KSTEP * KSTEP;
+  return sizeof(float) * sp * (LDK + LDV + 1);
 }
 
 template <typename T>
 int launch_fwd(const void* x, const void* wqkv, const void* wo,
                const void* bo, void* out, void* attn0, int R, int S,
                int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S);
+  const size_t smem = fwd_smem_bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
       ra_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -486,16 +954,17 @@ extern "C" int ray_attention_dims(int* d, int* n_heads) {
   return 0;
 }
 
-// Dynamic shared memory one block needs, in bytes (both directions).
-extern "C" long long ray_attention_smem_bytes(int S) {
-  return (long long)smem_bytes(S);
+// Dynamic shared memory one block needs, in bytes. backward: 0 = forward
+// kernel, 1 = backward kernel.
+extern "C" long long ray_attention_smem_bytes(int S, int backward) {
+  return (long long)(backward ? smem_bytes(S) : fwd_smem_bytes(S));
 }
 
 // How many blocks fit on the current device at once (SMs x blocks per SM),
 // or 0 when one block does not fit. backward: 0 = forward kernel, 1 =
 // backward kernel. dtype: 0 = float32, 1 = bfloat16.
 extern "C" int ray_attention_max_blocks(int S, int backward, int dtype) {
-  const size_t smem = smem_bytes(S);
+  const size_t smem = backward ? smem_bytes(S) : fwd_smem_bytes(S);
   if (backward)
     return dtype == 0
                ? max_blocks(ra_bwd_kernel<float>, BWD_THREADS, smem)
@@ -505,9 +974,51 @@ extern "C" int ray_attention_max_blocks(int S, int backward, int dtype) {
              : max_blocks(ra_fwd_kernel<__nv_bfloat16>, FWD_THREADS, smem);
 }
 
+// What the built forward kernel takes: registers per thread, threads per
+// block, local memory (spills) per thread. dtype: 0 = float32, 1 = bfloat16.
+extern "C" int ray_attention_fwd_resources(int dtype, int* regs, int* threads,
+                                           int* local) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      dtype == 0 ? cudaFuncGetAttributes(&attr, ra_fwd_kernel<float>)
+                 : cudaFuncGetAttributes(&attr, ra_fwd_kernel<__nv_bfloat16>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *threads = FWD_THREADS;
+  *local = (int)attr.localSizeBytes;
+  return 0;
+}
+
+#ifdef RA_FWD_STAMPS
+// Reads (reset == 0) or zeroes the forward's clocks by stage of a stamped
+// build.
+extern "C" int ray_attention_fwd_stage_cycles(unsigned long long* out,
+                                              int reset) {
+  if (reset) {
+    const unsigned long long z[FWD_STAGES] = {0};
+    return (int)cudaMemcpyToSymbol(ra_fwd_cycles, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(out, ra_fwd_cycles,
+                                   sizeof(unsigned long long) * FWD_STAGES);
+}
+#endif
+
+// The forward's weights packed on the card (ra_pack_kernel): wpack holds
+// 2 * D * 4D floats, packed Wqkv then packed Wo.
+extern "C" int ray_attention_pack_weights(const void* wqkv, const void* wo,
+                                          void* wpack, void* stream) {
+  constexpr int n = (D / 8) * (QKV_NT + NT) * 32;
+  ra_pack_kernel<<<(n + 255) / 256, 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(wqkv), static_cast<const float*>(wo),
+      static_cast<float4*>(wpack));
+  return (int)cudaGetLastError();
+}
+
 // Plain C entries for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, out,
 // attn0, gout, gattn0, dx); weights, scratch and weight-gradient partials are
-// float32. Each returns the cudaError_t of the launch (0 on success).
+// float32, the forward's wqkv and wo packed as TF32 B fragments
+// (pack_b_tf32). Each returns the cudaError_t of the launch (0 on success).
 extern "C" int ray_attention_fwd(const void* x, const void* wqkv,
                                  const void* wo, const void* bo, void* out,
                                  void* attn0, int R, int S, int blocks,

@@ -21,7 +21,10 @@ and the weights; the backward recomputes qkv and the softmax, so no
 CUDA tensors go through the kernels (built by nvcc at first use) or raise;
 CPU tensors take ``ray_attention_plain`` and ``ray_attention_bwd_plain``,
 which write out the same formulas in tensor ops. Nothing falls back from the
-kernel to the plain version.
+kernel to the plain version. The forward kernel runs its products on the
+tensor cores, float32 as three TF32 products; its ``wqkv`` and ``wo`` are
+packed on the card as B fragments, in the layout of ``pack_b_tf32`` of
+``ops/view_attention.py``.
 """
 from __future__ import annotations
 
@@ -100,8 +103,10 @@ def ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0, n_heads=4):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = load_library("ray_attention")
+def _lib(flags=()):
+    """The built library; ``flags``: extra nvcc flags of a variant build
+    (``profile_ray_attention.py``'s splits of the forward)."""
+    lib = load_library("ray_attention", flags)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ray_attention_fwd.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.ray_attention_fwd.restype = ci
@@ -109,10 +114,14 @@ def _lib():
     lib.ray_attention_bwd.restype = ci
     lib.ray_attention_max_blocks.argtypes = [ci] * 3
     lib.ray_attention_max_blocks.restype = ci
-    lib.ray_attention_smem_bytes.argtypes = [ci]
+    lib.ray_attention_smem_bytes.argtypes = [ci] * 2
     lib.ray_attention_smem_bytes.restype = ctypes.c_longlong
     lib.ray_attention_dims.argtypes = [ctypes.POINTER(ci)] * 2
     lib.ray_attention_dims.restype = ci
+    lib.ray_attention_fwd_resources.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
+    lib.ray_attention_fwd_resources.restype = ci
+    lib.ray_attention_pack_weights.argtypes = [vp] * 4
+    lib.ray_attention_pack_weights.restype = ci
     return lib
 
 
@@ -129,9 +138,28 @@ def _kernel_dims():
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index, s, backward, dtype_code):
+def _max_blocks(lib, device_index, s, backward, dtype_code):
     with torch.cuda.device(device_index):
-        return _lib().ray_attention_max_blocks(s, backward, dtype_code)
+        return lib.ray_attention_max_blocks(s, backward, dtype_code)
+
+
+def fwd_kernel_resources(s, dtype=torch.float32, lib=None):
+    """What the built forward kernel takes on the current card at ``s``
+    samples: registers per thread, threads per block, spilled bytes per
+    thread, dynamic shared memory per block and blocks resident on the
+    card."""
+    lib = lib or _lib()
+    code = _DTYPES[dtype]
+    regs, threads, local = (ctypes.c_int() for _ in range(3))
+    err = lib.ray_attention_fwd_resources(code, *(ctypes.byref(v) for v in
+                                                 (regs, threads, local)))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return dict(registers=regs.value, threads=threads.value,
+                spill_bytes=local.value,
+                smem_bytes=lib.ray_attention_smem_bytes(s, 0),
+                blocks=_max_blocks(lib, torch.cuda.current_device(), s, 0,
+                                   code))
 
 
 def _check(x, wqkv, wo, n_heads, **same_shape):
@@ -156,20 +184,23 @@ def _check(x, wqkv, wo, n_heads, **same_shape):
                          f"{sorted(map(str, devices))}")
 
 
-def _blocks(x, n_heads, backward):
+def _blocks(x, n_heads, backward, lib=None):
     """Persistent grid size for ``x`` on its CUDA device, or raise where the
     kernel does not take the shape."""
+    lib = lib or _lib()
     r, s, d = x.shape
     if (d, n_heads) != _kernel_dims():
         raise ValueError(f"the kernel takes D, n_heads = {_kernel_dims()}, "
                          f"got {(d, n_heads)}")
     dev = x.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    blocks = min(r, _max_blocks(index, s, backward, _DTYPES[x.dtype]))
+    blocks = min(r, _max_blocks(lib, index, s, backward, _DTYPES[x.dtype]))
     if blocks < 1:
+        kernel = "backward" if backward else "forward"
         raise ValueError(
-            f"R={r}, S={s} needs {_lib().ray_attention_smem_bytes(s)} bytes "
-            "of shared memory per block, more than the card offers")
+            f"R={r}, S={s} needs {lib.ray_attention_smem_bytes(s, backward)}"
+            f" bytes of shared memory per block of the {kernel} kernel, more "
+            "than the card offers")
     return blocks
 
 
@@ -193,26 +224,58 @@ def ray_attention_fwd(x, wqkv, wo, bo, n_heads=4):
         return ray_attention_plain(x, wqkv, wo, bo, n_heads)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    blocks = _blocks(x, n_heads, 0)
-    r, s, d = x.shape
-    x = x.detach().contiguous()
-    w1 = _weight(wqkv, x.dtype).contiguous()
-    w2 = _weight(wo, x.dtype).contiguous()
-    b2 = _weight(bo, x.dtype).contiguous()
-    out = torch.empty_like(x)
-    attn0 = torch.empty((r, s), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().ray_attention_fwd(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), attn0.data_ptr(), r, s, blocks, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ray_attention_fwd launch failed: cudaError {err}")
+    out, attn0 = launch_fwd(_lib(), x, wqkv, wo, bo, n_heads)
     ray_attention_fwd.launches += 1
     return out, attn0
 
 
 ray_attention_fwd.launches = 0
+
+
+def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4):
+    """One launch of ``lib``'s forward kernel on CUDA tensors (checked by
+    the caller), uncounted: ``ray_attention_fwd``'s launch, and a variant
+    build's in ``profile_ray_attention.py``.
+
+    :return: (out [R, S, D], attn0 [R, S]) in ``x``'s dtype
+    """
+    blocks = _blocks(x, n_heads, 0, lib)
+    r, s, d = x.shape
+    x = x.detach().contiguous()
+    if x.data_ptr() % 16:  # the kernel's 8-byte loads of x
+        x = x.clone()
+    wpack = pack_weights(lib, wqkv, wo, x.dtype)
+    b2 = _weight(bo, x.dtype).contiguous()
+    out = torch.empty_like(x)
+    attn0 = torch.empty((r, s), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ray_attention_fwd(
+            x.data_ptr(), wpack.data_ptr(),
+            wpack[2 * d * 3 * d:].data_ptr(), b2.data_ptr(), out.data_ptr(),
+            attn0.data_ptr(), r, s, blocks, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ray_attention_fwd launch failed: cudaError {err}")
+    return out, attn0
+
+
+def pack_weights(lib, wqkv, wo, dtype):
+    """The forward kernel's B fragments of ``wqkv`` and ``wo`` (rounded to
+    ``dtype`` as the module path casts them), packed on the card by the
+    library's pack kernel in ``pack_b_tf32``'s layout: ``[2 D 3D + 2 D D]``
+    f32, packed Wqkv then packed Wo."""
+    d = wqkv.shape[0]
+    w1 = _weight(wqkv, dtype).contiguous()
+    w2 = _weight(wo, dtype).contiguous()
+    wpack = torch.empty(2 * d * 4 * d, dtype=torch.float32, device=w1.device)
+    with torch.cuda.device(w1.device):
+        err = lib.ray_attention_pack_weights(
+            w1.data_ptr(), w2.data_ptr(), wpack.data_ptr(),
+            torch.cuda.current_stream(w1.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ray_attention_pack_weights failed: cudaError "
+                           f"{err}")
+    return wpack
 
 
 def ray_attention_bwd(x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=True):

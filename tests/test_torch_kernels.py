@@ -713,6 +713,289 @@ def test_ray_attention_kernel_raises_on_unsupported_shape():
         ra.ray_attention_fwd(x, wqkv, wo, bo)
 
 
+def _tf32_trunc(x):
+    """f32 ``x`` with its 13 low mantissa bits cleared (how the forward
+    kernel splits its operands, and how the tensor cores read an f32)."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _split_trunc(x):
+    """The forward kernel's own split: hi = x truncated to TF32, lo = x - hi
+    read truncated by the tensor cores."""
+    hi = _tf32_trunc(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _mm3(a, b, split_b):
+    """``a @ b`` as three TF32 products summed in f32, ``a`` split as the
+    kernel splits its A operands and ``b`` by ``split_b``."""
+    ah, al = _split_trunc(a)
+    bh, bl = split_b(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+_RA_STEP = 32  # keys per online-softmax step
+_LOG2E = 1.4426950408889634
+
+
+def _ra_emulated(x, wqkv, wo, bo, mm, n_heads=4):
+    """The forward kernel's f32 arithmetic in tensor ops: ``mm(a, b, w)``
+    for each of its four products (``w``: b is a host-packed weight),
+    k | v for the samples padded to whole 32-key steps on clamped rows,
+    the scores in log2 units, a flash-order online softmax over 32-key
+    steps with keys past S at -1e9, and attn0 from a second pass over row
+    0's scores (an f32 dot product) once the row's max and sum are final.
+
+    :return: (out [R, S, D], attn0 [R, S])
+    """
+    r, s, d = x.shape
+    hd = d // n_heads
+    sp = -(-s // _RA_STEP) * _RA_STEP
+    xp = x[:, torch.clamp(torch.arange(sp), max=s - 1)]
+    kv = mm(xp, wqkv[:, d:], True)
+    q = mm(x, wqkv[:, :d], True) * torch.tensor(0.25 * _LOG2E)
+    keys = torch.arange(sp)
+    heads, a0 = [], torch.zeros(r, sp)
+    for h in range(n_heads):
+        qh = q[..., h * hd:(h + 1) * hd]
+        kh = kv[..., h * hd:(h + 1) * hd]
+        vh = kv[..., d + h * hd:d + (h + 1) * hd]
+        m = torch.full((r, s, 1), -float("inf"))
+        l = torch.zeros(r, s, 1)
+        o = torch.zeros(r, s, hd)
+        for j0 in range(0, sp, _RA_STEP):
+            blk = slice(j0, j0 + _RA_STEP)
+            sc = mm(qh, kh[:, blk].transpose(1, 2), False)
+            sc = sc.masked_fill(keys[blk] >= s, -1e9)
+            mn = torch.maximum(m, sc.amax(-1, keepdim=True))
+            c = torch.exp2(m - mn)
+            p = torch.exp2(sc - mn)
+            l = l * c + p.sum(-1, keepdim=True)
+            o = o * c + mm(p, vh[:, blk], False)
+            m = mn
+        heads.append(o / l)
+        s0 = (qh[:, :1] @ kh.transpose(1, 2))[:, 0]  # [R, Sp]
+        a0 = a0 + torch.exp2(s0 - m[:, 0]) / l[:, 0] / n_heads
+    out = mm(torch.cat(heads, dim=-1), wo, True) + bo
+    return out, a0[:, :s]
+
+
+def _ra_split_mm(a, b, weight):
+    return _mm3(a, b, va.tf32_split if weight else _split_trunc)
+
+
+def _ra_tf32_mm(a, b, weight):
+    return va.tf32_round(a) @ va.tf32_round(b)
+
+
+@pytest.mark.parametrize("r,s", [(24, 192), (40, 10), (40, 33)])
+def test_ray_attention_tf32_split_within_f32_tolerance(r, s):
+    """K3 forward's f32 route: its four products as three TF32 products
+    (weights split to nearest on the host, operands truncated in the
+    kernel), the online softmax in log2 units over 32-key steps and attn0
+    from a second pass, emulated on the CPU at the slice's widths (D = 64, 4
+    heads; S = 192 and the ragged 10 and 33), stay under the 1e-5 of scale
+    that the card holds the kernel to against the plain version, within
+    1e-6 of scale of float64 as the plain f32 version is (1.4e-7 against
+    plain f32's 6.5e-8 at S = 192); one TF32 product alone (TF32 mode, 8e-5
+    to 2.4e-4) would not. The tensor cores' own truncating f32 additions are
+    not emulated: the kernel bounds them by adding every few k steps in f32,
+    and the card holds it to the plain version."""
+    x, wqkv, wo, bo, _, _ = _ra_case(r, s, seed=s)
+    with torch.no_grad():
+        truth = ra.ray_attention_plain(*(t.double() for t in
+                                         (x, wqkv, wo, bo)))
+        plain = ra.ray_attention_plain(x, wqkv, wo, bo)
+        split = _ra_emulated(x, wqkv, wo, bo, _ra_split_mm)
+        tf32 = _ra_emulated(x, wqkv, wo, bo, _ra_tf32_mm)
+    for i, name in enumerate(("out", "attn0")):
+        scale = max(1.0, float(truth[i].abs().max()))
+        err = lambda y: float((y[i].double() - truth[i]).abs().max()) / scale
+        assert split[i].shape == truth[i].shape, name
+        assert err(split) <= 1e-6 and err(plain) <= 1e-6, (
+            name, err(split), err(plain))
+        assert float((split[i] - plain[i]).abs().max()) <= 1e-5 * scale, name
+        if name == "out":
+            assert err(tf32) > 1e-5, err(tf32)
+    torch.testing.assert_close(split[1].sum(-1), torch.ones(r), rtol=0,
+                               atol=1e-5)
+
+
+def _frag_a(m16, kt):
+    """The logical A [16, 8] of k step ``kt`` that the forward kernel builds
+    from ``m16 [16, K]``, lane (g, t) by lane: ``x_frag`` from rows of x,
+    ``c_to_a`` from a C fragment (n-tile kt's elements c0 = (g, 2t), c1 =
+    (g, 2t + 1), c2 = (g + 8, 2t), c3 = (g + 8, 2t + 1) become a0 = c0, a1 =
+    c2, a2 = c1, a3 = c3); mma reads a0 at (g, t), a1 at (g + 8, t), a2 at
+    (g, t + 4), a3 at (g + 8, t + 4)."""
+    am = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        c = (m16[g, 8 * kt + 2 * t], m16[g, 8 * kt + 2 * t + 1],
+             m16[g + 8, 8 * kt + 2 * t], m16[g + 8, 8 * kt + 2 * t + 1])
+        am[g, t], am[g + 8, t], am[g, t + 4], am[g + 8, t + 4] = (
+            c[0], c[2], c[1], c[3])
+    return am
+
+
+def _frag_b(b0b1):
+    """The logical B [8, 8] of a step from each lane's (b0, b1): mma reads
+    b0 at (t, g) and b1 at (t + 4, g)."""
+    bm = np.zeros((8, 8))
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        bm[t, g], bm[t + 4, g] = b0b1(g, t)
+    return bm
+
+
+def test_ray_attention_packed_weights_reproduce_products():
+    """``pack_b_tf32``'s blobs of Wqkv [64, 192] and Wo [64, 64], read
+    through the forward kernel's lane indexing (uint4 ``((kt * 24 + nt) <<
+    5) + lane`` of Wqkv: n-tiles 8 + nt of k and 16 + nt of v in the k | v
+    product, 2h + n of q_h; ``(((2h + n) * 8 + nt) << 5) + lane`` of Wo with
+    o_h's C fragments as A), reproduce x @ Wqkv and concat_h(o_h) @ Wo."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(16, 64)
+    o = rng.randn(16, 64)
+    wqkv = torch.as_tensor(rng.randn(64, 192).astype(np.float32))
+    wo = torch.as_tensor(rng.randn(64, 64).astype(np.float32))
+    bq = np.asarray(va.pack_b_tf32(wqkv), np.float64).reshape(-1, 4)
+    bo_ = np.asarray(va.pack_b_tf32(wo), np.float64).reshape(-1, 4)
+    lanes = lambda blob, base: _frag_b(
+        lambda g, t: (blob[base + 4 * g + t][0] + blob[base + 4 * g + t][2],
+                      blob[base + 4 * g + t][1] + blob[base + 4 * g + t][3]))
+    qkv = np.zeros((16, 192))
+    for kt in range(8):
+        am = _frag_a(x, kt)
+        for half in range(2):  # the k | v product's n-tiles
+            for nt in range(8):
+                col = 8 * (1 + half) + nt
+                qkv[:, 8 * col:8 * col + 8] += am @ lanes(
+                    bq, (kt * 24 + col) << 5)
+        for h in range(4):  # q_h's n-tiles
+            for n in range(2):
+                col = 2 * h + n
+                qkv[:, 8 * col:8 * col + 8] += am @ lanes(
+                    bq, (kt * 24 + col) << 5)
+    ref = x @ wqkv.double().numpy()
+    assert np.abs(qkv - ref).max() <= 1e-5 * np.abs(ref).max()
+    out = np.zeros((16, 64))
+    for h in range(4):
+        for n in range(2):
+            am = _frag_a(o, 2 * h + n)
+            for nt in range(8):
+                out[:, 8 * nt:8 * nt + 8] += am @ lanes(
+                    bo_, ((2 * h + n) * 8 + nt) << 5)
+    ref = o @ wo.double().numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_ray_attention_shared_kv_fragments_reproduce_products():
+    """K and V as the forward kernel reads them from shared memory (K's B
+    fragment: row j0 + 8 nt + g, channels 16h + 8 kt + 2t and + 1; V's: rows
+    j0 + 8 kk + 2t and + 1, channel 16h + 8n + g) against q_h's and the
+    scores' C fragments as A reproduce q_h k_h^T and p v_h over a 32-key
+    step, for every head."""
+    rng = np.random.RandomState(4)
+    q, k, v = (rng.randn(16, 64), rng.randn(64, 64), rng.randn(64, 64))
+    j0 = 32
+    for h in range(4):
+        sc = np.zeros((16, 32))
+        for nt in range(4):
+            for kt in range(2):
+                bm = _frag_b(lambda g, t: (
+                    k[j0 + 8 * nt + g, 16 * h + 8 * kt + 2 * t],
+                    k[j0 + 8 * nt + g, 16 * h + 8 * kt + 2 * t + 1]))
+                sc[:, 8 * nt:8 * nt + 8] += _frag_a(
+                    q[:, 16 * h:16 * h + 16], kt) @ bm
+        ref = q[:, 16 * h:16 * h + 16] @ k[j0:j0 + 32, 16 * h:16 * h + 16].T
+        np.testing.assert_allclose(sc, ref, rtol=1e-12, atol=1e-12)
+        pv = np.zeros((16, 16))
+        for kk in range(4):
+            for n in range(2):
+                bm = _frag_b(lambda g, t: (
+                    v[j0 + 8 * kk + 2 * t, 16 * h + 8 * n + g],
+                    v[j0 + 8 * kk + 2 * t + 1, 16 * h + 8 * n + g]))
+                pv[:, 8 * n:8 * n + 8] += _frag_a(ref, kk) @ bm
+        np.testing.assert_allclose(
+            pv, ref @ v[j0:j0 + 32, 16 * h:16 * h + 16], rtol=1e-12,
+            atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(800, 192), (4096, 192), (3, 10), (5, 33)])
+def test_ray_attention_fwd_kernel_matches_plain_f32(r, s):
+    """The tensor-core forward in f32 (every product three TF32 products,
+    the softmax online over 32-key steps) against the plain version at the
+    attack batch's shape, a render chunk's and two ragged S: 1e-5 of each
+    output's scale, one launch counted."""
+    _require_cuda()
+    x, wqkv, wo, bo, _, _ = _ra_case(r, s, seed=r + s, device="cuda")
+    before = ra.ray_attention_fwd.launches
+    got = ra.ray_attention_fwd(x, wqkv, wo, bo)
+    torch.cuda.synchronize()
+    assert ra.ray_attention_fwd.launches == before + 1
+    ref = ra.ray_attention_plain(x, wqkv, wo, bo)
+    for name, g, r_ in zip(("out", "attn0"), got, ref):
+        assert g.shape == r_.shape and bool(torch.isfinite(g).all()), name
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol, (name, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(800, 192), (4096, 192), (3, 10), (5, 33)])
+def test_ray_attention_fwd_kernel_bf16_within_derived_bound(r, s):
+    """bf16 forward: the kernel loads bf16 as f32, computes as on the f32
+    route and rounds its outputs, so against the plain f32 version on the
+    same bf16 inputs and bf16-valued weights it may err no more than the
+    plain bf16 version, which rounds every product."""
+    _require_cuda()
+    x, wqkv, wo, bo, _, _ = _ra_case(r, s, seed=r + s + 1, device="cuda",
+                                     dtype=torch.bfloat16)
+    wb = [w.bfloat16().float() for w in (wqkv, wo, bo)]
+    ref = ra.ray_attention_plain(x.float(), *wb)
+    got = ra.ray_attention_fwd(x, wqkv, wo, bo)
+    plain = ra.ray_attention_plain(x, wqkv, wo, bo)
+    torch.cuda.synchronize()
+    for name, g, p, r_ in zip(("out", "attn0"), got, plain, ref):
+        assert g.dtype == torch.bfloat16, name
+        err_k = float((g.float() - r_).abs().max())
+        err_p = float((p.float() - r_).abs().max())
+        assert err_k <= err_p, (name, err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ray_attention_weights_packed_on_the_card_as_pack_b_tf32(dtype):
+    """The forward's pack kernel writes ``pack_b_tf32``'s blobs of the
+    weights rounded to the route's dtype, bit for bit."""
+    _require_cuda()
+    _, wqkv, wo, _, _, _ = _ra_case(2, 8, device="cuda")
+    got = ra.pack_weights(ra.build(), wqkv, wo, dtype)
+    torch.cuda.synchronize()
+    want = torch.cat([va.pack_b_tf32(w.to(dtype).float()) for w in (wqkv, wo)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ray_attention_shared_memory_is_sized_per_direction():
+    """The forward keeps K and V (~564 B a sample), the backward x and the
+    per-head buffers (1 KB a sample): at S = 300 the forward runs and the
+    backward raises, naming its own kernel and size."""
+    _require_cuda()
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(2, 300, device="cuda")
+    out, attn0 = ra.ray_attention_fwd(x, wqkv, wo, bo)
+    ref = ra.ray_attention_plain(x, wqkv, wo, bo)
+    assert float((out - ref[0]).abs().max()) <= 1e-5 * max(
+        1.0, float(ref[0].abs().max()))
+    with pytest.raises(ValueError, match="backward kernel"):
+        ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0)
+    x, wqkv, wo, bo, _, _ = _ra_case(2, 420, device="cuda")
+    with pytest.raises(ValueError, match="forward kernel"):
+        ra.ray_attention_fwd(x, wqkv, wo, bo)
+
+
 # ---- view attention (ops/view_attention.py, csrc/view_attention.cu) ----
 
 def _va_case(v, n, seed=0, dtype=torch.float32, device="cpu", d=64,
