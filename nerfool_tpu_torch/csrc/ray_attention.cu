@@ -22,16 +22,19 @@
 // rays, each then alone on its SM). Every product runs on the tensor cores
 // with mma.sync.m16n8k8, float32 computed as three TF32 products, a_hi b_hi +
 // a_hi b_lo + a_lo b_hi. The weights are split on the card to nearest
-// (ra_pack_kernel, pack_b_tf32's layout); every other operand is split in
-// the kernel in two instructions (hi = x with its 13 low mantissa bits
-// cleared, lo = x - hi read truncated by the tensor cores: ~2^-20 of x;
-// cvt.rna for both halves measured 25% slower for no gain on the card).
+// (ra_pack_kernel, pack_b_tf32's layout; ops/ray_attention.py keeps the
+// packed copy while the weights are unchanged); every other operand is
+// split in the kernel in two instructions (hi = x with its 13 low mantissa
+// bits cleared, lo = x - hi read truncated by the tensor cores: ~2^-20 of
+// x; cvt.rna for both halves measured 17-27% slower on an H100, for 9.0e-8
+// of scale against float64 instead of 1.6e-7).
 // The tensor cores add into their f32 accumulator truncating, which along
 // a chain of 24 mma gave 3.3e-7 of scale against float64 (plain f32:
 // 7.9e-8); so the three products of a k step (of two k steps in the k | v
 // product) go through a zeroed accumulator and are added in f32, and p v
-// accumulates per key step: 1.6e-7, for 8% of the time. The softmax
-// statistics, its running max and sum and every accumulator stay f32.
+// accumulates per key step: 1.6e-7, for 3-8% more time on an H100. The
+// softmax statistics, its running max and sum and every accumulator stay
+// f32.
 //  - phase 1, k | v = x [Wk | Wv]: a warp takes 32 rows (two m16 tiles, so
 //    each 16-byte B fragment of the weights serves two tiles); the A
 //    fragments are read from x in device memory, rows past S clamped to row
@@ -65,7 +68,7 @@
 //  - 6 warps a block and two blocks an SM (168 registers, 64 bytes of
 //    spills): at S = 192 each warp has two query tiles and one 32-row
 //    group. 4 warps (no spills) and 8 warps (128 registers, 248 bytes of
-//    spills) measured ~6% and ~20% slower (profile_ray_attention.py).
+//    spills) measured ~6% and ~20% slower on an H100.
 // The weights' B fragments are read from device memory through L1 (packed
 // Wqkv 96 KB and Wo 32 KB do not fit in shared memory beside K and V at two
 // blocks per SM): 64 KB per 32 rows in phase 1 and 64 KB per 16-query tile
@@ -121,31 +124,11 @@ constexpr int D3 = 3 * D;    // q | k | v
 constexpr int H3 = 3 * HD;   // q_h | k_h | v_h
 constexpr int BWD_THREADS = 256;
 
-// The forward's warps per block, blocks per SM, how it splits f32 into TF32
-// halves (split()) and whether it adds each k step's products in f32
-// (mma3_acc; the k | v product every RA_FWD_KV_FLUSH k steps): a build may
-// set others (-DRA_FWD_WARPS=, -DRA_FWD_MIN_BLOCKS=, -DRA_FWD_SPLIT=,
-// -DRA_FWD_FLUSH=, -DRA_FWD_KV_FLUSH=) to compare them
-// (profile_ray_attention.py).
-#ifndef RA_FWD_WARPS
-#define RA_FWD_WARPS 6
-#endif
-#ifndef RA_FWD_MIN_BLOCKS
-#define RA_FWD_MIN_BLOCKS 2
-#endif
-#ifndef RA_FWD_SPLIT
-#define RA_FWD_SPLIT 0
-#endif
-#ifndef RA_FWD_FLUSH
-#define RA_FWD_FLUSH 1
-#endif
-#ifndef RA_FWD_KV_FLUSH
-#define RA_FWD_KV_FLUSH 2
-#endif
-constexpr int FWD_WARPS = RA_FWD_WARPS;
+constexpr int FWD_WARPS = 6;
 constexpr int FWD_THREADS = 32 * FWD_WARPS;
-// k steps of the k | v product per f32 addition (all of them: none)
-constexpr int KV_FLUSH = RA_FWD_FLUSH ? RA_FWD_KV_FLUSH : D / 8;
+constexpr int FWD_MIN_BLOCKS = 2;  // blocks per SM asked of ptxas
+constexpr int KV_FLUSH = 2;        // k steps of the k | v product per f32 add
+static_assert((D / 8) % KV_FLUSH == 0, "KV_FLUSH must divide the k steps");
 constexpr int KSTEP = 32;       // keys per online-softmax step
 constexpr int LDK = D + 8;      // K row stride in shared memory, floats
 constexpr int LDV = D + 4;      // V row stride
@@ -256,25 +239,12 @@ __device__ __forceinline__ float dot_hd(const float* a, const float* b) {
 
 // ---- forward helpers: split TF32 on mma.sync.m16n8k8 ----
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, hi a TF32 value and lo = x - hi exact in f32, read as TF32:
-//  RA_FWD_SPLIT 0: hi = x with its 13 low mantissa bits cleared and lo read
-//    truncated by the tensor cores, x to ~2^-20 of itself in two
-//    instructions;
-//  1: hi and lo rounded to nearest (cvt.rna), ~2^-22.
+// x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
+// value), lo = x - hi is exact in f32 and read truncated to TF32 by the
+// tensor cores, so x to ~2^-20 of itself in two instructions
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-#if RA_FWD_SPLIT == 0
   hi = __float_as_uint(x) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
-#else
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-#endif
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -318,22 +288,18 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma3(c, ah, al, b);
 }
 
-// c += a b as mma3 does; with RA_FWD_FLUSH the three products go through a
-// zeroed accumulator and are added to c in f32. The tensor cores add into
-// their f32 accumulator truncating, so along a chain of mma the error grows
-// with its length; this keeps every chain at three.
+// c += a b as mma3 does, the three products through a zeroed accumulator
+// and added to c in f32. The tensor cores add into their f32 accumulator
+// truncating, so along a chain of mma the error grows with its length; this
+// keeps every chain at three.
 template <typename... B>
 __device__ __forceinline__ void mma3_acc(float (&c)[4],
                                          const uint32_t (&ah)[4],
                                          const uint32_t (&al)[4], B... b) {
-#if RA_FWD_FLUSH
   float t[4] = {0.f, 0.f, 0.f, 0.f};
   mma3(t, ah, al, b...);
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += t[i];
-#else
-  mma3(c, ah, al, b...);
-#endif
 }
 
 // A fragment from the C fragment of the same 16 rows: logical columns t and
@@ -466,7 +432,7 @@ __device__ unsigned long long ra_fwd_cycles[FWD_STAGES];
 // [R, S]. Shared memory (fwd_smem_bytes): K [Sp][LDK], V [Sp][LDV], attn0's
 // row [Sp], f32.
 template <typename T>
-__global__ void __launch_bounds__(FWD_THREADS, RA_FWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
     ra_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv_p,
                   const float* __restrict__ wo_p,
                   const float* __restrict__ bo, T* __restrict__ out,
@@ -505,7 +471,7 @@ __global__ void __launch_bounds__(FWD_THREADS, RA_FWD_MIN_BLOCKS)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
         // KV_FLUSH k steps at a time into a zeroed accumulator, added to
-        // acc in f32 (all eight on the tensor cores without RA_FWD_FLUSH)
+        // acc in f32
 #pragma unroll 1
         for (int k0 = 0; k0 < D / 8; k0 += KV_FLUSH) {
           float tk[2][NT][4];

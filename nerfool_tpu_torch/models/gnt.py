@@ -162,6 +162,24 @@ class RayAttention(nn.Module):
         self.k_fc = nn.Linear(dim, dim, bias=False)
         self.v_fc = nn.Linear(dim, dim, bias=False)
         self.out_fc = nn.Linear(dim, dim)
+        self._wqkv_kept = None
+
+    def _wqkv(self):
+        """The ``[D, 3D]`` q | k | v projection. Where no gradient reaches
+        the weights, the same tensor while they keep their storage and
+        version counter, so that the ray-attention kernel packs it once
+        (``ops/ray_attention.py``)."""
+        ws = (self.q_fc.weight, self.k_fc.weight, self.v_fc.weight)
+        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+            return torch.cat(ws, dim=0).t()
+        key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in ws)
+        if self._wqkv_kept is None or self._wqkv_kept[0] != key:
+            # the detached weights keep their storage, so their addresses
+            # in the key stay theirs while the entry lives
+            with torch.inference_mode(False), torch.no_grad():
+                self._wqkv_kept = (key, tuple(w.detach() for w in ws),
+                                   torch.cat(ws, dim=0).t())
+        return self._wqkv_kept[2]
 
     def forward(self, x, fused=False):
         """:param x: [R, S, D]
@@ -171,8 +189,7 @@ class RayAttention(nn.Module):
         r, s, d = x.shape
         nh = self.n_heads
         hd = d // nh
-        wqkv = torch.cat([self.q_fc.weight, self.k_fc.weight,
-                          self.v_fc.weight], dim=0).t()
+        wqkv = self._wqkv()
         if fused and x.dtype != torch.float64:
             from nerfool_tpu_torch.ops.ray_attention import ray_attention
 

@@ -24,10 +24,14 @@ which write out the same formulas in tensor ops. Nothing falls back from the
 kernel to the plain version. The forward kernel runs its products on the
 tensor cores, float32 as three TF32 products; its ``wqkv`` and ``wo`` are
 packed on the card as B fragments, in the layout of ``pack_b_tf32`` of
-``ops/view_attention.py``.
+``ops/view_attention.py``, once for each value of the weights: the packed
+copy is kept while the tensors passed in keep their storage and version
+counter (a write through ``.data``, which bypasses that counter, is not
+seen).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -102,11 +106,8 @@ def ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0, n_heads=4):
     return dx, dwqkv, dwo
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(flags=()):
-    """The built library; ``flags``: extra nvcc flags of a variant build
-    (``profile_ray_attention.py``'s splits of the forward)."""
-    lib = load_library("ray_attention", flags)
+def bind(lib):
+    """Declare the C entries' signatures on a loaded build of the source."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ray_attention_fwd.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.ray_attention_fwd.restype = ci
@@ -123,6 +124,11 @@ def _lib(flags=()):
     lib.ray_attention_pack_weights.argtypes = [vp] * 4
     lib.ray_attention_pack_weights.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(load_library("ray_attention"))
 
 
 def build():
@@ -143,12 +149,12 @@ def _max_blocks(lib, device_index, s, backward, dtype_code):
         return lib.ray_attention_max_blocks(s, backward, dtype_code)
 
 
-def fwd_kernel_resources(s, dtype=torch.float32, lib=None):
+def fwd_kernel_resources(s, dtype=torch.float32):
     """What the built forward kernel takes on the current card at ``s``
     samples: registers per thread, threads per block, spilled bytes per
     thread, dynamic shared memory per block and blocks resident on the
     card."""
-    lib = lib or _lib()
+    lib = _lib()
     code = _DTYPES[dtype]
     regs, threads, local = (ctypes.c_int() for _ in range(3))
     err = lib.ray_attention_fwd_resources(code, *(ctypes.byref(v) for v in
@@ -224,7 +230,8 @@ def ray_attention_fwd(x, wqkv, wo, bo, n_heads=4):
         return ray_attention_plain(x, wqkv, wo, bo, n_heads)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out, attn0 = launch_fwd(_lib(), x, wqkv, wo, bo, n_heads)
+    out, attn0 = launch_fwd(_lib(), x, wqkv, wo, bo, n_heads,
+                            _packed(wqkv, wo, x.dtype))
     ray_attention_fwd.launches += 1
     return out, attn0
 
@@ -232,10 +239,12 @@ def ray_attention_fwd(x, wqkv, wo, bo, n_heads=4):
 ray_attention_fwd.launches = 0
 
 
-def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4):
-    """One launch of ``lib``'s forward kernel on CUDA tensors (checked by
-    the caller), uncounted: ``ray_attention_fwd``'s launch, and a variant
-    build's in ``profile_ray_attention.py``.
+def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4, wpack=None):
+    """One launch of the forward kernel of ``lib``, a loaded build of
+    ``csrc/ray_attention.cu`` after ``bind`` (``ray_attention_fwd`` passes
+    the package's own; a profiler may pass a build with other flags), on
+    CUDA tensors checked by the caller, uncounted. ``wpack``: the weights as
+    ``pack_weights`` packs them; None packs them for this launch.
 
     :return: (out [R, S, D], attn0 [R, S]) in ``x``'s dtype
     """
@@ -244,7 +253,8 @@ def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4):
     x = x.detach().contiguous()
     if x.data_ptr() % 16:  # the kernel's 8-byte loads of x
         x = x.clone()
-    wpack = pack_weights(lib, wqkv, wo, x.dtype)
+    if wpack is None:
+        wpack = pack_weights(lib, wqkv, wo, x.dtype)
     b2 = _weight(bo, x.dtype).contiguous()
     out = torch.empty_like(x)
     attn0 = torch.empty((r, s), dtype=x.dtype, device=x.device)
@@ -263,8 +273,13 @@ def pack_weights(lib, wqkv, wo, dtype):
     """The forward kernel's B fragments of ``wqkv`` and ``wo`` (rounded to
     ``dtype`` as the module path casts them), packed on the card by the
     library's pack kernel in ``pack_b_tf32``'s layout: ``[2 D 3D + 2 D D]``
-    f32, packed Wqkv then packed Wo."""
-    d = wqkv.shape[0]
+    f32, packed Wqkv then packed Wo. Raises where the weights are not of
+    the width the kernel was built for (the pack kernel reads that
+    layout)."""
+    d = _kernel_dims()[0]
+    if tuple(wqkv.shape) != (d, 3 * d) or tuple(wo.shape) != (d, d):
+        raise ValueError(f"the kernel takes D, n_heads = {_kernel_dims()}: "
+                         f"wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}")
     w1 = _weight(wqkv, dtype).contiguous()
     w2 = _weight(wo, dtype).contiguous()
     wpack = torch.empty(2 * d * 4 * d, dtype=torch.float32, device=w1.device)
@@ -276,6 +291,33 @@ def pack_weights(lib, wqkv, wo, dtype):
         raise RuntimeError(f"ray_attention_pack_weights failed: cudaError "
                            f"{err}")
     return wpack
+
+
+# the packed weights of the last few (wqkv, wo, dtype), newest last: key ->
+# (wqkv, wo, packed). The entry holds both tensors, so their storage, and so
+# their address, stays theirs while it lives; with the version counters in
+# the key an entry is found only for the same values.
+_PACKED = collections.OrderedDict()
+_PACKED_MAX = 32
+
+
+def _packed(wqkv, wo, dtype):
+    """``pack_weights`` of the package's build, packed once for each value
+    of ``wqkv`` and ``wo`` (inference tensors, which keep no version
+    counter, are packed at every call)."""
+    if wqkv.is_inference() or wo.is_inference():
+        return pack_weights(_lib(), wqkv, wo, dtype)
+    key = (dtype, *((w.data_ptr(), w._version, w.dtype, w.device,
+                     tuple(w.shape), w.stride()) for w in (wqkv, wo)))
+    entry = _PACKED.pop(key, None)
+    if entry is None:
+        with torch.inference_mode(False), torch.no_grad():
+            entry = (wqkv.detach(), wo.detach(),
+                     pack_weights(_lib(), wqkv, wo, dtype))
+    _PACKED[key] = entry
+    if len(_PACKED) > _PACKED_MAX:
+        _PACKED.popitem(last=False)
+    return entry[2]
 
 
 def ray_attention_bwd(x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=True):

@@ -1,24 +1,21 @@
-"""Splits of K3's forward kernel (``csrc/ray_attention.cu``) between warps
-and blocks, compared on the card.
+"""K3's forward kernel (``csrc/ray_attention.cu``) on the card: its
+resources, its error, its time with and without the weights' packing, and
+its clocks by stage.
 
     python -m nerfool_tpu_torch.profile_ray_attention
 
-Builds the source as the port builds it and once for each other split in
-``SPLITS`` (``-DRA_FWD_WARPS=`` warps per block, ``-DRA_FWD_MIN_BLOCKS=``
-blocks per SM asked of ``__launch_bounds__``, ``-DRA_FWD_SPLIT=`` how f32
-is split into TF32 halves, ``-DRA_FWD_FLUSH=`` whether each k step's
-products are added in f32, ``-DRA_FWD_KV_FLUSH=`` every how many k steps
-the k | v product's are), all ``nvcc`` processes started together. For each
-build it prints the f32 forward kernel's registers, spilled bytes per
-thread, threads and resident blocks at S = 192, checks its f32 output
-against ``ray_attention_plain`` at the attack batch's shape (800 rays, 192
-samples) to 1e-5 of scale, and prints the output's error from the plain
-version in float64 beside plain f32's. Then it times every build's forward
-with CUDA events at that shape and at a render chunk's (4096 rays), in
-turns (each build once in order, then in reverse order, twice over), and
-prints the card's name and power limit beside the times. Last, a build
-with ``-DRA_FWD_STAMPS`` of the port's split: one launch at each shape, and
-block 0's warps' clocks summed by stage of the kernel.
+Builds the source as the port builds it and a second time with
+``-DRA_FWD_STAMPS``, both ``nvcc`` processes started together. Prints the
+f32 forward kernel's registers, spilled bytes per thread, threads, shared
+memory and resident blocks at S = 192, checks its f32 output against
+``ray_attention_plain`` at the attack batch's shape (800 rays, 192 samples)
+to 1e-5 of scale, and prints the output's error from the plain version in
+float64 beside plain f32's. Then, at that shape and at a render chunk's
+(4096 rays), it times with CUDA events the forward with the weights packed
+once (as ``ray_attention_fwd`` keeps them) and packed at every launch, in
+turns (kept, packed, packed, kept), and the pack alone, and prints the
+card's name and power limit beside the times. Last, the stamped build: one
+launch at each shape, and block 0's warps' clocks summed by stage.
 """
 from __future__ import annotations
 
@@ -30,11 +27,6 @@ import torch
 
 from nerfool_tpu_torch.ops import build, ray_attention as ra
 
-# (warps per block, blocks per SM asked of the compiler, split mode, flush,
-# k | v flush steps); the first is the port's build (the defaults in the
-# source)
-SPLITS = ((6, 2, 0, 1, 2), (6, 2, 0, 0, 2), (6, 2, 1, 1, 2), (4, 2, 0, 1, 1),
-          (8, 2, 0, 1, 2))
 STAMP_FLAGS = ("-DRA_FWD_STAMPS",)
 STAGES = ("k | v products", "first barrier", "q products", "flash steps",
           "attn0 pass", "out product and stores", "second barrier")
@@ -43,79 +35,77 @@ REPS = 50
 TOL_REL = 1e-5
 
 
-def flags(warps, blocks, split, flush, kv_flush):
-    if (warps, blocks, split, flush, kv_flush) == SPLITS[0]:
-        return ()
-    return (f"-DRA_FWD_WARPS={warps}", f"-DRA_FWD_MIN_BLOCKS={blocks}",
-            f"-DRA_FWD_SPLIT={split}", f"-DRA_FWD_FLUSH={flush}",
-            f"-DRA_FWD_KV_FLUSH={kv_flush}")
-
-
 def operands(r, s, seed, d=64):
-    """x ~ N(0, 1) as after a LayerNorm, weights as a Linear's init."""
+    """x ~ N(0, 1) as after a LayerNorm, weights as a Linear's init and
+    passed as the module passes them (``[out, in]`` transposed)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = lambda *shape: (torch.rand(*shape, device="cuda", generator=g) * 2
                         - 1) / d ** 0.5
-    return (torch.randn(r, s, d, device="cuda", generator=g), u(d, 3 * d),
-            u(d, d), u(d))
+    return (torch.randn(r, s, d, device="cuda", generator=g),
+            u(3 * d, d).t(), u(d, d).t(), u(d))
 
 
-def time_ms(lib, ops, reps=REPS):
-    ra.launch_fwd(lib, *ops)
+def time_ms(fn, reps=REPS):
+    fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        ra.launch_fwd(lib, *ops)
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
 def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_ray_attention measures the card: no CUDA "
+                         "device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    with concurrent.futures.ThreadPoolExecutor(len(SPLITS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda f: build.build("ray_attention", flags=f),
-                      [flags(*sp) for sp in SPLITS] + [STAMP_FLAGS]))
-    libs = {sp: ra._lib(flags(*sp)) for sp in SPLITS}
+                      [(), STAMP_FLAGS]))
+    lib = ra.build()
     r, s = SHAPES[0]
     ops = operands(r, s, seed=0)
+    res = ra.fwd_kernel_resources(s)
     ref_out, ref_a0 = ra.ray_attention_plain(*ops)
     truth = ra.ray_attention_plain(*(t.double() for t in ops))[0]
     scale64 = max(1.0, float(truth.abs().max()))
     plain64 = float((ref_out.double() - truth).abs().max()) / scale64
-    for sp, lib in libs.items():
-        res = ra.fwd_kernel_resources(s, lib=lib)
-        out, a0 = ra.launch_fwd(lib, *ops)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-                for a, b in ((out, ref_out), (a0, ref_a0))]
-        err64 = float((out.double() - truth).abs().max()) / scale64
-        print(f"split {sp[0]} warps x {sp[1]} blocks/SM asked, split mode "
-              f"{sp[2]}, flush {sp[3]} (k | v every {sp[4]}): "
-              f"{res['registers']} registers, {res['spill_bytes']} bytes "
-              f"spilled per thread, {res['threads']} threads, "
-              f"{res['smem_bytes']} B shared memory, {res['blocks']} blocks "
-              f"resident; f32 [R={r} S={s}] error out {errs[0]:.3g}, attn0 "
-              f"{errs[1]:.3g} of scale (tol {TOL_REL:g}); out against "
-              f"float64 {err64:.3g} of scale (plain f32 {plain64:.3g}); "
-              f"{card}", flush=True)
-        if not max(errs) <= TOL_REL:
-            raise AssertionError(f"split {sp} disagrees with the plain "
-                                 f"version: {errs}")
+    out, a0 = ra.launch_fwd(lib, *ops)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for a, b in ((out, ref_out), (a0, ref_a0))]
+    err64 = float((out.double() - truth).abs().max()) / scale64
+    print(f"forward kernel: {res['registers']} registers, "
+          f"{res['spill_bytes']} bytes spilled per thread, {res['threads']} "
+          f"threads, {res['smem_bytes']} B shared memory, {res['blocks']} "
+          f"blocks resident; f32 [R={r} S={s}] error out {errs[0]:.3g}, "
+          f"attn0 {errs[1]:.3g} of scale (tol {TOL_REL:g}); out against "
+          f"float64 {err64:.3g} of scale (plain f32 {plain64:.3g}); {card}",
+          flush=True)
+    if not max(errs) <= TOL_REL:
+        raise AssertionError(f"the forward disagrees with the plain version: "
+                             f"{errs}")
     for r, s in SHAPES:
         ops = operands(r, s, seed=r)
-        order = (list(libs) + list(reversed(libs))) * 2
-        times = {sp: [] for sp in libs}
-        for sp in order:
-            times[sp].append(time_ms(libs[sp], ops))
-        print(f"f32 [R={r} S={s}] ms per launch, in turns: " + "; ".join(
-            "{}x{} s{} f{}/{}: ".format(*sp)
-            + " / ".join(f"{t:.4f}" for t in times[sp])
-            for sp in libs) + f"; {card}", flush=True)
-    stage_cycles(ra._lib(STAMP_FLAGS), card)
+        wpack = ra.pack_weights(lib, ops[1], ops[2], torch.float32)
+        kept = lambda: ra.launch_fwd(lib, *ops, wpack=wpack)
+        packed = lambda: ra.launch_fwd(lib, *ops)
+        turns = [(name, time_ms(fn)) for name, fn in (
+            ("kept", kept), ("packed", packed), ("packed", packed),
+            ("kept", kept))]
+        pack = time_ms(lambda: ra.pack_weights(lib, ops[1], ops[2],
+                                               torch.float32))
+        print(f"f32 [R={r} S={s}] ms per launch in turns, weights packed "
+              "once (kept) or at every launch (packed): " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in turns)
+              + f"; the pack alone {pack:.4f} ms; {card}", flush=True)
+    stage_cycles(ra.bind(build.load_library("ray_attention", STAMP_FLAGS)),
+                 card)
 
 
 def stage_cycles(lib, card):

@@ -708,9 +708,11 @@ def test_ray_attention_kernel_raises_on_unsupported_shape():
     x, wqkv, wo, bo, _, _ = _ra_case(2, 8, device="cuda", d=32)
     with pytest.raises(ValueError, match="kernel takes"):
         ra.ray_attention_fwd(x, wqkv, wo, bo)
+    torch.cuda.synchronize()  # nothing ran on the other width's weights
     x, wqkv, wo, bo, _, _ = _ra_case(2, 400, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         ra.ray_attention_fwd(x, wqkv, wo, bo)
+    torch.cuda.synchronize()
 
 
 def _tf32_trunc(x):
@@ -976,6 +978,99 @@ def test_ray_attention_weights_packed_on_the_card_as_pack_b_tf32(dtype):
     torch.cuda.synchronize()
     want = torch.cat([va.pack_b_tf32(w.to(dtype).float()) for w in (wqkv, wo)])
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ray_attention_module_keeps_wqkv_while_weights_unchanged():
+    """``RayAttention`` hands the kernel the same ``[D, 3D]`` tensor while
+    its weights keep their values and take no gradient (so the kernel's
+    packed copy is reused), a new one after an in-place write, a fresh
+    differentiable one where the weights take gradients, and never an
+    inference tensor; the fused route follows the written weights."""
+    from nerfool_tpu_torch.models.gnt import RayAttention
+
+    torch.manual_seed(0)
+    mod = RayAttention(64)
+    x = torch.randn(3, 10, 64)
+
+    def cat():
+        return torch.cat([mod.q_fc.weight, mod.k_fc.weight,
+                          mod.v_fc.weight]).t()
+
+    with torch.no_grad():
+        kept = mod._wqkv()
+        assert mod._wqkv() is kept and torch.equal(kept, cat())
+        mod.k_fc.weight.mul_(2.0)
+        new = mod._wqkv()
+        assert new is not kept and torch.equal(new, cat())
+        out_f, attn0 = mod(x, fused=True)
+        out_u, attn = mod(x)
+    torch.testing.assert_close(out_f, out_u, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(attn0, attn.mean(1)[:, 0], atol=1e-6,
+                               rtol=1e-5)
+    fresh = mod._wqkv()
+    assert fresh.grad_fn is not None and fresh is not mod._wqkv()
+    mod.requires_grad_(False)
+    with torch.no_grad():
+        mod.v_fc.weight.add_(0.5)
+    with torch.inference_mode():
+        inf = mod._wqkv()
+    assert not inf.is_inference() and torch.equal(inf, cat())
+    assert mod._wqkv() is inf
+
+
+def test_ray_attention_packs_module_weights_once_per_value(monkeypatch):
+    """The forward's pack cache, keyed on the tensors' storage and version
+    counter, with the pack itself counted in place of the card's: the
+    module's weights as it passes them (under no_grad and inference mode)
+    are packed once, again after an in-place write, and once per dtype."""
+    from nerfool_tpu_torch.models.gnt import RayAttention
+
+    packs = []
+    monkeypatch.setattr(ra, "pack_weights",
+                        lambda lib, wqkv, wo, dtype: packs.append(
+                            (wqkv.clone(), dtype)) or object())
+    monkeypatch.setattr(ra, "_lib", lambda: None)
+    monkeypatch.setattr(ra, "_PACKED", type(ra._PACKED)())
+    mod = RayAttention(64)
+
+    def packed(dtype=torch.float32):
+        return ra._packed(mod._wqkv(), mod.out_fc.weight.t(), dtype)
+
+    with torch.no_grad():
+        first = packed()
+    with torch.inference_mode():
+        assert packed() is first
+    assert packed(torch.bfloat16) is not first and len(packs) == 2
+    with torch.no_grad():
+        mod.q_fc.weight.add_(1.0)
+        again = packed()
+    assert again is not first and len(packs) == 3
+    assert torch.equal(packs[-1][0][:, :64], mod.q_fc.weight.t())
+    with torch.no_grad():
+        mod.out_fc.weight.mul_(2.0)
+        assert packed() is not again and len(packs) == 4
+
+
+@pytest.mark.cuda
+def test_ray_attention_weights_packed_once_per_value():
+    """The forward packs the weights once for each value: the same blob for
+    the same tensors, a new one after an in-place write, after which the
+    kernel still matches the plain version (1e-5 of scale)."""
+    _require_cuda()
+    x, wqkv, wo, bo, _, _ = _ra_case(4, 33, device="cuda")
+    first = ra._packed(wqkv, wo, torch.float32)
+    assert ra._packed(wqkv, wo, torch.float32) is first
+    assert ra._packed(wqkv, wo, torch.bfloat16) is not first
+    wqkv.mul_(-1.5)
+    again = ra._packed(wqkv, wo, torch.float32)
+    assert again is not first
+    want = torch.cat([va.pack_b_tf32(w) for w in (wqkv, wo)])
+    assert torch.equal(again.view(torch.int32), want.view(torch.int32))
+    out, attn0 = ra.ray_attention_fwd(x, wqkv, wo, bo)
+    ref = ra.ray_attention_plain(x, wqkv, wo, bo)
+    for got, r_ in zip((out, attn0), ref):
+        assert float((got - r_).abs().max()) <= 1e-5 * max(
+            1.0, float(r_.abs().max()))
 
 
 @pytest.mark.cuda
