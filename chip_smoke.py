@@ -684,6 +684,33 @@ def ra_fwd_bound(r, s, dtype, d=64, n_heads=4):
                                                              "operations")
 
 
+def ra_bwd_bound(r, s, dtype, want_dw, d=64, n_heads=4):
+    """K3's backward at [r, s, d] at the rate each part of its arithmetic
+    can run at: its products on the tensor cores (f32: three TF32 products
+    each at the TF32 rate; bf16: one at the bf16 rate), the projections q |
+    k | v = x Wqkv and go = gout Wo^T, then the scores, p v, dp, dq, dk, dv
+    and dx = gqkv Wqkv^T once each, and with ``want_dw`` x^T gqkv and
+    concat^T gout; one softmax (max, subtract, exponent and sum) and ds =
+    p (dp - delta) / sqrt(hd) (subtract, two multiplies) per score and
+    head, at the f32 rate (what the function needs: the kernel's recomputed
+    scores are its own cost); the two times added. Or x, gout and gattn0
+    in, dx out, the weights (and their gradients) once at the memory rate,
+    whichever is larger."""
+    size = 4 if dtype == "f32" else 2
+    mma = r * s * (14 * d * d + 12 * s * d + (8 * d * d if want_dw else 0))
+    soft = r * n_heads * s * s * (4 + 3)
+    if dtype == "f32":
+        ops_ms = 3 * mma / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        ops_ms = mma / PEAK_FLOPS["bf16"] * 1e3
+    ops_ms += soft / PEAK_FLOPS["f32"] * 1e3
+    n_bytes = (size * (3 * r * s * d + r * s)
+               + 4 * (d * 3 * d + d * d) * (2 if want_dw else 1))
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (by_bytes, "bytes") if by_bytes >= ops_ms else (ops_ms,
+                                                             "operations")
+
+
 def ra_operands(r, s, dtype, seed, d=64):
     """K3 operands on the card: x ~ N(0, 1) as after a LayerNorm, weights
     ~ U(-1/sqrt(d), 1/sqrt(d)) as a Linear's init, cotangents ~ N(0, 1)."""
@@ -751,18 +778,25 @@ def check_ray_attention(card, render_rays):
                     for n, a, b in zip(RA_NAMES, got, ref)}
             tols = {n: TOL_RA_F32_REL * max(1.0, float(b.abs().max()))
                     for n, b in zip(RA_NAMES, ref)}
+            # the backward alone without weight gradients, the attacks'
+            # route: dx against the plain version
+            ga = ops[5] if both else torch.zeros_like(ops[0][..., 0])
+            dx = ra.ray_attention_bwd(*ops[:3], ops[4], ga, want_dw=False)[0]
+            torch.cuda.synchronize()
+            errs["dx_no_dw"] = float((dx - ref[2]).abs().max())
+            tols["dx_no_dw"] = tols["dx"]
             rows.append(dict(shape=label, dtype="f32", rays=r, samples=s,
                              cotangent="out+attn0" if both else "out",
                              errs=errs, tols=tols))
             log("K3", f"f32 [R={r} S={s}] cotangent "
                 f"{rows[-1]['cotangent']}: max abs err " + ", ".join(
                     f"{n} {errs[n]:.3g} (tol {tols[n]:.3g})"
-                    for n in RA_NAMES) + f"; {card}")
-            if not (all(errs[n] <= tols[n] for n in RA_NAMES) and all(
-                    bool(torch.isfinite(t).all()) for t in got)):
+                    for n in errs) + f"; {card}")
+            if not (all(errs[n] <= tols[n] for n in errs) and all(
+                    bool(torch.isfinite(t).all()) for t in (*got, dx))):
                 raise AssertionError(f"ray_attention f32 disagrees with its "
                                      f"plain versions: {rows[-1]}")
-            del got, ref, ops
+            del got, ref, ops, dx
 
     # the forward alone at the shapes the attacked f32 render launches it at
     # (no autograd there): far more rays than blocks of the persistent grid
@@ -860,13 +894,21 @@ def check_ray_attention(card, render_rays):
 
         t["module_fwd_bwd_ms"] = time_ms(lambda: module_step(False), 5)
         t["fused_fwd_bwd_ms"] = time_ms(lambda: module_step(True), 5)
-        (fone, _), (bb, bby) = ra_bounds(r, s, dt)
+        (fone, _), (bone, _) = ra_bounds(r, s, dt)
         fb, fby = ra_fwd_bound(r, s, dt)
+        bb, bby = ra_bwd_bound(r, s, dt, want_dw=True)
+        bn, bny = ra_bwd_bound(r, s, dt, want_dw=False)
         t.update(fwd_bound_ms=fb, fwd_bound_by=fby,
                  fwd_bound_one_rate_ms=fone, bwd_bound_ms=bb, bwd_bound_by=bby,
-                 fwd_resources=ra.fwd_kernel_resources(s, dtype))
+                 bwd_no_dw_bound_ms=bn, bwd_no_dw_bound_by=bny,
+                 bwd_bound_one_rate_ms=bone,
+                 fwd_resources=ra.kernel_resources(s, dtype),
+                 bwd_resources=ra.kernel_resources(s, dtype, backward=True),
+                 bwd_dw_resources=ra.kernel_resources(
+                     s, dtype, backward=True, want_dw=True))
         times[dt] = t
-        res = t["fwd_resources"]
+        res, bres = t["fwd_resources"], t["bwd_resources"]
+        wres = t["bwd_dw_resources"]
         log("K3", f"{dt} [R={r} S={s}] forward kernel {t['fwd_ms']:.4f} ms "
             f"({t['fwd_repack_ms']:.4f} packing the weights at every launch;"
             f" plain {t['plain_fwd_ms']:.3f}, bound {fb:.4f} by {fby}, every "
@@ -874,9 +916,18 @@ def check_ray_attention(card, render_rays):
             f"registers x {res['threads']} threads, {res['spill_bytes']} "
             f"bytes spilled per thread, {res['smem_bytes']} B shared memory, "
             f"{res['blocks']} blocks resident); "
-            f"backward kernel {t['bwd_ms']:.3f} ms, {t['bwd_no_dw_ms']:.3f} "
-            f"without weight gradients (plain {t['plain_bwd_ms']:.3f}, bound "
-            f"{bb:.3f} by {bby}); forward+backward to x: fused Function "
+            f"backward kernel without weight gradients "
+            f"{t['bwd_no_dw_ms']:.4f} ms (bound {bn:.4f} by {bny}; "
+            f"{bres['registers']} registers x {bres['threads']} threads, "
+            f"{bres['spill_bytes']} bytes spilled per thread, "
+            f"{bres['smem_bytes']} B shared memory, {bres['blocks']} blocks "
+            f"resident), with them {t['bwd_ms']:.4f} ms (bound {bb:.4f} by "
+            f"{bby}; {wres['registers']} registers, {wres['spill_bytes']} "
+            f"bytes spilled, {wres['smem_bytes']} B shared memory, "
+            f"{wres['blocks']} blocks); plain {t['plain_bwd_ms']:.3f}, every "
+            f"operation at the {dt} peak {bone:.4f}; forward+backward to x: "
+            f"fused "
+            f"Function "
             f"{t['fused_fwd_bwd_ms']:.3f} ms, unfused module with autograd "
             f"{t['module_fwd_bwd_ms']:.3f} ms; {card}")
         del x, gout, gattn0
@@ -1933,10 +1984,14 @@ def main():
         "replaces": "nerfool_tpu/ops/ra_kernel.py:198",
         "launches": sum(k3_bwd_paths.values()),
         "launches_by_path": k3_bwd_paths,
-        "max_abs_err": max(ra_errs[n] for n in ("dx", "dwqkv", "dwo", "dbo")),
-        "ms": ra_f32["bwd_ms"], "plain_ms": ra_f32["plain_bwd_ms"],
-        "bound_ms": ra_f32["bwd_bound_ms"],
-        "bound_by": ra_f32["bwd_bound_by"], "library_ms": None}, {
+        "max_abs_err": max(ra_errs[n] for n in ("dx", "dx_no_dw", "dwqkv",
+                                               "dwo", "dbo")),
+        "ms": ra_f32["bwd_no_dw_ms"], "plain_ms": ra_f32["plain_bwd_ms"],
+        "bound_ms": ra_f32["bwd_no_dw_bound_ms"],
+        "bound_by": ra_f32["bwd_no_dw_bound_by"],
+        "bound_fma_ms": ra_f32["bwd_bound_one_rate_ms"],
+        "dw_ms": ra_f32["bwd_ms"], "dw_bound_ms": ra_f32["bwd_bound_ms"],
+        "resources": ra_f32["bwd_resources"], "library_ms": None}, {
         "name": "view_attention", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/view_attention.cu",
         "replaces": "nerfool_tpu/ops/vt_kernel.py:126",

@@ -82,33 +82,64 @@
 // and the rescale), and the products fed by the weights' L2 reads take ~2x
 // the clocks per mma of the flash steps.
 //
-// Design of the backward: one block per ray, a persistent grid; x [S, D]
-// and the per-head buffers in shared memory in f32 (S * 1 KB). A [S, S]
-// probability matrix of one head (147 KB) does not fit, so it works head by
-// head in the flash form with block-wide 4x4-register-tiled FMA products.
-// Per head it recomputes q_h | k_h | v_h [S, 48] and go_h = gout @ Wo_h^T
-// [S, 16]; pass 1 (a thread per query row) redoes the online softmax and
-// keeps the row's max m_i, 1 / sum l_i, o_i, and delta_i = sum_j p_ij dp_ij;
-// pass 2 (a thread per query row) sums dq_i = sum_j ds_ij k_j; pass 3 (a
-// thread per key) sums dk_j = sum_i ds_ij q_i and dv_j = sum_i p_ij go_i,
-// with dp_ij = go_i . v_j and ds_ij = p_ij (dp_ij - delta_i) / sqrt(HD). The
-// attn0 cotangent adds gattn0 / NH to dp on query row 0 only. The head's
-// dq | dk | dv go to a per-block f32 scratch in device memory (allocated by
-// the wrapper, 147 KB per block, L2 resident); after the last head the
-// scratch is read back over the dead per-head buffers and dx = gqkv @
-// Wqkv^T and dWqkv += x^T gqkv run as two products. dWo += o_h^T gout runs
-// per head. The weight gradients accumulate in the block's own [D, 3D] and
-// [D, D] partials (zeroed by the wrapper), every element owned by one
-// thread, so the sum over the partials outside is deterministic; there are
-// no atomics. Its minimum is about 2.5x the forward's; the recompute in
-// three passes makes it about 4x in the attention part, all on the CUDA
-// cores in f32 FMA.
-//
+// Design of the backward: the forward's flash form again, on the tensor
+// cores with the same building blocks (every product on mma.sync.m16n8k8
+// as three TF32 products, each k step's products added in f32: dq, dk and
+// dv sum over S = 192 keys or queries, the chain length at which the
+// truncating tensor-core additions failed the attack gate in the forward).
+// One block of 12 warps per ray on a persistent grid, one block per SM;
+// a warp owns a 16-row tile (at S = 192 each warp one), as queries and as
+// keys. Per head h, in three phases split by block barriers:
+//  - A: q_h | k_h | v_h = x Wqkv_h and go_h = gout Wo_h^T of the warp's
+//    rows into shared memory, [Sp][24] f32 each (a row stride of 24 floats
+//    keeps the 8-byte fragment loads along a row conflict-free; the 4-byte
+//    loads down a column conflict 2-way, and a swizzle that removed that
+//    measured no faster on an H100: 0.975-0.979 ms against 0.972-0.988 at
+//    R = 800), rows past S stored as zeros. The weights are the forward's B fragments plus those
+//    of Wo^T and Wqkv^T, packed on the card once per value.
+//  - B: per query tile, the forward's flash step over 32-key steps (scores
+//    in log2 units, keys past S at -1e9, online max and sum, o_h = p v_h),
+//    then delta_i = go_i . o_i, plus sum_j p_0j gattn0_j / NH on row 0
+//    (an exp-weighted sum carried beside the row sum). The row's max, 1 /
+//    sum and delta go to shared memory; rows past S get 0, 0, 0, which with
+//    their zero q and go rows makes every p and ds of theirs exactly 0.
+//  - C: per tile, as queries: p = ex2(s - m) / l, dp = go v^T (+ gattn0 /
+//    NH on query row 0), ds = p (dp - delta) / sqrt(HD), dq = ds k; as keys,
+//    the transposed scores k q^T, p^T and dp^T = v go^T from the queries'
+//    statistics, dk = ds^T q, dv = p^T go. The C fragments of each product
+//    are the A fragments of the next (the permuted k index of the
+//    forward). The tile's [dq | dk | dv] [16, 48] then multiplies Wqkv_h^T
+//    in registers and is added into the tile's rows of a [Sp][72] f32 dx
+//    accumulator in shared memory; after the fourth head the rows below S
+//    are written out. Each warp owns its rows, so no atomics; no device
+//    scratch.
+// 132,096 B of shared memory at S = 192 (688 B a sample), one block per SM
+// of 384 threads. With the weight gradients (a second instantiation, DW;
+// the attack freezes the weights, so its 160 launches take the route
+// without them) phase B also keeps o_h [Sp][20] and phase C dq | dk | dv
+// [Sp][52] in shared memory (976 B a sample, 187,392 B at S = 192, S <=
+// 224), and after phase C's barrier a phase D adds head h's columns of
+// dWqkv = x^T [dq | dk | dv] and its rows of dWo = o_h^T gout, on the
+// tensor cores as the other products, into the block's partial sums in
+// device memory ([blocks][D * 3D + D * D] f32, each warp its own tiles);
+// the wrapper sums the partials over the blocks in one ordered sum.
+// What bounds the backward: 39.3 MFLOP per ray without weight gradients
+// (the four projections 6.3; the scores, p v, dp, dq, dk, dv and dx 4.7
+// each; 45.6 with the weight gradients) against ~0.1 MB of compulsory
+// traffic, so operations, as for the forward. This design does 53.5 MFLOP
+// per ray (the scores three times, dp twice), as three TF32 products, in
+// ~0.98 ms at R = 800 on an H100 (22% of that bound). Of its warps' clocks
+// (a build with -DRA_BWD_STAMPS) dk and dv take ~31%, dq ~23%, the flash
+// step ~19%, the projections ~16%, the dx product ~10%, the barriers ~1%;
+// what limits it is mma.sync's rate: the same kernel with one TF32 product
+// in place of three takes ~0.55 ms, without the exponentials of the keys'
+// pass the same time. At R = 800 the grid's last round holds 8 rays
+// (6.06 a block).
+
 // x, gout, gattn0, out, attn0 and dx are float32 or bfloat16; all arithmetic
-// is f32 (the forward's products as split TF32, loading bf16 as f32 and
-// rounding its outputs). The forward's Wqkv and Wo arrive packed as TF32 B
-// fragments (pack_b_tf32), bo as f32; the backward's weights as f32
-// (bf16-valued on the bf16 route).
+// is f32 (the products as split TF32, loading bf16 as f32 and rounding the
+// outputs). Wqkv, Wo, Wo^T and Wqkv^T arrive packed as TF32 B fragments
+// (pack_b_tf32, rounded to bf16 first on the bf16 route), bo as f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,8 +152,7 @@ constexpr int D = 64;        // netwidth
 constexpr int NH = 4;        // heads
 constexpr int HD = D / NH;   // head width
 constexpr int D3 = 3 * D;    // q | k | v
-constexpr int H3 = 3 * HD;   // q_h | k_h | v_h
-constexpr int BWD_THREADS = 256;
+constexpr float QSCALE = 0.25f * 1.4426950408889634f;  // log2(e) / sqrt(HD)
 
 constexpr int FWD_WARPS = 6;
 constexpr int FWD_THREADS = 32 * FWD_WARPS;
@@ -135,6 +165,28 @@ constexpr int LDV = D + 4;      // V row stride
 constexpr int NT = D / 8;       // n-tiles of a D-wide product
 constexpr int QKV_NT = D3 / 8;  // n-tiles of packed Wqkv
 
+constexpr int BWD_WARPS = 12;
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int LDH = HD + 8;  // row stride of the backward's per-head buffers
+constexpr int LDX = D + 8;   // row stride of its dx accumulator
+// with the weight gradients, the row strides of a head's o_h [Sp][HD] and
+// dq | dk | dv [Sp][3 HD] (8 t + g mod 32 over a fragment: conflict-free)
+constexpr int LDO = HD + 4;
+constexpr int LDG = 3 * HD + 4;
+// the weight gradients' partial sums of one block, f32: dWqkv [D][3D], then
+// dWo [D][D]
+constexpr int DWP_FLOATS = D * D3 + D * D;
+static_assert(BWD_WARPS == 12 && NT == 8, "phase D: 12 dWqkv and 8 dWo units");
+
+// the packed weights (pack_b_tf32's layout, ra_pack_kernel), in floats:
+// Wqkv [D][3D], Wo [D][D] (the forward's), then Wo^T and Wqkv^T [3D][D]
+// (the backward's go = gout Wo^T and dx = gqkv Wqkv^T)
+constexpr int PK_WO = 2 * D * D3;
+constexpr int PK_WOT = PK_WO + 2 * D * D;
+constexpr int PK_WQKVT = PK_WOT + 2 * D * D;
+constexpr int PK_FLOATS = PK_WQKVT + 2 * D3 * D;
+static_assert(PK_FLOATS == 4 * D * 4 * D, "ops/ray_attention.py sizes wpack");
+
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -144,100 +196,7 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Block-wide product: epi(m, n, sum_k A[m * lda + k] * W[k * ldw + n]) for
-// m < M, n < N. A is f32 in shared memory with 16-byte aligned rows
-// (lda % 4 == 0); W is f32 in device memory with 16-byte aligned rows
-// (ldw % 4 == 0); K % 4 == 0, N % 4 == 0. Each thread computes 4x4 output
-// tiles; every (m, n) goes to one thread.
-template <typename Epi>
-__device__ __forceinline__ void block_mm(const float* A, int lda, int M,
-                                         const float* __restrict__ W, int ldw,
-                                         int K, int N, Epi epi) {
-  const int ntn = N >> 2;
-  const int tiles = ((M + 3) >> 2) * ntn;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const int n0 = (t % ntn) << 2;
-    const int m0 = (t / ntn) << 2;
-    const float* a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A + min(m0 + i, M - 1) * lda;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float4 w[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        w[kk] = __ldg(reinterpret_cast<const float4*>(W + (k + kk) * ldw + n0));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 av = *reinterpret_cast<const float4*>(a[i] + k);
-        acc[i][0] = fmaf(av.x, w[0].x, fmaf(av.y, w[1].x,
-                    fmaf(av.z, w[2].x, fmaf(av.w, w[3].x, acc[i][0]))));
-        acc[i][1] = fmaf(av.x, w[0].y, fmaf(av.y, w[1].y,
-                    fmaf(av.z, w[2].y, fmaf(av.w, w[3].y, acc[i][1]))));
-        acc[i][2] = fmaf(av.x, w[0].z, fmaf(av.y, w[1].z,
-                    fmaf(av.z, w[2].z, fmaf(av.w, w[3].z, acc[i][2]))));
-        acc[i][3] = fmaf(av.x, w[0].w, fmaf(av.y, w[1].w,
-                    fmaf(av.z, w[2].w, fmaf(av.w, w[3].w, acc[i][3]))));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (m0 + i < M) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) epi(m0 + i, n0 + j, acc[i][j]);
-      }
-    }
-  }
-}
-
-// Block-wide transposed product: epi(m, n, sum_k A[k * lda + m] *
-// B[k * ldb + n]) for m < M, n < N, k < K. A and B are f32 in shared memory
-// with 16-byte aligned rows; M % 4 == 0, N % 4 == 0. 4x4 tiles as above.
-template <typename Epi>
-__device__ __forceinline__ void block_mm_tn(const float* A, int lda, int M,
-                                            const float* B, int ldb, int N,
-                                            int K, Epi epi) {
-  const int ntn = N >> 2;
-  const int tiles = (M >> 2) * ntn;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
-    const int n0 = (t % ntn) << 2;
-    const int m0 = (t / ntn) << 2;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(A + k * lda + m0);
-      const float4 b = *reinterpret_cast<const float4*>(B + k * ldb + n0);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) epi(m0 + i, n0 + j, acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ float dot_hd(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD; ++c) acc = fmaf(a[c], b[c], acc);
-  return acc;
-}
-
-// ---- forward helpers: split TF32 on mma.sync.m16n8k8 ----
+// ---- split TF32 on mma.sync.m16n8k8 ----
 
 // x = hi + lo: hi is x with its 13 low mantissa bits cleared (a TF32
 // value), lo = x - hi is exact in f32 and read truncated to TF32 by the
@@ -378,25 +337,27 @@ __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
-// Packs wqkv [D][3D] and wo [D][D] (f32, in x out) as the forward's B
-// fragments, in ops/view_attention.py pack_b_tf32's layout: wp [D/8][3D/8]
-// [32][4] then [D/8][D/8][32][4], lane 4g + t of fragment (kt, nt) holding
-// (hi, hi, lo, lo) of rows 8 kt + 2t and 8 kt + 2t + 1 of column 8 nt + g.
-// One thread per lane and fragment.
+// Packs the weights (f32, in x out) as B fragments in ops/view_attention.py
+// pack_b_tf32's layout: Wqkv [D][3D], Wo [D][D], Wo^T [D][D] and Wqkv^T
+// [3D][D], each [K/8][N/8][32][4] for its [K][N] matrix m, lane 4g + t of
+// fragment (kt, nt) holding (hi, hi, lo, lo) of m(8 kt + 2t, 8 nt + g) and
+// m(8 kt + 2t + 1, 8 nt + g). One thread per lane and fragment.
 __global__ void ra_pack_kernel(const float* __restrict__ wqkv,
                                const float* __restrict__ wo,
                                float4* __restrict__ wp) {
-  constexpr int NQ = (D / 8) * QKV_NT * 32;
+  constexpr int F0 = (D / 8) * QKV_NT * 32, F1 = F0 + (D / 8) * NT * 32;
+  constexpr int F2 = F1 + (D / 8) * NT * 32, F3 = F2 + QKV_NT * NT * 32;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NQ + (D / 8) * NT * 32) return;
-  const bool is_o = i >= NQ;
-  const int j = is_o ? i - NQ : i;
-  const int ntot = is_o ? NT : QKV_NT;
+  if (i >= F3) return;
+  const bool tr = i >= F1;  // the transposes: m(k, n) = w[n][k]
+  const float* w = i < F0 || i >= F2 ? wqkv : wo;
+  const int ldw = w == wqkv ? D3 : D;
+  const int j = i - (i < F0 ? 0 : i < F1 ? F0 : i < F2 ? F1 : F2);
+  const int ntot = i < F0 ? QKV_NT : NT;
   const int lane = j & 31, nt = (j >> 5) % ntot, kt = (j >> 5) / ntot;
-  const int g = lane >> 2, t = lane & 3;
-  const float* w =
-      (is_o ? wo : wqkv) + (8 * kt + 2 * t) * 8 * ntot + 8 * nt + g;
-  const float w0 = w[0], w1 = w[8 * ntot];
+  const int k = 8 * kt + 2 * (lane & 3), n = 8 * nt + (lane >> 2);
+  const float w0 = tr ? w[n * ldw + k] : w[k * ldw + n];
+  const float w1 = tr ? w[n * ldw + k + 1] : w[(k + 1) * ldw + n];
   const float h0 = tf32_rna(w0), h1 = tf32_rna(w1);
   wp[i] = make_float4(h0, h1, tf32_rna(w0 - h0), tf32_rna(w1 - h1));
 }
@@ -552,7 +513,6 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
                  __ldg(Wq + ((kt * QKV_NT + 2 * h + n) << 5) + lane));
         }
         // scores in log2 units: q / sqrt(HD) * log2(e)
-        constexpr float QSCALE = 0.25f * 1.4426950408889634f;
         uint32_t qh[2][4], ql[2][4];
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
@@ -692,165 +652,489 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
   }
 }
 
-// Backward. x, gout, dx [R, S, D]; gattn0 [R, S]; wqkv_heads [NH][D][3 * HD]
-// (q_h | k_h | v_h columns of Wqkv per head); wqkv_t [3D][D] = Wqkv^T; wo_t
-// [D][D] = Wo^T; gscratch [gridDim.x][S][3D] f32; dwqkv_p [gridDim.x][D][3D]
-// and dwo_p [gridDim.x][D][D] f32, zeroed by the caller and skipped when
-// want_dw == 0. Shared memory: (S * D + S * 3D) floats.
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS) ra_bwd_kernel(
-    const T* __restrict__ x, const float* __restrict__ wqkv_heads,
-    const float* __restrict__ wqkv_t, const float* __restrict__ wo_t,
-    const T* __restrict__ gout, const T* __restrict__ gattn0,
-    float* __restrict__ gscratch, T* __restrict__ dx,
-    float* __restrict__ dwqkv_p, float* __restrict__ dwo_p, int R, int S,
-    int want_dw) {
+// A build with -DRA_BWD_STAMPS adds, in block 0, each warp's clocks by
+// stage of the backward to ra_bwd_cycles (profile_ray_attention.py reads
+// them): phase A (the projections), its barrier, phase B (the flash step),
+// its barrier, dq, dk and dv, the dx product and stores, the last barrier
+// (with the weight gradients, phase D counts in the first stage).
+#ifdef RA_BWD_STAMPS
+constexpr int BWD_STAGES = 8;
+__device__ unsigned long long ra_bwd_cycles[BWD_STAGES];
+#define BSTAMP_INIT() long long bstamp_ = clock64()
+#define BSTAMP(i)                                                          \
+  do {                                                                     \
+    const long long now_ = clock64();                                      \
+    if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)                        \
+      atomicAdd(&ra_bwd_cycles[i], (unsigned long long)(now_ - bstamp_));  \
+    bstamp_ = now_;                                                        \
+  } while (0)
+#else
+#define BSTAMP_INIT() \
+  do {                \
+  } while (0)
+#define BSTAMP(i) \
+  do {            \
+  } while (0)
+#endif
+
+// ---- backward helpers ----
+
+// the split A fragments of rows (r, r + 8) of a per-head buffer ([Sp][LDH]
+// f32 in shared memory), both k steps, times f
+__device__ __forceinline__ void head_frags(const float* M, int r, int t,
+                                           float f, uint32_t (&ah)[2][4],
+                                           uint32_t (&al)[2][4]) {
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const float2 u = *reinterpret_cast<const float2*>(M + r * LDH + 8 * kt +
+                                                      2 * t);
+    const float2 w = *reinterpret_cast<const float2*>(M + (r + 8) * LDH +
+                                                      8 * kt + 2 * t);
+    const float a[4] = {u.x * f, w.x * f, u.y * f, w.y * f};
+    split4(a, ah[kt], al[kt]);
+  }
+}
+
+// c[nt] = a M_j^T over the 32 rows j0 + 8 nt + g of a per-head buffer:
+// the scores q k^T (M = K), dp = go v^T (M = V) and, transposed, k q^T
+// (M = Q, times f) and v go^T (M = GO); B read as 8-byte pairs of a row
+__device__ __forceinline__ void prod_rows(float (&c)[4][4], const float* M,
+                                          const uint32_t (&ah)[2][4],
+                                          const uint32_t (&al)[2][4], int j0,
+                                          int g, int t, float f) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+    const float* mr = M + (j0 + 8 * nt + g) * LDH + 2 * t;
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      const float2 v = *reinterpret_cast<const float2*>(mr + 8 * kt);
+      mma3(c[nt], ah[kt], al[kt], v.x * f, v.y * f);
+    }
+  }
+}
+
+// acc += a M over a 32-row step: a [16, 32] the C fragments of a product
+// over rows j0.. (as A through c_to_a), M rows j0 + 8 kk + 2t and + 1,
+// channels 8n + g: dq = ds k, dk = ds^T q, dv = p^T go, p v. Even and odd
+// kk in two zeroed accumulators, added to acc in f32
+__device__ __forceinline__ void prod_cols(float (&acc)[2][4],
+                                          const float (&a)[4][4],
+                                          const float* M, int j0, int g,
+                                          int t) {
+  float tk[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tk[i][n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ah[4], al[4];
+    c_to_a(a[kk], 1.f, ah, al);
+    const float* mr = M + (j0 + 8 * kk + 2 * t) * LDH + g;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      mma3(tk[kk & 1][n], ah, al, mr[8 * n], mr[LDH + 8 * n]);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += tk[0][n][e] + tk[1][n][e];
+}
+
+// Backward. x, gout, dx [R, S, D]; gattn0 [R, S]; wpack the packed weights
+// (PK_* offsets); with DW, dwp the blocks' partial sums of the weight
+// gradients [gridDim.x][DWP_FLOATS], zeroed by the caller. Shared memory
+// (bwd_smem_bytes): Q, K, V, GO [Sp][LDH], dx [Sp][LDX], the rows' max, 1 /
+// sum and delta and gattn0 / NH [Sp] each, and with DW o_h [Sp][LDO] and dq
+// | dk | dv [Sp][LDG], f32.
+template <typename T, bool DW>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    ra_bwd_kernel(const T* __restrict__ x, const float* __restrict__ wpack,
+                  const T* __restrict__ gout, const T* __restrict__ gattn0,
+                  T* __restrict__ dx, float* __restrict__ dwp, int R, int S) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;             // [S][D]
-  float* u = xs + S * D;        // [S][3D]: the per-head buffers, then gqkv
-  float* gs = u;                // [S][D]   gout
-  float* hb = gs + S * D;       // [S][3HD] q_h | k_h | v_h
-  float* goh = hb + S * H3;     // [S][HD]  gout @ Wo_h^T
-  float* oh = goh + S * HD;     // [S][HD]  o_h
-  float* mrow = oh + S * HD;    // [S] row max
-  float* lrow = mrow + S;       // [S] 1 / row sum
-  float* drow = lrow + S;       // [S] delta_i
-  float* ga0 = drow + S;        // [S] gattn0 / NH
-  const float scale = 1.f / sqrtf((float)HD);
-  float* gq = gscratch + (size_t)blockIdx.x * S * D3;
-  float* dwq = want_dw ? dwqkv_p + (size_t)blockIdx.x * D * D3 : nullptr;
-  float* dwo = want_dw ? dwo_p + (size_t)blockIdx.x * D * D : nullptr;
+  const int sp = (S + KSTEP - 1) / KSTEP * KSTEP;
+  float* Qs = smem;
+  float* Ks = Qs + sp * LDH;
+  float* Vs = Ks + sp * LDH;
+  float* Gs = Vs + sp * LDH;
+  float* DXs = Gs + sp * LDH;
+  float* Ms = DXs + sp * LDX;
+  float* Ls = Ms + sp;
+  float* Ds = Ls + sp;
+  float* A0s = Ds + sp;
+  float* Os = A0s + sp;        // with DW only
+  float* GQs = Os + sp * LDO;  // with DW only
+  const uint4* Wq = reinterpret_cast<const uint4*>(wpack);
+  const uint4* WoT = reinterpret_cast<const uint4*>(wpack + PK_WOT);
+  const uint4* WqT = reinterpret_cast<const uint4*>(wpack + PK_WQKVT);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = sp / 16;
+  BSTAMP_INIT();
 
   for (int r = blockIdx.x; r < R; r += gridDim.x) {
     const T* xr = x + (size_t)r * S * D;
     const T* gr = gout + (size_t)r * S * D;
-    for (int e = threadIdx.x; e < S * D; e += blockDim.x) {
-      xs[e] = ld(xr + e);
-      gs[e] = ld(gr + e);
-    }
-    for (int j = threadIdx.x; j < S; j += blockDim.x)
-      ga0[j] = ld(gattn0 + (size_t)r * S + j) * (1.f / NH);
-    __syncthreads();
+    for (int j = threadIdx.x; j < sp; j += BWD_THREADS)
+      A0s[j] = j < S ? ld(gattn0 + (size_t)r * S + j) * (1.f / NH) : 0.f;
 
+#pragma unroll 1
     for (int h = 0; h < NH; ++h) {
-      block_mm(xs, D, S, wqkv_heads + h * D * H3, H3, D, H3,
-               [&](int m, int n, float v) { hb[m * H3 + n] = v; });
-      block_mm(gs, D, S, wo_t + h * HD, D, D, HD,
-               [&](int m, int n, float v) { goh[m * HD + n] = v; });
-      __syncthreads();
-
-      // pass 1, a thread per query row: m_i, 1 / l_i, o_i and delta_i =
-      // go_i . o_i (+ sum_j p_0j ga0_j on row 0)
-      for (int qi = threadIdx.x; qi < S; qi += blockDim.x) {
-        float qv[HD], o[HD];
+      // A: q_h | k_h | v_h = x Wqkv_h and go_h = gout Wo_h^T of the warp's
+      // rows; rows past S are read clamped and stored as zeros
+      for (int tile = warp; tile < tiles; tile += BWD_WARPS) {
+        const int ra = 16 * tile + g, rb = ra + 8;
+        const int ca = min(ra, S - 1), cb = min(rb, S - 1);
+        float acc[8][4];  // q, k, v, go: two n-tiles each
 #pragma unroll
-        for (int c = 0; c < HD; ++c) { qv[c] = hb[qi * H3 + c]; o[c] = 0.f; }
-        float mx = -INFINITY, den = 0.f, ex = 0.f;
-        for (int j = 0; j < S; ++j) {
-          const float* kj = hb + j * H3 + HD;
-          const float sv = dot_hd(qv, kj) * scale;
-          const float mn = fmaxf(mx, sv);
-          const float corr = expf(mx - mn);
-          const float pj = expf(sv - mn);
-          den = fmaf(den, corr, pj);
-          ex = fmaf(ex, corr, pj * ga0[j]);
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int c = 0; c < HD; ++c) o[c] = fmaf(o[c], corr, pj * kj[HD + c]);
-          mx = mn;
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+        for (int kt = 0; kt < D / 8; ++kt) {
+          uint32_t ah[4], al[4];
+          x_frag(xr, ca, cb, kt, t, ah, al);
+#pragma unroll
+          for (int n = 0; n < 6; ++n)
+            mma3_acc(acc[n], ah, al,
+                     __ldg(Wq + ((kt * QKV_NT + NT * (n >> 1) + 2 * h +
+                                  (n & 1)) << 5) + lane));
+          x_frag(gr, ca, cb, kt, t, ah, al);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma3_acc(acc[6 + n], ah, al,
+                     __ldg(WoT + ((kt * NT + 2 * h + n) << 5) + lane));
         }
-        const float inv = 1.f / den;
-        float dl = 0.f;
+        const float fa = ra < S ? 1.f : 0.f, fb = rb < S ? 1.f : 0.f;
 #pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          o[c] *= inv;
-          oh[qi * HD + c] = o[c];
-          dl = fmaf(goh[qi * HD + c], o[c], dl);
+        for (int n = 0; n < 8; ++n) {
+          float* buf = n < 2 ? Qs : n < 4 ? Ks : n < 6 ? Vs : Gs;
+          float* d0 = buf + ra * LDH + 8 * (n & 1) + 2 * t;
+          st2(d0, acc[n][0] * fa, acc[n][1] * fa);
+          st2(d0 + 8 * LDH, acc[n][2] * fb, acc[n][3] * fb);
         }
-        if (qi == 0) dl = fmaf(ex, inv, dl);
-        mrow[qi] = mx;
-        lrow[qi] = inv;
-        drow[qi] = dl;
       }
+      BSTAMP(0);
       __syncthreads();
+      BSTAMP(1);
 
-      // dWo[h * HD + a][n] += sum_s o_h[s][a] * gout[s][n]
-      if (want_dw)
-        block_mm_tn(oh, HD, HD, gs, D, D, S, [&](int m, int n, float v) {
-          dwo[(h * HD + m) * D + n] += v;
-        });
-
-      // pass 2, a thread per query row: dq_i = sum_j ds_ij k_j
-      for (int qi = threadIdx.x; qi < S; qi += blockDim.x) {
-        float qv[HD], gv[HD], dq[HD];
+      // B: per query tile, the flash step for the rows' max and sum, o_h
+      // and delta = go . o (+ row 0's attn0 term)
+      for (int tile = warp; tile < tiles; tile += BWD_WARPS) {
+        const int ra = 16 * tile + g, rb = ra + 8;
+        uint32_t qh[2][4], ql[2][4];
+        head_frags(Qs, ra, t, QSCALE, qh, ql);
+        float o[2][4];
 #pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          qv[c] = hb[qi * H3 + c];
-          gv[c] = goh[qi * HD + c];
-          dq[c] = 0.f;
-        }
-        const float mx = mrow[qi], inv = lrow[qi], dl = drow[qi];
-        const float g0 = qi == 0 ? 1.f : 0.f;
-        for (int j = 0; j < S; ++j) {
-          const float* kj = hb + j * H3 + HD;
-          const float p = expf(dot_hd(qv, kj) * scale - mx) * inv;
-          const float dp = fmaf(g0, ga0[j], dot_hd(gv, kj + HD));
-          const float ds = p * (dp - dl) * scale;
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int c = 0; c < HD; ++c) dq[c] = fmaf(ds, kj[c], dq[c]);
-        }
+          for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, e0 = 0.f;
+#pragma unroll 1
+        for (int j0 = 0; j0 < sp; j0 += KSTEP) {
+          float s[4][4];
+          prod_rows(s, Ks, qh, ql, j0, g, t, 1.f);
+          if (j0 + KSTEP > S) {
 #pragma unroll
-        for (int c = 0; c < HD; ++c) gq[qi * D3 + h * HD + c] = dq[c];
-      }
-
-      // pass 3, a thread per key: dk_j = sum_i ds_ij q_i, dv_j = sum_i p_ij
-      // go_i
-      for (int j = threadIdx.x; j < S; j += blockDim.x) {
-        float kv[HD], vv[HD], dk[HD], dv[HD];
+            for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          kv[c] = hb[j * H3 + HD + c];
-          vv[c] = hb[j * H3 + 2 * HD + c];
-          dk[c] = 0.f;
-          dv[c] = 0.f;
-        }
-        const float g0 = ga0[j];
-        for (int i = 0; i < S; ++i) {
-          const float* qi = hb + i * H3;
-          const float* gi = goh + i * HD;
-          const float p = expf(dot_hd(qi, kv) * scale - mrow[i]) * lrow[i];
-          const float dp = dot_hd(gi, vv) + (i == 0 ? g0 : 0.f);
-          const float ds = p * (dp - drow[i]) * scale;
+              for (int e = 0; e < 4; ++e)
+                if (j0 + 8 * nt + 2 * t + (e & 1) >= S) s[nt][e] = -1e9f;
+          }
+          float x0 = s[0][0], x1 = s[0][2];
 #pragma unroll
-          for (int c = 0; c < HD; ++c) {
-            dk[c] = fmaf(ds, qi[c], dk[c]);
-            dv[c] = fmaf(p, gi[c], dv[c]);
+          for (int nt = 0; nt < 4; ++nt) {
+            x0 = fmaxf(x0, fmaxf(s[nt][0], s[nt][1]));
+            x1 = fmaxf(x1, fmaxf(s[nt][2], s[nt][3]));
+          }
+          const float n0 = fmaxf(m0, quad_max(x0));
+          const float n1 = fmaxf(m1, quad_max(x1));
+          const float c0 = ex2(m0 - n0), c1 = ex2(m1 - n1);
+          m0 = n0;
+          m1 = n1;
+          float p0 = 0.f, p1 = 0.f, a0 = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            s[nt][0] = ex2(s[nt][0] - n0);
+            s[nt][1] = ex2(s[nt][1] - n0);
+            s[nt][2] = ex2(s[nt][2] - n1);
+            s[nt][3] = ex2(s[nt][3] - n1);
+            p0 += s[nt][0] + s[nt][1];
+            p1 += s[nt][2] + s[nt][3];
+            const float2 w =
+                *reinterpret_cast<const float2*>(A0s + j0 + 8 * nt + 2 * t);
+            a0 = fmaf(s[nt][0], w.x, fmaf(s[nt][1], w.y, a0));
+          }
+          l0 = fmaf(l0, c0, p0);
+          l1 = fmaf(l1, c1, p1);
+          e0 = fmaf(e0, c0, a0);
+          float pv[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+          prod_cols(pv, s, Vs, j0, g, t);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            o[n][0] = fmaf(o[n][0], c0, pv[n][0]);
+            o[n][1] = fmaf(o[n][1], c0, pv[n][1]);
+            o[n][2] = fmaf(o[n][2], c1, pv[n][2]);
+            o[n][3] = fmaf(o[n][3], c1, pv[n][3]);
           }
         }
+        const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+        float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          gq[j * D3 + D + h * HD + c] = dk[c];
-          gq[j * D3 + 2 * D + h * HD + c] = dv[c];
+        for (int n = 0; n < 2; ++n) {
+          const float2 ga = *reinterpret_cast<const float2*>(
+              Gs + ra * LDH + 8 * n + 2 * t);
+          const float2 gb = *reinterpret_cast<const float2*>(
+              Gs + rb * LDH + 8 * n + 2 * t);
+          o[n][0] *= i0;
+          o[n][1] *= i0;
+          o[n][2] *= i1;
+          o[n][3] *= i1;
+          d0 = fmaf(ga.x, o[n][0], fmaf(ga.y, o[n][1], d0));
+          d1 = fmaf(gb.x, o[n][2], fmaf(gb.y, o[n][3], d1));
+        }
+        d0 = quad_sum(d0);
+        d1 = quad_sum(d1);
+        e0 = quad_sum(e0) * i0;
+        if (ra == 0) d0 += e0;
+        if (t == 0) {
+          Ms[ra] = ra < S ? m0 : 0.f;
+          Ls[ra] = ra < S ? i0 : 0.f;
+          Ds[ra] = ra < S ? d0 : 0.f;
+          Ms[rb] = rb < S ? m1 : 0.f;
+          Ls[rb] = rb < S ? i1 : 0.f;
+          Ds[rb] = rb < S ? d1 : 0.f;
+        }
+        if constexpr (DW) {  // o_h for dWo, rows past S as zeros
+          const float fa = ra < S ? 1.f : 0.f, fb = rb < S ? 1.f : 0.f;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float* d = Os + ra * LDO + 8 * n + 2 * t;
+            st2(d, o[n][0] * fa, o[n][1] * fa);
+            st2(d + 8 * LDO, o[n][2] * fb, o[n][3] * fb);
+          }
         }
       }
+      BSTAMP(2);
       __syncthreads();
-    }
+      BSTAMP(3);
 
-    // gqkv back from the scratch, over the dead per-head buffers
-    for (int e = threadIdx.x; e < S * D3; e += blockDim.x) u[e] = gq[e];
-    __syncthreads();
-    T* dxr = dx + (size_t)r * S * D;
-    block_mm(u, D3, S, wqkv_t, D, D3, D,
-             [&](int m, int n, float v) { st(dxr + m * D + n, v); });
-    if (want_dw)
-      block_mm_tn(xs, D, D, u, D3, D3, S,
-                  [&](int m, int n, float v) { dwq[m * D3 + n] += v; });
-    __syncthreads();
+      // C: per tile, dq as queries, dk and dv as keys, then dx += [dq | dk
+      // | dv] Wqkv_h^T into the tile's rows
+      for (int tile = warp; tile < tiles; tile += BWD_WARPS) {
+        const int ra = 16 * tile + g, rb = ra + 8;
+        float gq[3][2][4];  // dq, dk, dv: two n-tiles each
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) gq[b][n][e] = 0.f;
+        {
+          uint32_t qh[2][4], ql[2][4], gh[2][4], gl[2][4];
+          head_frags(Qs, ra, t, QSCALE, qh, ql);
+          head_frags(Gs, ra, t, 1.f, gh, gl);
+          const float ma = Ms[ra], mb = Ms[rb], ia = Ls[ra], ib = Ls[rb];
+          const float da = Ds[ra], db = Ds[rb];
+#pragma unroll 1
+          for (int j0 = 0; j0 < sp; j0 += KSTEP) {
+            float s[4][4], dp[4][4];
+            prod_rows(s, Ks, qh, ql, j0, g, t, 1.f);
+            prod_rows(dp, Vs, gh, gl, j0, g, t, 1.f);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int j = j0 + 8 * nt + 2 * t;
+              if (ra == 0) {
+                const float2 w = *reinterpret_cast<const float2*>(A0s + j);
+                dp[nt][0] += w.x;
+                dp[nt][1] += w.y;
+              }
+              const bool v0 = j < S, v1 = j + 1 < S;
+              s[nt][0] = v0 ? ex2(s[nt][0] - ma) * ia * (dp[nt][0] - da) *
+                                  0.25f : 0.f;
+              s[nt][1] = v1 ? ex2(s[nt][1] - ma) * ia * (dp[nt][1] - da) *
+                                  0.25f : 0.f;
+              s[nt][2] = v0 ? ex2(s[nt][2] - mb) * ib * (dp[nt][2] - db) *
+                                  0.25f : 0.f;
+              s[nt][3] = v1 ? ex2(s[nt][3] - mb) * ib * (dp[nt][3] - db) *
+                                  0.25f : 0.f;
+            }
+            prod_cols(gq[0], s, Ks, j0, g, t);
+          }
+        }
+        BSTAMP(4);
+        {
+          uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
+          head_frags(Ks, ra, t, 1.f, kh, kl);
+          head_frags(Vs, ra, t, 1.f, vh, vl);
+          // keys past S: p = 0
+          const bool va = ra < S, vb = rb < S;
+#pragma unroll 1
+          for (int i0 = 0; i0 < sp; i0 += KSTEP) {
+            float p[4][4], ds[4][4];
+            prod_rows(p, Qs, kh, kl, i0, g, t, QSCALE);
+            prod_rows(ds, Gs, vh, vl, i0, g, t, 1.f);
+            if (i0 == 0 && t == 0) {
+              ds[0][0] += A0s[ra];
+              ds[0][2] += A0s[rb];
+            }
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int i = i0 + 8 * nt + 2 * t;
+              const float2 m = *reinterpret_cast<const float2*>(Ms + i);
+              const float2 l = *reinterpret_cast<const float2*>(Ls + i);
+              const float2 d = *reinterpret_cast<const float2*>(Ds + i);
+              p[nt][0] = va ? ex2(p[nt][0] - m.x) * l.x : 0.f;
+              p[nt][1] = va ? ex2(p[nt][1] - m.y) * l.y : 0.f;
+              p[nt][2] = vb ? ex2(p[nt][2] - m.x) * l.x : 0.f;
+              p[nt][3] = vb ? ex2(p[nt][3] - m.y) * l.y : 0.f;
+              ds[nt][0] = p[nt][0] * (ds[nt][0] - d.x) * 0.25f;
+              ds[nt][1] = p[nt][1] * (ds[nt][1] - d.y) * 0.25f;
+              ds[nt][2] = p[nt][2] * (ds[nt][2] - d.x) * 0.25f;
+              ds[nt][3] = p[nt][3] * (ds[nt][3] - d.y) * 0.25f;
+            }
+            prod_cols(gq[1], ds, Qs, i0, g, t);
+            prod_cols(gq[2], p, Gs, i0, g, t);
+          }
+        }
+        BSTAMP(5);
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            uint32_t ah[4], al[4];
+            c_to_a(gq[b][n], 1.f, ah, al);
+            const int kt = NT * b + 2 * h + n;  // rows of Wqkv^T
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma3_acc(acc[nt], ah, al, __ldg(WqT + ((kt * NT + nt) << 5) +
+                                              lane));
+          }
+        if constexpr (DW) {  // dq | dk | dv for dWqkv, rows past S as zeros
+          const bool va = ra < S, vb = rb < S;
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              float* d = GQs + ra * LDG + b * HD + 8 * n + 2 * t;
+              st2(d, va ? gq[b][n][0] : 0.f, va ? gq[b][n][1] : 0.f);
+              st2(d + 8 * LDG, vb ? gq[b][n][2] : 0.f,
+                  vb ? gq[b][n][3] : 0.f);
+            }
+        }
+        T* dxr = dx + (size_t)r * S * D;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float* xa = DXs + ra * LDX + 8 * nt + 2 * t;
+          float* xb = xa + 8 * LDX;
+          if (h > 0) {
+            const float2 u = *reinterpret_cast<const float2*>(xa);
+            const float2 w = *reinterpret_cast<const float2*>(xb);
+            acc[nt][0] += u.x;
+            acc[nt][1] += u.y;
+            acc[nt][2] += w.x;
+            acc[nt][3] += w.y;
+          }
+          if (h < NH - 1) {
+            st2(xa, acc[nt][0], acc[nt][1]);
+            st2(xb, acc[nt][2], acc[nt][3]);
+          } else {
+            const int c = 8 * nt + 2 * t;
+            if (ra < S) st2(dxr + ra * D + c, acc[nt][0], acc[nt][1]);
+            if (rb < S) st2(dxr + rb * D + c, acc[nt][2], acc[nt][3]);
+          }
+        }
+        BSTAMP(6);
+      }
+      __syncthreads();
+      BSTAMP(7);
+
+      // D, with the weight gradients: head h's columns of dWqkv += x^T [dq
+      // | dk | dv] and its rows of dWo += o_h^T gout, summed over the ray's
+      // rows (8 a k step, the permuted k index) into the block's partials.
+      // Warp w takes x's channels 16 (w % 4).. and the q, k or v third w /
+      // 4 of dWqkv; warps 0-7 the columns 8 w.. of dWo. Each warp owns its
+      // tiles of the partials, so no atomics. It reads o_h and dq | dk | dv
+      // of every row, written before the barrier above, and the next writes
+      // to them come after the next head's phase A barrier.
+      if constexpr (DW) {
+        float* part = dwp + (size_t)blockIdx.x * DWP_FLOATS;
+        const int ks = (S + 7) / 8;
+        {
+          const int m0 = 16 * (warp & 3), b = warp >> 2;
+          float2* pa[2];  // rows m0 + g and m0 + g + 8 (+ 4 D3 float2s)
+          float2 old[2][2];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            pa[n] = reinterpret_cast<float2*>(
+                part + (m0 + g) * D3 + b * D + h * HD + 8 * n + 2 * t);
+            old[n][0] = pa[n][0];
+            old[n][1] = pa[n][4 * D3];
+          }
+          float acc[2][4] = {};
+#pragma unroll 4
+          for (int kk = 0; kk < ks; ++kk) {
+            const int r0 = 8 * kk + 2 * t;
+            const T* x0 = xr + min(r0, S - 1) * D + m0 + g;
+            const T* x1 = xr + min(r0 + 1, S - 1) * D + m0 + g;
+            const float a[4] = {ld(x0), ld(x0 + 8), ld(x1), ld(x1 + 8)};
+            uint32_t ah[4], al[4];
+            split4(a, ah, al);
+            const float* gp = GQs + r0 * LDG + b * HD + g;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              mma3_acc(acc[n], ah, al, gp[8 * n], gp[LDG + 8 * n]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            pa[n][0] = make_float2(old[n][0].x + acc[n][0],
+                                   old[n][0].y + acc[n][1]);
+            pa[n][4 * D3] = make_float2(old[n][1].x + acc[n][2],
+                                        old[n][1].y + acc[n][3]);
+          }
+        }
+        if (warp < NT) {
+          float2* pa = reinterpret_cast<float2*>(
+              part + D * D3 + (h * HD + g) * D + 8 * warp + 2 * t);
+          const float2 old0 = pa[0], old1 = pa[4 * D];  // rows + 0, + 8
+          float acc[4] = {};
+#pragma unroll 4
+          for (int kk = 0; kk < ks; ++kk) {
+            const int r0 = 8 * kk + 2 * t;
+            const float* o0 = Os + r0 * LDO + g;
+            const float a[4] = {o0[0], o0[8], o0[LDO], o0[LDO + 8]};
+            uint32_t ah[4], al[4];
+            split4(a, ah, al);
+            mma3_acc(acc, ah, al,
+                     ld(gr + min(r0, S - 1) * D + 8 * warp + g),
+                     ld(gr + min(r0 + 1, S - 1) * D + 8 * warp + g));
+          }
+          pa[0] = make_float2(old0.x + acc[0], old0.y + acc[1]);
+          pa[4 * D] = make_float2(old1.x + acc[2], old1.y + acc[3]);
+        }
+      }
+    }
   }
 }
 
-// the backward's dynamic shared memory
-size_t smem_bytes(int S) {
-  return sizeof(float) * (size_t)S * (D + D3);
+// the backward's dynamic shared memory, with the weight gradients or not
+size_t bwd_smem_bytes(int S, bool dw) {
+  const size_t sp = (size_t)(S + KSTEP - 1) / KSTEP * KSTEP;
+  return sizeof(float) * sp * (4 * LDH + LDX + 4 + (dw ? LDO + LDG : 0));
 }
 
 // the forward's: K, V and attn0's row for S rounded up to the key step
@@ -875,24 +1159,33 @@ int launch_fwd(const void* x, const void* wqkv, const void* wo,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* wqkv_heads, const void* wqkv_t,
-               const void* wo_t, const void* gout, const void* gattn0,
-               void* gscratch, void* dx, void* dwqkv_p, void* dwo_p, int R,
-               int S, int blocks, int want_dw, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S);
+template <typename T, bool DW>
+int launch_bwd(const void* x, const void* wpack, const void* gout,
+               const void* gattn0, void* dx, void* dwp, int R, int S,
+               int blocks, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(S, DW);
   cudaError_t err = cudaFuncSetAttribute(
-      ra_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ra_bwd_kernel<T, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ra_bwd_kernel<T><<<blocks, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(wqkv_heads),
-      static_cast<const float*>(wqkv_t), static_cast<const float*>(wo_t),
+  ra_bwd_kernel<T, DW><<<blocks, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(wpack),
       static_cast<const T*>(gout), static_cast<const T*>(gattn0),
-      static_cast<float*>(gscratch), static_cast<T*>(dx),
-      static_cast<float*>(dwqkv_p), static_cast<float*>(dwo_p), R, S,
-      want_dw);
+      static_cast<T*>(dx), static_cast<float*>(dwp), R, S);
   return (int)cudaGetLastError();
+}
+
+// the kernel of a (backward, dtype) pair of the C entries
+template <typename F>
+int with_kernel(int backward, int dtype, F f) {
+  if (backward == 0)
+    return dtype == 0 ? f(ra_fwd_kernel<float>, FWD_THREADS)
+                      : f(ra_fwd_kernel<__nv_bfloat16>, FWD_THREADS);
+  if (backward == 1)
+    return dtype == 0 ? f(ra_bwd_kernel<float, false>, BWD_THREADS)
+                      : f(ra_bwd_kernel<__nv_bfloat16, false>, BWD_THREADS);
+  return dtype == 0 ? f(ra_bwd_kernel<float, true>, BWD_THREADS)
+                    : f(ra_bwd_kernel<__nv_bfloat16, true>, BWD_THREADS);
 }
 
 template <typename K>
@@ -920,39 +1213,39 @@ extern "C" int ray_attention_dims(int* d, int* n_heads) {
   return 0;
 }
 
-// Dynamic shared memory one block needs, in bytes. backward: 0 = forward
-// kernel, 1 = backward kernel.
+// In the three entries below, backward: 0 = forward kernel, 1 = backward
+// kernel, 2 = backward kernel with the weight gradients; dtype: 0 =
+// float32, 1 = bfloat16.
+
+// Dynamic shared memory one block needs, in bytes.
 extern "C" long long ray_attention_smem_bytes(int S, int backward) {
-  return (long long)(backward ? smem_bytes(S) : fwd_smem_bytes(S));
+  return (long long)(backward ? bwd_smem_bytes(S, backward == 2)
+                              : fwd_smem_bytes(S));
 }
 
 // How many blocks fit on the current device at once (SMs x blocks per SM),
-// or 0 when one block does not fit. backward: 0 = forward kernel, 1 =
-// backward kernel. dtype: 0 = float32, 1 = bfloat16.
+// or 0 when one block does not fit.
 extern "C" int ray_attention_max_blocks(int S, int backward, int dtype) {
-  const size_t smem = backward ? smem_bytes(S) : fwd_smem_bytes(S);
-  if (backward)
-    return dtype == 0
-               ? max_blocks(ra_bwd_kernel<float>, BWD_THREADS, smem)
-               : max_blocks(ra_bwd_kernel<__nv_bfloat16>, BWD_THREADS, smem);
-  return dtype == 0
-             ? max_blocks(ra_fwd_kernel<float>, FWD_THREADS, smem)
-             : max_blocks(ra_fwd_kernel<__nv_bfloat16>, FWD_THREADS, smem);
+  const size_t smem = backward ? bwd_smem_bytes(S, backward == 2)
+                               : fwd_smem_bytes(S);
+  return with_kernel(backward, dtype, [&](auto kernel, int threads) {
+    return max_blocks(kernel, threads, smem);
+  });
 }
 
-// What the built forward kernel takes: registers per thread, threads per
-// block, local memory (spills) per thread. dtype: 0 = float32, 1 = bfloat16.
-extern "C" int ray_attention_fwd_resources(int dtype, int* regs, int* threads,
-                                           int* local) {
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      dtype == 0 ? cudaFuncGetAttributes(&attr, ra_fwd_kernel<float>)
-                 : cudaFuncGetAttributes(&attr, ra_fwd_kernel<__nv_bfloat16>);
-  if (err != cudaSuccess) return (int)err;
-  *regs = attr.numRegs;
-  *threads = FWD_THREADS;
-  *local = (int)attr.localSizeBytes;
-  return 0;
+// What a built kernel takes: registers per thread, threads per block,
+// local memory (spills) per thread.
+extern "C" int ray_attention_resources(int backward, int dtype, int* regs,
+                                       int* threads, int* local) {
+  return with_kernel(backward, dtype, [&](auto kernel, int nthreads) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *regs = attr.numRegs;
+    *threads = nthreads;
+    *local = (int)attr.localSizeBytes;
+    return 0;
+  });
 }
 
 #ifdef RA_FWD_STAMPS
@@ -969,11 +1262,25 @@ extern "C" int ray_attention_fwd_stage_cycles(unsigned long long* out,
 }
 #endif
 
-// The forward's weights packed on the card (ra_pack_kernel): wpack holds
-// 2 * D * 4D floats, packed Wqkv then packed Wo.
+#ifdef RA_BWD_STAMPS
+// Reads (reset == 0) or zeroes the backward's clocks by stage of a stamped
+// build.
+extern "C" int ray_attention_bwd_stage_cycles(unsigned long long* out,
+                                              int reset) {
+  if (reset) {
+    const unsigned long long z[BWD_STAGES] = {0};
+    return (int)cudaMemcpyToSymbol(ra_bwd_cycles, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(out, ra_bwd_cycles,
+                                   sizeof(unsigned long long) * BWD_STAGES);
+}
+#endif
+
+// The weights packed on the card (ra_pack_kernel): wpack holds 4D * 4D
+// floats, packed Wqkv, Wo, Wo^T and Wqkv^T.
 extern "C" int ray_attention_pack_weights(const void* wqkv, const void* wo,
                                           void* wpack, void* stream) {
-  constexpr int n = (D / 8) * (QKV_NT + NT) * 32;
+  constexpr int n = PK_FLOATS / 4;  // one thread per lane and fragment
   ra_pack_kernel<<<(n + 255) / 256, 256, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(wqkv), static_cast<const float*>(wo),
@@ -982,9 +1289,10 @@ extern "C" int ray_attention_pack_weights(const void* wqkv, const void* wo,
 }
 
 // Plain C entries for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, out,
-// attn0, gout, gattn0, dx); weights, scratch and weight-gradient partials are
-// float32, the forward's wqkv and wo packed as TF32 B fragments
-// (pack_b_tf32). Each returns the cudaError_t of the launch (0 on success).
+// attn0, gout, gattn0, dx); the weights packed as TF32 B fragments
+// (ray_attention_pack_weights; the forward takes packed Wqkv and Wo, the
+// backward the whole blob), bo and dwp float32. Each returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int ray_attention_fwd(const void* x, const void* wqkv,
                                  const void* wo, const void* bo, void* out,
                                  void* attn0, int R, int S, int blocks,
@@ -999,21 +1307,24 @@ extern "C" int ray_attention_fwd(const void* x, const void* wqkv,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int ray_attention_bwd(const void* x, const void* wqkv_heads,
-                                 const void* wqkv_t, const void* wo_t,
+// dwp: null (no weight gradients), or the blocks' partial sums of dWqkv
+// and dWo, [blocks][D * 3D + D * D] f32, zeroed
+extern "C" int ray_attention_bwd(const void* x, const void* wpack,
                                  const void* gout, const void* gattn0,
-                                 void* gscratch, void* dx, void* dwqkv_p,
-                                 void* dwo_p, int R, int S, int blocks,
-                                 int want_dw, int dtype, void* stream) {
+                                 void* dx, void* dwp, int R, int S,
+                                 int blocks, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R < 1 || S < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_bwd<float>(x, wqkv_heads, wqkv_t, wo_t, gout, gattn0,
-                             gscratch, dx, dwqkv_p, dwo_p, R, S, blocks,
-                             want_dw, st);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, wqkv_heads, wqkv_t, wo_t, gout,
-                                     gattn0, gscratch, dx, dwqkv_p, dwo_p, R,
-                                     S, blocks, want_dw, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dwp != nullptr)
+    return dtype == 0 ? launch_bwd<float, true>(x, wpack, gout, gattn0, dx,
+                                                dwp, R, S, blocks, st)
+                      : launch_bwd<__nv_bfloat16, true>(
+                            x, wpack, gout, gattn0, dx, dwp, R, S, blocks,
+                            st);
+  return dtype == 0 ? launch_bwd<float, false>(x, wpack, gout, gattn0, dx,
+                                               nullptr, R, S, blocks, st)
+                    : launch_bwd<__nv_bfloat16, false>(
+                          x, wpack, gout, gattn0, dx, nullptr, R, S, blocks,
+                          st);
 }

@@ -21,13 +21,16 @@ and the weights; the backward recomputes qkv and the softmax, so no
 CUDA tensors go through the kernels (built by nvcc at first use) or raise;
 CPU tensors take ``ray_attention_plain`` and ``ray_attention_bwd_plain``,
 which write out the same formulas in tensor ops. Nothing falls back from the
-kernel to the plain version. The forward kernel runs its products on the
-tensor cores, float32 as three TF32 products; its ``wqkv`` and ``wo`` are
-packed on the card as B fragments, in the layout of ``pack_b_tf32`` of
-``ops/view_attention.py``, once for each value of the weights: the packed
+kernel to the plain version. Both kernels run their products on the tensor
+cores, float32 as three TF32 products; the weights are packed on the card
+as B fragments, in the layout of ``pack_b_tf32`` of
+``ops/view_attention.py`` (Wqkv and Wo for the forward, Wo^T and Wqkv^T
+besides for the backward), once for each value of the weights: the packed
 copy is kept while the tensors passed in keep their storage and version
 counter (a write through ``.data``, which bypasses that counter, is not
-seen).
+seen). With weight gradients the backward kernel also sums them, per block
+of the grid, and the wrapper adds the blocks' partial sums in one ordered
+sum.
 """
 from __future__ import annotations
 
@@ -111,7 +114,7 @@ def bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ray_attention_fwd.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.ray_attention_fwd.restype = ci
-    lib.ray_attention_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    lib.ray_attention_bwd.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.ray_attention_bwd.restype = ci
     lib.ray_attention_max_blocks.argtypes = [ci] * 3
     lib.ray_attention_max_blocks.restype = ci
@@ -119,8 +122,8 @@ def bind(lib):
     lib.ray_attention_smem_bytes.restype = ctypes.c_longlong
     lib.ray_attention_dims.argtypes = [ctypes.POINTER(ci)] * 2
     lib.ray_attention_dims.restype = ci
-    lib.ray_attention_fwd_resources.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
-    lib.ray_attention_fwd_resources.restype = ci
+    lib.ray_attention_resources.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
+    lib.ray_attention_resources.restype = ci
     lib.ray_attention_pack_weights.argtypes = [vp] * 4
     lib.ray_attention_pack_weights.restype = ci
     return lib
@@ -149,22 +152,22 @@ def _max_blocks(lib, device_index, s, backward, dtype_code):
         return lib.ray_attention_max_blocks(s, backward, dtype_code)
 
 
-def fwd_kernel_resources(s, dtype=torch.float32):
-    """What the built forward kernel takes on the current card at ``s``
-    samples: registers per thread, threads per block, spilled bytes per
-    thread, dynamic shared memory per block and blocks resident on the
-    card."""
+def kernel_resources(s, dtype=torch.float32, backward=False, want_dw=False):
+    """What the built forward (or backward, with the weight gradients or
+    not) kernel takes on the current card at ``s`` samples: registers per
+    thread, threads per block, spilled bytes per thread, dynamic shared
+    memory per block and blocks resident on the card."""
     lib = _lib()
-    code = _DTYPES[dtype]
+    code, bwd = _DTYPES[dtype], (2 if want_dw else 1) if backward else 0
     regs, threads, local = (ctypes.c_int() for _ in range(3))
-    err = lib.ray_attention_fwd_resources(code, *(ctypes.byref(v) for v in
-                                                 (regs, threads, local)))
+    err = lib.ray_attention_resources(bwd, code, *(ctypes.byref(v) for v in
+                                                   (regs, threads, local)))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
     return dict(registers=regs.value, threads=threads.value,
                 spill_bytes=local.value,
-                smem_bytes=lib.ray_attention_smem_bytes(s, 0),
-                blocks=_max_blocks(lib, torch.cuda.current_device(), s, 0,
+                smem_bytes=lib.ray_attention_smem_bytes(s, bwd),
+                blocks=_max_blocks(lib, torch.cuda.current_device(), s, bwd,
                                    code))
 
 
@@ -192,7 +195,8 @@ def _check(x, wqkv, wo, n_heads, **same_shape):
 
 def _blocks(x, n_heads, backward, lib=None):
     """Persistent grid size for ``x`` on its CUDA device, or raise where the
-    kernel does not take the shape."""
+    kernel does not take the shape. ``backward``: 0 the forward kernel, 1
+    the backward, 2 the backward with the weight gradients."""
     lib = lib or _lib()
     r, s, d = x.shape
     if (d, n_heads) != _kernel_dims():
@@ -202,12 +206,19 @@ def _blocks(x, n_heads, backward, lib=None):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     blocks = min(r, _max_blocks(lib, index, s, backward, _DTYPES[x.dtype]))
     if blocks < 1:
-        kernel = "backward" if backward else "forward"
+        kernel = ("forward", "backward",
+                  "backward (with the weight gradients)")[backward]
         raise ValueError(
             f"R={r}, S={s} needs {lib.ray_attention_smem_bytes(s, backward)}"
             f" bytes of shared memory per block of the {kernel} kernel, more "
             "than the card offers")
     return blocks
+
+
+def _aligned(t):
+    """``t``, copied where its storage is not 16-byte aligned (the kernels'
+    8-byte loads of rows)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _weight(w, dtype):
@@ -250,9 +261,7 @@ def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4, wpack=None):
     """
     blocks = _blocks(x, n_heads, 0, lib)
     r, s, d = x.shape
-    x = x.detach().contiguous()
-    if x.data_ptr() % 16:  # the kernel's 8-byte loads of x
-        x = x.clone()
+    x = _aligned(x.detach().contiguous())
     if wpack is None:
         wpack = pack_weights(lib, wqkv, wo, x.dtype)
     b2 = _weight(bo, x.dtype).contiguous()
@@ -270,19 +279,19 @@ def launch_fwd(lib, x, wqkv, wo, bo, n_heads=4, wpack=None):
 
 
 def pack_weights(lib, wqkv, wo, dtype):
-    """The forward kernel's B fragments of ``wqkv`` and ``wo`` (rounded to
-    ``dtype`` as the module path casts them), packed on the card by the
-    library's pack kernel in ``pack_b_tf32``'s layout: ``[2 D 3D + 2 D D]``
-    f32, packed Wqkv then packed Wo. Raises where the weights are not of
-    the width the kernel was built for (the pack kernel reads that
-    layout)."""
+    """The kernels' B fragments of ``wqkv`` and ``wo`` (rounded to ``dtype``
+    as the module path casts them), packed on the card by the library's
+    pack kernel in ``pack_b_tf32``'s layout: ``[4 D 4D]`` f32, packed Wqkv
+    and Wo (the forward's), then Wo^T and Wqkv^T (the backward's). Raises
+    where the weights are not of the width the kernel was built for (the
+    pack kernel reads that layout)."""
     d = _kernel_dims()[0]
     if tuple(wqkv.shape) != (d, 3 * d) or tuple(wo.shape) != (d, d):
         raise ValueError(f"the kernel takes D, n_heads = {_kernel_dims()}: "
                          f"wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}")
     w1 = _weight(wqkv, dtype).contiguous()
     w2 = _weight(wo, dtype).contiguous()
-    wpack = torch.empty(2 * d * 4 * d, dtype=torch.float32, device=w1.device)
+    wpack = torch.empty(4 * d * 4 * d, dtype=torch.float32, device=w1.device)
     with torch.cuda.device(w1.device):
         err = lib.ray_attention_pack_weights(
             w1.data_ptr(), w2.data_ptr(), wpack.data_ptr(),
@@ -338,39 +347,44 @@ def ray_attention_bwd(x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=True):
         return (dx, dwqkv, dwo) if want_dw else (dx, None, None)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    blocks = _blocks(x, n_heads, 1)
-    hd = d // n_heads
-    dev = x.device
-    x = x.detach().contiguous()
-    gout = gout.detach().contiguous()
-    gattn0 = gattn0.detach().contiguous()
-    w1 = _weight(wqkv, x.dtype)
-    # per head [D, q_h | k_h | v_h], and the two transposes
-    w1_heads = w1.reshape(d, 3, n_heads, hd).permute(2, 0, 1, 3).contiguous()
-    w1_t = w1.t().contiguous()
-    w2_t = _weight(wo, x.dtype).t().contiguous()
-    scratch = torch.empty((blocks, s, 3 * d), dtype=torch.float32, device=dev)
+    out = launch_bwd(_lib(), x, wqkv, wo, gout, gattn0, n_heads, want_dw,
+                     _packed(wqkv, wo, x.dtype))
+    ray_attention_bwd.launches += 1
+    return out
+
+
+def launch_bwd(lib, x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=False,
+               wpack=None):
+    """One launch of the backward kernel of ``lib`` (as ``launch_fwd``), on
+    CUDA tensors checked by the caller, uncounted. ``wpack``: the weights as
+    ``pack_weights`` packs them; None packs them for this launch.
+
+    :return: (dx [R, S, D] in ``x``'s dtype, and with ``want_dw`` dwqkv [D,
+        3D] and dwo [D, D] in f32, else None, None)
+    """
+    blocks = _blocks(x, n_heads, 2 if want_dw else 1, lib)
+    r, s, d = x.shape
+    x, gout, gattn0 = (_aligned(t.detach().contiguous())
+                       for t in (x, gout, gattn0))
+    if wpack is None:
+        wpack = pack_weights(lib, wqkv, wo, x.dtype)
     dx = torch.empty_like(x)
-    if want_dw:
-        dwqkv_p = torch.zeros((blocks, d, 3 * d), dtype=torch.float32,
-                              device=dev)
-        dwo_p = torch.zeros((blocks, d, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().ray_attention_bwd(
-            x.data_ptr(), w1_heads.data_ptr(), w1_t.data_ptr(),
-            w2_t.data_ptr(), gout.data_ptr(), gattn0.data_ptr(),
-            scratch.data_ptr(), dx.data_ptr(),
-            dwqkv_p.data_ptr() if want_dw else None,
-            dwo_p.data_ptr() if want_dw else None, r, s, blocks,
-            int(want_dw), _DTYPES[x.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the blocks' partial sums of dWqkv [D, 3D] and dWo [D, D], one row each
+    dwp = (torch.zeros((blocks, 4 * d * d), dtype=torch.float32,
+                       device=x.device) if want_dw else None)
+    with torch.cuda.device(x.device):
+        err = lib.ray_attention_bwd(
+            x.data_ptr(), wpack.data_ptr(), gout.data_ptr(),
+            gattn0.data_ptr(), dx.data_ptr(),
+            dwp.data_ptr() if want_dw else None, r, s, blocks,
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ray_attention_bwd launch failed: cudaError {err}")
-    ray_attention_bwd.launches += 1
     if not want_dw:
         return dx, None, None
-    # one ordered sum over the per-block partials: deterministic
-    return dx, torch.sum(dwqkv_p, dim=0), torch.sum(dwo_p, dim=0)
+    # one ordered sum over the blocks' partials: deterministic
+    dw = torch.sum(dwp, dim=0)
+    return dx, dw[:3 * d * d].view(d, 3 * d), dw[3 * d * d:].view(d, d)
 
 
 ray_attention_bwd.launches = 0

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nerfool_tpu_torch.utils.numerics import sqrt
+
 TINY = 1e-6
 
 
@@ -54,20 +56,20 @@ def compute_angle_planes(xyz_flat, query_camera, src_cameras):
     tx = q_c2w[0, 3] - x
     ty = q_c2w[1, 3] - y
     tz = q_c2w[2, 3] - z
-    tn = torch.sqrt(tx * tx + ty * ty + tz * tz) + TINY
+    tn = sqrt(tx * tx + ty * ty + tz * tz) + TINY
     tx, ty, tz = tx / tn, ty / tn, tz / tn
 
     # unit vector point -> each source camera ([V, P] planes)
     sx = src_c2w[:, 0, 3, None] - x
     sy = src_c2w[:, 1, 3, None] - y
     sz = src_c2w[:, 2, 3, None] - z
-    sn = torch.sqrt(sx * sx + sy * sy + sz * sz) + TINY
+    sn = sqrt(sx * sx + sy * sy + sz * sz) + TINY
     sx, sy, sz = sx / sn, sy / sn, sz / sn
 
     dx = tx - sx
     dy = ty - sy
     dz = tz - sz
-    dn = torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz), min=TINY)
+    dn = torch.clamp(sqrt(dx * dx + dy * dy + dz * dz), min=TINY)
     dot = tx * sx + ty * sy + tz * sz
     return dx / dn, dy / dn, dz / dn, dot
 

@@ -62,6 +62,23 @@ def test_get_rays_and_parse_camera(rng, stride):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def test_sqrt_rounds_float32_to_nearest(rng):
+    """The port's float32 ``sqrt`` is the square root rounded to nearest,
+    as numpy's and XLA's are: PyTorch's own float32 sqrt on the CPU is one
+    unit in the last place off on some inputs in some builds, which put
+    the angle features up to 2.6e-6 from JAX's where they cancel. Other
+    dtypes take ``torch.sqrt`` as they are."""
+    from nerfool_tpu_torch.utils.numerics import sqrt
+
+    x = (rng.rand(100000) * 10).astype(np.float32)
+    got = sqrt(torch.as_tensor(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        got.numpy(), np.sqrt(x.astype(np.float64)).astype(np.float32))
+    x64 = torch.as_tensor(x.astype(np.float64))
+    assert torch.equal(sqrt(x64), torch.sqrt(x64))
+
+
 @pytest.mark.parametrize("kind", ["orbit", "llff"])
 def test_projection_planes(rng, kind):
     target_cam, _, src_cams, _, depth_range = _scene(rng, kind)

@@ -925,6 +925,157 @@ def test_ray_attention_shared_kv_fragments_reproduce_products():
             atol=1e-10)
 
 
+def test_ray_attention_bwd_packed_weights_reproduce_products():
+    """``pack_b_tf32``'s blobs of Wo^T [64, 64] and Wqkv^T [192, 64], read
+    through the backward kernel's lane indexing (uint4 ``((kt * 8 + 2h + n)
+    << 5) + lane`` of Wo^T with gout's rows as A, for go_h's n-tile n; ``((kt
+    * 8 + nt) << 5) + lane`` of Wqkv^T at k step kt = 8b + 2h + n, with the C
+    fragments of dq_h, dk_h, dv_h (b = 0, 1, 2) as A), reproduce gout Wo^T
+    and gqkv Wqkv^T."""
+    rng = np.random.RandomState(5)
+    gout = rng.randn(16, 64)
+    gqkv = rng.randn(16, 192)
+    wqkv = torch.as_tensor(rng.randn(64, 192).astype(np.float32))
+    wo = torch.as_tensor(rng.randn(64, 64).astype(np.float32))
+    bot = np.asarray(va.pack_b_tf32(wo.t()), np.float64).reshape(-1, 4)
+    bqt = np.asarray(va.pack_b_tf32(wqkv.t()), np.float64).reshape(-1, 4)
+    lanes = lambda blob, base: _frag_b(
+        lambda g, t: (blob[base + 4 * g + t][0] + blob[base + 4 * g + t][2],
+                      blob[base + 4 * g + t][1] + blob[base + 4 * g + t][3]))
+    go = np.zeros((16, 64))
+    for h in range(4):
+        for n in range(2):
+            for kt in range(8):
+                go[:, 16 * h + 8 * n:16 * h + 8 * n + 8] += _frag_a(
+                    gout, kt) @ lanes(bot, (kt * 8 + 2 * h + n) << 5)
+    ref = gout @ wo.double().numpy().T
+    assert np.abs(go - ref).max() <= 1e-5 * np.abs(ref).max()
+    dx = np.zeros((16, 64))
+    for h in range(4):
+        for b in range(3):
+            for n in range(2):
+                kt = 8 * b + 2 * h + n
+                am = _frag_a(gqkv, kt)  # columns 8 kt.. of gqkv: head h's
+                for nt in range(8):
+                    dx[:, 8 * nt:8 * nt + 8] += am @ lanes(
+                        bqt, (kt * 8 + nt) << 5)
+    ref = gqkv @ wqkv.double().numpy().T
+    assert np.abs(dx - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_ray_attention_bwd_shared_fragments_reproduce_products():
+    """The backward's per-head buffers as it reads them from shared memory
+    ([Sp, 16] rows; a row's B fragment: row j0 + 8 nt + g, channels 8 kt +
+    2t and + 1; a column's: rows j0 + 8 kk + 2t and + 1, channel 8n + g),
+    with a tile's rows or a product's C fragments as A, reproduce over a
+    32-row step the scores q k^T, dp = go v^T, their transposes k q^T and v
+    go^T, and dq = ds k, dk = ds^T q, dv = p^T go."""
+    rng = np.random.RandomState(6)
+    q, k, v, go = (rng.randn(64, 16) for _ in range(4))
+    j0, r0 = 32, 16  # the step's rows; the tile's rows
+
+    def rows(a16, m):  # a16 [16, 16] @ m[j0:j0 + 32].T
+        c = np.zeros((16, 32))
+        for nt in range(4):
+            for kt in range(2):
+                c[:, 8 * nt:8 * nt + 8] += _frag_a(a16, kt) @ _frag_b(
+                    lambda g, t: (m[j0 + 8 * nt + g, 8 * kt + 2 * t],
+                                  m[j0 + 8 * nt + g, 8 * kt + 2 * t + 1]))
+        return c
+
+    def cols(c32, m):  # c32 [16, 32] @ m[j0:j0 + 32]
+        out = np.zeros((16, 16))
+        for kk in range(4):
+            for n in range(2):
+                out[:, 8 * n:8 * n + 8] += _frag_a(c32, kk) @ _frag_b(
+                    lambda g, t: (m[j0 + 8 * kk + 2 * t, 8 * n + g],
+                                  m[j0 + 8 * kk + 2 * t + 1, 8 * n + g]))
+        return out
+
+    tile = slice(r0, r0 + 16)
+    step = slice(j0, j0 + 32)
+    close = lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-12,
+                                                    atol=1e-10)
+    close(rows(q[tile], k), q[tile] @ k[step].T)
+    close(rows(go[tile], v), go[tile] @ v[step].T)
+    close(rows(k[tile], q), k[tile] @ q[step].T)
+    close(rows(v[tile], go), v[tile] @ go[step].T)
+    ds = rng.randn(16, 32)
+    close(cols(ds, k), ds @ k[step])
+    close(cols(ds, q), ds @ q[step])
+    close(cols(ds, go), ds @ go[step])
+
+
+def test_ray_attention_bwd_weight_gradient_fragments_reproduce_products():
+    """Phase D of the backward with the weight gradients, lane by lane as
+    the kernel indexes it, at S = 10 (two 8-row k steps, rows past S read
+    clamped from x and gout and zero in the shared o_h and dq | dk | dv):
+    warp w's A fragments of x^T (channels 16 (w % 4).., rows 8 kk + 2t and
+    + 1) and B fragments of the q, k or v third w / 4 of a head's dq | dk |
+    dv, and warps 0-7's o_h^T and gout columns 8 w.., written as C
+    fragments into a block's partial sums ([D][3D] then [D][D]), reproduce
+    dWqkv = x^T gqkv and dWo = concat_h(o_h)^T gout over the four heads."""
+    rng = np.random.RandomState(8)
+    d, nh, hd, s_ = 64, 4, 16, 10
+    sp = 32
+    x, gout = rng.randn(s_, d), rng.randn(s_, d)
+    gqkv, cat = rng.randn(s_, 3 * d), rng.randn(s_, d)
+    part = np.zeros(d * 3 * d + d * d)
+    for h in range(nh):
+        gq = np.zeros((sp, 3 * hd))  # shared dq | dk | dv, rows past S 0
+        for b in range(3):
+            gq[:s_, b * hd:(b + 1) * hd] = gqkv[:, b * d + h * hd:
+                                                b * d + (h + 1) * hd]
+        o = np.zeros((sp, hd))
+        o[:s_] = cat[:, h * hd:(h + 1) * hd]
+        for warp in range(12):
+            m0, b = 16 * (warp % 4), warp // 4
+            for n in range(2):
+                acc = np.zeros((16, 8))
+                for kk in range((s_ + 7) // 8):
+                    am, bm = np.zeros((16, 8)), np.zeros((8, 8))
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        r0 = 8 * kk + 2 * t
+                        x0, x1 = x[min(r0, s_ - 1)], x[min(r0 + 1, s_ - 1)]
+                        am[g, t], am[g + 8, t] = x0[m0 + g], x0[m0 + g + 8]
+                        am[g, t + 4], am[g + 8, t + 4] = (x1[m0 + g],
+                                                          x1[m0 + g + 8])
+                        bm[t, g] = gq[r0, b * hd + 8 * n + g]
+                        bm[t + 4, g] = gq[r0 + 1, b * hd + 8 * n + g]
+                    acc += am @ bm
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    i = (m0 + g) * 3 * d + b * d + h * hd + 8 * n + 2 * t
+                    part[i:i + 2] += acc[g, 2 * t:2 * t + 2]
+                    part[i + 8 * 3 * d:i + 8 * 3 * d + 2] += acc[
+                        g + 8, 2 * t:2 * t + 2]
+            if warp < 8:
+                acc = np.zeros((16, 8))
+                for kk in range((s_ + 7) // 8):
+                    am, bm = np.zeros((16, 8)), np.zeros((8, 8))
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        r0 = 8 * kk + 2 * t
+                        am[g, t], am[g + 8, t] = o[r0, g], o[r0, g + 8]
+                        am[g, t + 4], am[g + 8, t + 4] = (o[r0 + 1, g],
+                                                          o[r0 + 1, g + 8])
+                        bm[t, g] = gout[min(r0, s_ - 1), 8 * warp + g]
+                        bm[t + 4, g] = gout[min(r0 + 1, s_ - 1),
+                                            8 * warp + g]
+                    acc += am @ bm
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    i = d * 3 * d + (h * hd + g) * d + 8 * warp + 2 * t
+                    part[i:i + 2] += acc[g, 2 * t:2 * t + 2]
+                    part[i + 8 * d:i + 8 * d + 2] += acc[g + 8,
+                                                         2 * t:2 * t + 2]
+    close = lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-12,
+                                                    atol=1e-10)
+    close(part[:d * 3 * d].reshape(d, 3 * d), x.T @ gqkv)
+    close(part[d * 3 * d:].reshape(d, d), cat.T @ gout)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s", [(800, 192), (4096, 192), (3, 10), (5, 33)])
 def test_ray_attention_fwd_kernel_matches_plain_f32(r, s):
@@ -968,15 +1119,97 @@ def test_ray_attention_fwd_kernel_bf16_within_derived_bound(r, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(800, 192), (3, 10), (5, 33)])
+@pytest.mark.parametrize("both", [True, False], ids=["out+attn0", "out"])
+@pytest.mark.parametrize("want_dw", [True, False], ids=["dw", "no_dw"])
+def test_ray_attention_bwd_kernel_matches_plain_f32(r, s, both, want_dw):
+    """The tensor-core backward in f32 against ``ray_attention_bwd_plain``
+    at the attack batch's shape and two ragged S (10: one tile with rows
+    past S; 33: neither a multiple of 16 nor of 32), under both cotangents,
+    with and without weight gradients: 1e-5 of each output's scale, one
+    launch counted."""
+    _require_cuda()
+    x, wqkv, wo, _, gout, gattn0 = _ra_case(r, s, seed=r + s + both,
+                                            device="cuda")
+    if not both:
+        gattn0 = torch.zeros_like(gattn0)
+    before = ra.ray_attention_bwd.launches
+    got = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0, want_dw=want_dw)
+    torch.cuda.synchronize()
+    assert ra.ray_attention_bwd.launches == before + 1
+    ref = ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)
+    if not want_dw:
+        assert got[1] is None and got[2] is None
+    for name, g, r_ in zip(("dx", "dwqkv", "dwo"), got, ref):
+        if g is None:
+            continue
+        assert g.shape == r_.shape and bool(torch.isfinite(g).all()), name
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol, (name, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(3, 10), (5, 33)])
+def test_ray_attention_bwd_rows_past_s_contribute_nothing(r, s):
+    """The backward pads the samples to whole 32-row steps; it computes the
+    rows past S from x and gout read clamped to row S - 1 and stores them as
+    zeros, with zero softmax statistics. Those rows must carry no cotangent:
+    with row S - 1's gout 1e3 times larger, a padded copy of it would add
+    itself again to every key's dk and dv, and to the weight gradients. dx
+    and the weight gradients still equal the plain version's to 1e-5 of
+    their scale."""
+    _require_cuda()
+    x, wqkv, wo, _, gout, gattn0 = _ra_case(r, s, seed=7, device="cuda")
+    gout[:, -1] *= 1e3
+    gattn0[:, -1] *= 1e3
+    got = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0)
+    torch.cuda.synchronize()
+    ref = ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)
+    for name, g, r_ in zip(("dx", "dwqkv", "dwo"), got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol, (name, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(800, 192), (3, 10)])
+@pytest.mark.parametrize("want_dw", [True, False], ids=["dw", "no_dw"])
+def test_ray_attention_bwd_kernel_bf16_within_derived_bound(r, s, want_dw):
+    """bf16 backward: the kernel loads bf16 as f32, computes as on the f32
+    route and rounds dx, so against the plain f32 version on the same bf16
+    inputs and bf16-valued weights it may err no more than the plain bf16
+    version, which rounds every product."""
+    _require_cuda()
+    x, wqkv, wo, _, gout, gattn0 = _ra_case(r, s, seed=r + s + 3,
+                                            device="cuda",
+                                            dtype=torch.bfloat16)
+    wb = [w.bfloat16().float() for w in (wqkv, wo)]
+    ref = ra.ray_attention_bwd_plain(x.float(), *wb, gout.float(),
+                                     gattn0.float())
+    got = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0, want_dw=want_dw)
+    plain = ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    for name, g, p, r_ in zip(("dx", "dwqkv", "dwo"), got, plain, ref):
+        if g is None:
+            continue
+        err_k = float((g.float() - r_).abs().max())
+        err_p = float((p.float() - r_).abs().max())
+        assert err_k <= err_p, (name, err_k, err_p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ray_attention_weights_packed_on_the_card_as_pack_b_tf32(dtype):
-    """The forward's pack kernel writes ``pack_b_tf32``'s blobs of the
-    weights rounded to the route's dtype, bit for bit."""
+    """The pack kernel writes ``pack_b_tf32``'s blobs of the weights rounded
+    to the route's dtype, bit for bit: Wqkv and Wo (the forward's), then
+    Wo^T and Wqkv^T (the backward's)."""
     _require_cuda()
     _, wqkv, wo, _, _, _ = _ra_case(2, 8, device="cuda")
     got = ra.pack_weights(ra.build(), wqkv, wo, dtype)
     torch.cuda.synchronize()
-    want = torch.cat([va.pack_b_tf32(w.to(dtype).float()) for w in (wqkv, wo)])
+    want = torch.cat([va.pack_b_tf32(w.to(dtype).float()) for w in (
+        wqkv, wo, wo.t(), wqkv.t())])
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
@@ -1053,7 +1286,7 @@ def test_ray_attention_packs_module_weights_once_per_value(monkeypatch):
 
 @pytest.mark.cuda
 def test_ray_attention_weights_packed_once_per_value():
-    """The forward packs the weights once for each value: the same blob for
+    """The weights are packed once for each value: the same blob for
     the same tensors, a new one after an in-place write, after which the
     kernel still matches the plain version (1e-5 of scale)."""
     _require_cuda()
@@ -1064,7 +1297,8 @@ def test_ray_attention_weights_packed_once_per_value():
     wqkv.mul_(-1.5)
     again = ra._packed(wqkv, wo, torch.float32)
     assert again is not first
-    want = torch.cat([va.pack_b_tf32(w) for w in (wqkv, wo)])
+    want = torch.cat([va.pack_b_tf32(w) for w in (wqkv, wo, wo.t(),
+                                                   wqkv.t())])
     assert torch.equal(again.view(torch.int32), want.view(torch.int32))
     out, attn0 = ra.ray_attention_fwd(x, wqkv, wo, bo)
     ref = ra.ray_attention_plain(x, wqkv, wo, bo)
@@ -1075,17 +1309,27 @@ def test_ray_attention_weights_packed_once_per_value():
 
 @pytest.mark.cuda
 def test_ray_attention_shared_memory_is_sized_per_direction():
-    """The forward keeps K and V (~564 B a sample), the backward x and the
-    per-head buffers (1 KB a sample): at S = 300 the forward runs and the
-    backward raises, naming its own kernel and size."""
+    """The forward keeps K and V (~564 B a sample), the backward the
+    per-head buffers and its dx accumulator (688 B a sample), and with the
+    weight gradients o_h and dq | dk | dv besides (976 B a sample): at S =
+    256 the backward without them runs and the one with them raises; at S
+    = 350 the forward runs and the backward raises; each names its own
+    kernel and size."""
     _require_cuda()
-    x, wqkv, wo, bo, gout, gattn0 = _ra_case(2, 300, device="cuda")
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(2, 256, device="cuda")
+    dx = ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0, want_dw=False)[0]
+    ref = ra.ray_attention_bwd_plain(x, wqkv, wo, gout, gattn0)[0]
+    assert float((dx - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+    with pytest.raises(ValueError, match="with the weight gradients"):
+        ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0)
+    x, wqkv, wo, bo, gout, gattn0 = _ra_case(2, 350, device="cuda")
     out, attn0 = ra.ray_attention_fwd(x, wqkv, wo, bo)
     ref = ra.ray_attention_plain(x, wqkv, wo, bo)
     assert float((out - ref[0]).abs().max()) <= 1e-5 * max(
         1.0, float(ref[0].abs().max()))
     with pytest.raises(ValueError, match="backward kernel"):
-        ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0)
+        ra.ray_attention_bwd(x, wqkv, wo, gout, gattn0, want_dw=False)
     x, wqkv, wo, bo, _, _ = _ra_case(2, 420, device="cuda")
     with pytest.raises(ValueError, match="forward kernel"):
         ra.ray_attention_fwd(x, wqkv, wo, bo)

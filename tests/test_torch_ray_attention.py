@@ -7,8 +7,8 @@ tests/test_ra_vjp.py does. Tolerances: 2e-4 (atol and rtol) against the
 Pallas kernels and the flax module, that file's own bound (f32, other
 summation orders); the hand-written backward formulas against torch
 autograd through the plain forward in float64: 1e-10; the fused attack step
-against the unfused one: loss 1e-5 relative, update 2e-5, the bounds of
-tests/test_ra_vjp.py. On-card cases of the CUDA kernels are in
+against the unfused one: loss 1e-5 relative, the gradient and the update
+by chip_smoke.py's limbs (see the test). On-card cases of the CUDA kernels are in
 tests/test_torch_kernels.py.
 """
 import dataclasses
@@ -185,6 +185,20 @@ def test_aggregator_fused_attn_setting():
                                        rtol=1e-5 * fused)
 
 
+# Adam's first step is lr * g / (|g| + 1e-8): where |g| is within the two
+# routes' rounding noise of 0 (~2e-6 of g's largest entry here) g can change
+# sign and the update by up to 2 lr (one of the 6,912 entries, |g| = 8.8e-8,
+# on an AVX-512 host), so the update is ill conditioned there. The routes
+# are held to chip_smoke.py's limbs instead: g, read from Adam's first
+# moment, at every entry to 1e-3 of its largest entry and to 1e-3 in
+# relative L2; the entries with |g| at most the floor (at most half of them)
+# to 1e-2 in relative L2 of that subset; the update to 2e-5 wherever |g|
+# exceeds the floor, and on at least 0.999 of all entries. chip_smoke.py's
+# floor, 1e-6, is 1e-2 of g's largest entry at its scale (~1e-4); this g is
+# ~1e4 times larger (0.88), so the floor is that share of its largest entry
+STEP_GRAD_FLOOR_REL = 1e-2
+
+
 def test_gnt_attack_step_fused_matches_unfused():
     """One whole differentiated GNT attack step through the fused route (the
     autograd.Function: plain forward and hand-written backward on the CPU)
@@ -212,8 +226,19 @@ def test_gnt_attack_step_fused_matches_unfused():
         rcfg = dataclasses.replace(base, gnt_fused_attn=fused)
         state, aux = t_attack.make_attack_step(tb, rcfg, cfg)(
             state0, target, src, sel=sel)
+        # Adam's first moment after one step is -0.1 * gradient
         outs[fused] = (float(aux["loss"]),
-                       (state["delta"] - state0["delta"]).numpy())
+                       (state["delta"] - state0["delta"]).numpy(),
+                       (state["m"] / -0.1).double().numpy())
     np.testing.assert_allclose(outs[True][0], outs[False][0], rtol=1e-5)
-    np.testing.assert_allclose(outs[True][1], outs[False][1], atol=2e-5)
+    g_f, g_u = outs[True][2], outs[False][2]
+    assert np.abs(g_f - g_u).max() <= 1e-3 * np.abs(g_u).max()
+    assert np.linalg.norm(g_f - g_u) <= 1e-3 * np.linalg.norm(g_u)
+    small = np.abs(g_u) <= STEP_GRAD_FLOOR_REL * np.abs(g_u).max()
+    assert 0 < small.mean() <= 0.5
+    assert (np.linalg.norm((g_f - g_u)[small])
+            <= 1e-2 * np.linalg.norm(g_u[small]))
+    diff = np.abs(outs[True][1] - outs[False][1])
+    assert diff[~small].max() <= 2e-5
+    assert np.mean(diff <= 2e-5) >= 0.999
     assert np.abs(outs[True][1]).max() > 0
