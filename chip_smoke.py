@@ -100,6 +100,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
      (GNT, 48x64): finite losses, the clamps on the camera parameters (read
      back from the attack's checkpoint), and the pose attack's whole-frame
      render on the per-tap route
+ 16. the defended attack at 378x504: (a) the IBRNet view-specific attack
+     with the multi-view-consistency terms under the camera-pose attack
+     (``--depth_consistency_loss 0.5 --camera_consistency_loss 0.5
+     --cam_src2tar 1 --cam_tar2src 1 --cam_depth 0.1 --perturb_camera``,
+     N_rand 512), in turns with phase 12's plain attack (plain, consistency,
+     consistency, plain; 2 warm-up and 4 timed iterations each), then with
+     ``--ds_rgb``; the constraints on ``delta``, ``rot`` and ``trans``; the
+     z-buffered warp of a source view run twice on the card, bit for bit
+     equal; (b) the GNT attack of phase 11 (f32, N_rand 800,
+     ``--gnt_fused_attack True``), 2 warm-up and 4 timed iterations, then
+     ``--use_purification --use_self_purification --purif_consistency_loss
+     0.1 --purif_iters 4`` and ``--def_random_noise 2``: K3 forward and
+     backward launches = (iterations + purification steps) x depth; then the
+     defended sources' attacked frame as hybrids, ``--use_clean_density``
+     and ``--use_clean_color`` with ``--gnt_fused_attn on`` (per-tap route:
+     K3 forward and K4 launches = chunks x depth x both branches)
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
@@ -160,6 +176,16 @@ GNT_SMALL_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
 ATTACK_FLAGS = ["--view_specific", "--use_adam", "--adam_lr", "1e-3",
                 "--adv_lr", "1", "--epsilon", "8"]
 ATTACK_WARMUP, ATTACK_ITERS = 2, 10
+# the defended attack (phase 16): the consistency terms under the pose
+# attack on IBRNet, purification and the noise defense on GNT, then hybrid
+# frames; hybrid renders bypass BSPG, so those evaluators plan nothing
+CONS_FLAGS = ["--depth_consistency_loss", "0.5", "--camera_consistency_loss",
+              "0.5", "--cam_src2tar", "1", "--cam_tar2src", "1",
+              "--cam_depth", "0.1", "--perturb_camera"]
+DEFENSE_FLAGS = ["--use_purification", "--use_self_purification",
+                 "--purif_consistency_loss", "0.1", "--def_random_noise", "2",
+                 "--use_bspg", "False"]
+DEF_WARMUP, DEF_ITERS, PURIF_ITERS = 2, 4, 4
 # GNT in f32 (attacks run in f32), N_rand 800 from the config, the fused ray
 # attention on the differentiated step and on the attacked render
 GNT_ATTACK_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype",
@@ -1552,6 +1578,180 @@ def small_universal_modes(ibr_bundle, card):
     return out
 
 
+def attack_turns(evs, data):
+    """Each evaluator's view-specific attack on ``data``, warmed up, then
+    timed in turns (first, second, second, first): {name: [ms/iteration of
+    each turn]}, and each evaluator's ``last_attack`` of its last turn."""
+    turns = {}
+    for name, ev in evs.items():
+        ev.args.adv_iters = DEF_WARMUP
+        ev.attack_view_specific(data)
+    names = list(evs)
+    for name in (names[0], names[1], names[1], names[0]):
+        ev = evs[name]
+        ev.args.adv_iters = DEF_ITERS
+        ev.attack_view_specific(data)
+        turns.setdefault(name, []).append(
+            ev.last_attack["seconds"] / DEF_ITERS * 1e3)
+    return turns
+
+
+def check_pose(name, ev, delta, src):
+    """The attack's constraints on ``delta``, ``rot`` and ``trans``."""
+    import torch
+
+    state = ev.last_attack["state"]
+    eps = ev.args.epsilon / 255.0
+    rot_eps = ev.args.rot_epsilon / 180.0 * math.pi
+    worst = float(delta.abs().max())
+    lo = float((src["rgbs"] + delta).min())
+    hi = float((src["rgbs"] + delta).max())
+    rot = float(state["rot"].abs().max())
+    trans = float(state["trans"].abs().max())
+    ok = (worst <= eps + 1e-7 and lo >= -1e-7 and hi <= 1 + 1e-7
+          and 0 < rot <= rot_eps + 1e-7
+          and 0 < trans <= ev.args.trans_epsilon + 1e-7
+          and bool(torch.isfinite(delta).all()))
+    if not ok:
+        raise AssertionError(f"{name}: max|delta| {worst} (eps {eps}), src "
+                             f"+ delta in [{lo}, {hi}], max|rot| {rot}, "
+                             f"max|trans| {trans}")
+    return dict(max_abs_delta=worst, max_abs_rot=rot, max_abs_trans=trans)
+
+
+def zbuffer_repeats(ev, data, card):
+    """A source view's depth z-buffered into the target over the whole
+    frame twice on the card: bit for bit equal (the scatter is a min)."""
+    import torch
+    from nerfool_tpu_torch.attack.warp import forward_warp
+
+    src = ev._make_src(data)
+    target, (h, w) = ev._make_target(data)
+    sel = torch.randperm(h * w, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    k = lambda cam: cam[2:18].reshape(4, 4)[:3, :3]
+    e = lambda cam: cam[18:34].reshape(4, 4)
+    s_cam, t_cam = src["cameras"][0], target["camera"]
+    run = lambda: forward_warp(sel[:512], src["rgbs"][0], src["depths"][0],
+                               k(s_cam), e(s_cam), k(t_cam), e(t_cam),
+                               src2tar=True, derive_full_image=True)
+    a, b = run(), run()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    hits = int((a[1] > 0).sum())
+    log("defended attack", f"z-buffered warp of a {h}x{w} source depth, twice "
+        f"on the card: bit for bit equal {same}, {hits} pixels hit; {card}")
+    if not (same and hits > 0):
+        raise AssertionError("the z-buffer differs between two runs")
+    return dict(zbuffer_bit_identical=same, zbuffer_hits=hits)
+
+
+def defended_attack(ibr_bundle, gnt_bundle, card):
+    """Phase 16 (see the module docstring). Returns the stats dict."""
+    import torch
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.engine import Evaluator
+
+    t_phase = time.perf_counter()
+    out = {}
+    make = lambda argv, bundle: Evaluator(
+        eval_adv.parse_args(argv), bundle=bundle, dataset_kwargs=SLICE_DATA,
+        device="cuda", seed=0)
+    # (a) the consistency terms on IBRNet, in turns with the plain attack
+    plain = make(IBR_ATTACK_ARGV + ["--use_bspg", "False"], ibr_bundle)
+    cons = make(IBR_ATTACK_ARGV + CONS_FLAGS + ["--use_bspg", "False"],
+                ibr_bundle)
+    data = cons.test_dataset[0]
+    turns = attack_turns({"plain": plain, "consistency": cons}, data)
+    if set(cons.last_attack["terms"]) != {"rgb", "depth_cons",
+                                          "camera_cons"}:
+        raise AssertionError(f"terms {cons.last_attack['terms']}")
+    delta, src, _ = cons.attack_view_specific(data)
+    out["consistency"] = check_pose("consistency attack", cons, delta, src)
+    ds = make(IBR_ATTACK_ARGV + CONS_FLAGS + ["--ds_rgb", "--use_bspg",
+                                              "False"], ibr_bundle)
+    ds_turns = attack_turns({"plain": plain, "ds_rgb": ds}, data)
+    delta, src, _ = ds.attack_view_specific(data)
+    out["ds_rgb"] = check_pose("ds_rgb attack", ds, delta, src)
+    losses = [float(x) for e in (cons, ds) for x in e.last_attack["losses"]]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"consistency losses {losses}")
+    out["ms_per_iter"] = {**turns, "ds_rgb": ds_turns["ds_rgb"],
+                          "plain_with_ds_rgb": ds_turns["plain"]}
+    log("defended attack", f"IBRNet, N_rand {cons.args.N_rand}, "
+        f"{src['rgbs'].shape[0]} source views, ms/iteration in turns: plain "
+        + ", ".join(f"{x:.2f}" for x in turns["plain"]) + "; consistency "
+        + ", ".join(f"{x:.2f}" for x in turns["consistency"]) + "; plain "
+        + ", ".join(f"{x:.2f}" for x in ds_turns["plain"]) + "; with "
+        "--ds_rgb " + ", ".join(f"{x:.2f}" for x in ds_turns["ds_rgb"])
+        + f"; terms {cons.last_attack['terms']}; delta, rot and trans inside "
+        f"their bounds {out['consistency']}, {out['ds_rgb']}; {card}")
+    out.update(zbuffer_repeats(cons, data, card))
+    del plain, cons, ds
+
+    # (b) purification and the noise defense on GNT, then hybrid frames
+    dev = make(GNT_ATTACK_ARGV + DEFENSE_FLAGS, gnt_bundle)
+    depth = dev.args.trans_depth
+    data = dev.test_dataset[0]
+    dev.args.adv_iters, dev.args.purif_iters = DEF_WARMUP, 1
+    dev.attack_view_specific(data)
+    zero_kernel_counts()
+    dev.args.adv_iters, dev.args.purif_iters = DEF_ITERS, PURIF_ITERS
+    delta, src, cams = dev.attack_view_specific(data)
+    counts = kernel_counts()
+    exp = (DEF_ITERS + PURIF_ITERS) * depth
+    purif_ms = dev.last_purify["seconds"] / PURIF_ITERS * 1e3
+    purif_losses = [float(x) for x in dev.last_purify["losses"]]
+    out["purification"] = dict(
+        ms_per_step=purif_ms, attack_ms_per_iter=dev.last_attack["seconds"]
+        / DEF_ITERS * 1e3, losses=purif_losses, launches=counts,
+        defenses=list(dev.last_defenses))
+    log("defended attack", f"GNT f32, N_rand {dev.args.N_rand}: "
+        f"{DEF_ITERS} attack iterations "
+        f"({out['purification']['attack_ms_per_iter']:.2f} ms each), "
+        f"{PURIF_ITERS} purification steps ({purif_ms:.2f} ms each, loss "
+        f"{purif_losses[0]:.5f} -> {purif_losses[-1]:.5f}), then "
+        f"{dev.last_defenses}; ray_attention launches forward "
+        f"{counts['ray_attention_fwd']}, backward "
+        f"{counts['ray_attention_bwd']} (expected {exp} each: "
+        f"{depth} per iteration and per purification step); {card}")
+    if (counts["ray_attention_fwd"], counts["ray_attention_bwd"]) != (
+            exp, exp) or dev.last_defenses != ["purification",
+                                               "random_noise"] or not (
+            all(map(math.isfinite, purif_losses))
+            and bool(torch.isfinite(delta).all())):
+        raise AssertionError(f"defended GNT attack: {out['purification']}")
+    hs = len(range(0, SLICE_DATA["h"], dev.args.render_stride))
+    ws = len(range(0, SLICE_DATA["w"], dev.args.render_stride))
+    chunks = -(-hs * ws // dev.args.chunk_size)
+    del dev
+    for mode in ("use_clean_density", "use_clean_color"):
+        hev = make(GNT_ATTACK_ARGV + ["--use_bspg", "False", f"--{mode}"],
+                   gnt_bundle)
+        zero_kernel_counts()
+        ret, seconds = timed_render(hev, data, src, delta, cams)
+        counts = kernel_counts()
+        finite = all(bool(torch.isfinite(ret[k]).all())
+                     for k in ("rgb", "depth", "weights"))
+        exp = chunks * depth * 2  # the coarse level's two branches
+        out[mode] = dict(rays_per_s=hs * ws / seconds, seconds=seconds,
+                         launches=counts, finite=finite)
+        log("defended attack", f"hybrid frame --{mode}, {hs}x{ws} rays in "
+            f"{seconds:.3f} s ({hs * ws / seconds:.1f} rays/s), outputs "
+            f"finite {finite}; launches ray_attention forward "
+            f"{counts['ray_attention_fwd']}, view_attention "
+            f"{counts['view_attention']} (expected {exp} each), "
+            f"bspg_select {counts['bspg_select']}; {card}")
+        if not (finite and counts["ray_attention_fwd"] == exp
+                and counts["view_attention"] == exp
+                and counts["ray_attention_bwd"] == 0
+                and counts["bspg_select"] == 0):
+            raise AssertionError(f"hybrid frame --{mode}: {out[mode]}")
+        del hev, ret
+    out["seconds"] = time.perf_counter() - t_phase
+    log("defended attack", f"phase took {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -1856,6 +2056,7 @@ def main():
                              f"expected K3 and K4 {exp_k3}, K1 {exp_k1}")
     gnt_adv["attn_ab_rays_per_s"] = attn_route_ab(
         "GNT attack", aev, data, src, delta, card, exp_k3)
+    gnt_bundle = aev.bundle
     del aev, delta, src
 
     # 12. the IBRNet attack, on the model and the plan of phase 6
@@ -1895,7 +2096,10 @@ def main():
 
     # 15. gradient surgery and the pose attack, one small iteration each
     small_modes = small_universal_modes(ibr_bundle, card)
-    del ibr_bundle
+
+    # 16. the defended attack: consistency terms, purification, hybrids
+    defended = defended_attack(ibr_bundle, gnt_bundle, card)
+    del ibr_bundle, gnt_bundle
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
@@ -1917,16 +2121,24 @@ def main():
                 "gnt_attacked_render": gnt_adv["k1_launches"],
                 "ibrnet_attacked_render": ibr_adv["k1_launches"],
                 "universal_attacked_render": uni_render["bspg_select"]}
+    purif, hybrids = defended["purification"]["launches"], [
+        defended[m]["launches"] for m in ("use_clean_density",
+                                          "use_clean_color")]
     k3_fwd_paths = {"gnt_attack": gnt_attack["fwd_launches"],
                     "gnt_attacked_render": gnt_adv["k3_fwd_launches"],
                     "universal_attack": uni_attack["ray_attention_fwd"],
                     "universal_attacked_render":
-                        uni_render["ray_attention_fwd"]}
+                        uni_render["ray_attention_fwd"],
+                    "defended_attack": purif["ray_attention_fwd"],
+                    "hybrid_renders": sum(h["ray_attention_fwd"]
+                                          for h in hybrids)}
     k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
-                    "universal_attack": uni_attack["ray_attention_bwd"]}
+                    "universal_attack": uni_attack["ray_attention_bwd"],
+                    "defended_attack": purif["ray_attention_bwd"]}
     va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
     k4_paths = {"gnt_attacked_render": gnt_adv["k4_launches"],
-                "universal_attacked_render": uni_render["view_attention"]}
+                "universal_attacked_render": uni_render["view_attention"],
+                "hybrid_renders": sum(h["view_attention"] for h in hybrids)}
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
@@ -2005,7 +2217,8 @@ def main():
         "library_ms": None, "shapes": va_rows}],
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
-                   "universal": universal, "small_modes": small_modes}}))
+                   "universal": universal, "small_modes": small_modes,
+                   "defended": defended}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -14,17 +14,22 @@ optimizer. With ``use_pcgrad`` every loss term is differentiated on its own
 through gradient surgery (``attack/pcgrad.py``); the camera parameters keep
 the summed gradient.
 
+The multi-view-consistency terms warp a random source view's ground-truth
+depth (``attack/warp.py``): ``depth_consistency_loss`` pulls the rendered
+depth toward the source depth warped into the target (with ``ds_rgb`` on a
+second render at ``resize_factor`` of the target's resolution), and
+``camera_consistency_loss`` compares rgb and depth warped both ways between
+the target and a source view, which drives the camera-pose attack.
+
 The step is an eager function over a small state dict (``delta``, ``rot``,
 ``trans``, their Adam moments, the step count). The caller may pass the ray
-indices ``sel`` (and ``sel_patch``, the dedicated depth-smooth patch batch),
-the PCGrad task order and the initial values; otherwise they are drawn from
-an explicit ``torch.Generator``. The aggregators' and the feature net's
-parameters are frozen (``requires_grad=False``) while a step runs, and only
-then: a trainer sharing the models finds their flags as it left them.
-
-Not ported, and raising ``NotImplementedError`` by flag name: the warp
-losses (``depth_consistency_loss``, ``camera_consistency_loss``,
-``ds_rgb``).
+indices ``sel`` (``sel_patch``, the dedicated depth-smooth patch batch;
+``sel_half``, the rays of the ``ds_rgb`` render), the source views of the
+consistency terms, the PCGrad task order and the initial values; otherwise
+they are drawn from an explicit ``torch.Generator``. The aggregators' and
+the feature net's parameters are frozen (``requires_grad=False``) while a
+step runs, and only then: a trainer sharing the models finds their flags as
+it left them.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 from nerfool_tpu_torch.attack import losses as L
 from nerfool_tpu_torch.attack.pcgrad import pcgrad_combine
 from nerfool_tpu_torch.attack.perturb import clamp, init_delta, project_delta
+from nerfool_tpu_torch.attack.warp import forward_warp
 from nerfool_tpu_torch.render.render_rays import RenderConfig, render_rays
 from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
 
@@ -66,10 +72,14 @@ class AttackConfig:
     depth_var_loss: float = 0.0
     depth_diff_loss: float = 0.0
     depth_smooth_loss: float = 0.0
-    # parsed, not ported: a non-default value raises in make_attack_step
-    depth_consistency_loss: float = 0.0
-    ds_rgb: bool = False
-    camera_consistency_loss: float = 0.0
+    depth_consistency_loss: float = 0.0  # source depth warped to the target
+    ds_rgb: bool = False  # depth consistency on a reduced-resolution render
+    resize_factor: float = 0.5  # that render's scale
+    camera_consistency_loss: float = 0.0  # rgb and depth warped both ways
+    cam_src2tar: float = 0.0
+    cam_tar2src: float = 0.0
+    cam_depth: float = 0.0
+    perturb_camera_no_detach: bool = False  # the render's rgb keeps its grad
     # gradient surgery
     use_pcgrad: bool = False
     major_loss: str = ""
@@ -93,17 +103,26 @@ class AttackConfig:
         return self.rot_epsilon / 180.0 * math.pi
 
     def enabled_losses(self):
+        """The enabled terms in JAX's order (the order of the sum and of
+        PCGrad's tasks)."""
         names = ["rgb"]
-        for name in ("density", "depth_var", "depth_diff", "depth_smooth"):
-            if getattr(self, f"{name}_loss") > 0:
+        for name, flag in (("density", "density"), ("depth_var", "depth_var"),
+                           ("depth_diff", "depth_diff"),
+                           ("depth_cons", "depth_consistency"),
+                           ("depth_smooth", "depth_smooth"),
+                           ("camera_cons", "camera_consistency")):
+            if getattr(self, f"{flag}_loss") > 0:
                 names.append(name)
         return names
 
-    def unported(self):
-        """Names of the set flags this package does not implement."""
-        return [name for name in (
-            "depth_consistency_loss", "camera_consistency_loss", "ds_rgb")
-            if getattr(self, name)]
+
+def draw_view(generator, n, device, given=None):
+    """A source view's index in ``range(n)``, drawn from ``generator``
+    unless given, as a one-element tensor: ``x[i][0]`` reads the view
+    without waiting for the card (a 0-d index tensor would)."""
+    if given is not None:
+        return torch.as_tensor(given, device=device).reshape(1)
+    return torch.randint(0, n, (1,), device=device, generator=generator)
 
 
 def _distinct(generator, n, k, device):
@@ -215,6 +234,15 @@ def _frozen(modules):
             p.requires_grad_(flag)
 
 
+def _k3(cam):
+    """The [3, 3] intrinsics of a camera vector."""
+    return cam[2:18].reshape(4, 4)[:3, :3]
+
+
+def _c2w(cam):
+    return cam[18:34].reshape(4, 4)
+
+
 def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
     """Build the attack step for ``bundle``. Its parameters are frozen
     while a step runs (only ``delta`` and the camera parameters are
@@ -222,42 +250,47 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
     returns.
 
     step(state, target, src, generator=None, sel=None, sel_patch=None,
-         pc_order=None) -> (state, aux)
+         pc_order=None, depth_src_id=None, camera_src_id=None,
+         sel_half=None) -> (state, aux)
       target: {'camera' [34], 'rgb' [H*W, 3] or None, 'depth' [H*W] or None,
                'depth_range' [1, 2]}
       src:    {'rgbs' [V, Hs, Ws, 3], 'cameras' [V, 34],
-               'featmaps_clean': (coarse, fine) or None}
-      sel, sel_patch: ray indices of the main batch and of the dedicated
-        depth-smooth patch batch; drawn from ``generator`` when None
+               'featmaps_clean': (coarse, fine) or None,
+               'depths' [V, Hs, Ws] (the consistency terms)}
+      sel, sel_patch, sel_half: ray indices of the main batch, of the
+        dedicated depth-smooth patch batch and of the ``ds_rgb`` render;
+        drawn from ``generator`` when None
+      depth_src_id, camera_src_id: the source view each consistency term
+        warps; drawn from ``generator`` when None
       pc_order: with ``use_pcgrad`` and no major loss, the order in which
         each loss's gradient is projected against the others; drawn from
         ``generator`` when None
       aux: {'loss': total, plus one entry per enabled term}, detached
     """
-    unported = cfg.unported()
-    if unported:
-        raise NotImplementedError(
-            "not ported to nerfool_tpu_torch: "
-            + ", ".join(f"--{name}" for name in unported))
     if cfg.density_loss > 0 and not cfg.use_pseudo_gt:
         raise ValueError("--density_loss requires --use_pseudo_gt")
     modules = (bundle.feature_net, bundle.net_coarse, bundle.net_fine)
     nets = bundle.nets
-    # the attack samples random pixels: per-tap gather, never the block plan
-    render_cfg = dataclasses.replace(render_cfg, bspg_specs=None)
+    # the attack samples random pixels: per-tap gather, never the block
+    # plan; and it renders the attacked features alone, as the reference's
+    # attack does (hybrid renders are the evaluator's)
+    render_cfg = dataclasses.replace(render_cfg, bspg_specs=None,
+                                     use_clean_color=False,
+                                     use_clean_density=False)
+    gt_cfg = dataclasses.replace(render_cfg, geo_noise=0.0)
 
     loss_names = cfg.enabled_losses()
     major_idx = (loss_names.index(cfg.major_loss)
                  if cfg.major_loss in loss_names else None)
 
-    def render_subset(feats, target, src, src_cams, sel):
-        cam = target["camera"]
-        rays_o, rays_d = get_rays_at(sel, cfg.w, cam[2:18].reshape(4, 4),
-                                     cam[18:34].reshape(4, 4))
+    def render_at(feats, cam, target, src, src_cams, sel, w, generator,
+                  rcfg=render_cfg):
+        rays_o, rays_d = get_rays_at(sel, w, cam[2:18].reshape(4, 4),
+                                     _c2w(cam))
         batch = {"ray_o": rays_o, "ray_d": rays_d,
                  "depth_range": target["depth_range"], "camera": cam[None]}
-        return render_rays(nets, batch, feats, render_cfg, src["rgbs"],
-                           src_cams)
+        return render_rays(nets, batch, feats, rcfg, src["rgbs"], src_cams,
+                           generator=generator)
 
     def both_levels(fn, ret, *others):
         """fn summed over the coarse and (when rendered) fine outputs."""
@@ -268,18 +301,78 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
                                *(o["outputs_fine"] for o in others))
         return total
 
-    def compute_losses(delta, rot, trans, target, src, sel, sel_patch):
+    def depth_consistency(feats, ret, target, src, src_cams, draws,
+                          generator):
+        """A source view's depth warped into the target, against the
+        rendered depth; with ``ds_rgb`` on its own render at
+        ``resize_factor`` of the target's resolution, whose intrinsics (and
+        the source's, for the warp) are scaled by it."""
+        sid = draws["depth_src_id"]
+        src_cam, tar_cam = src_cams[sid][0], target["camera"]
+        k_src = _k3(src_cam)
+        if cfg.ds_rgb:
+            rf = cfg.resize_factor
+            hh, ww = int(cfg.h * rf), int(cfg.w * rf)
+            scale = torch.ones(4, 4, dtype=tar_cam.dtype,
+                               device=tar_cam.device)
+            scale[:2, :3] = rf
+            tar_cam = torch.cat([tar_cam.new_tensor([hh, ww]),
+                                 (tar_cam[2:18].reshape(4, 4)
+                                  * scale).reshape(-1), tar_cam[18:34]])
+            sel = draws["sel_half"]
+            ret = render_at(feats, tar_cam, target, src, src_cams, sel, ww,
+                            generator)
+            # the first two rows scaled, [2, 2] stays 1
+            k_src = k_src * rf + torch.diag(
+                k_src.new_tensor([0.0, 0.0, 1.0 - rf]))
+        else:
+            sel = draws["sel"]
+        depth_proj = forward_warp(sel, None, src["depths"][sid][0], k_src,
+                                  _c2w(src_cam), _k3(tar_cam),
+                                  _c2w(tar_cam))[3]
+        return both_levels(lambda o: L.smooth_l1(o["depth"], depth_proj,
+                                                 depth_proj > 0), ret)
+
+    def camera_consistency(ret, target, src, src_cams, draws):
+        """rgb and depth warped source -> target and target -> source
+        through the ground-truth depths of both views."""
+        sid, sel = draws["camera_src_id"], draws["sel"]
+        src_cam, tar_cam = src_cams[sid][0], target["camera"]
+        k_tar, e_tar = _k3(tar_cam), _c2w(tar_cam)
+        k_sv, e_sv = _k3(src_cam), _c2w(src_cam)
+        rgb_src, depth_src = src["rgbs"][sid][0], src["depths"][sid][0]
+        _, _, rgb_s2t, depth_s2t = forward_warp(
+            sel, rgb_src, depth_src, k_sv, e_sv, k_tar, e_tar, src2tar=True)
+        _, _, rgb_t2s, depth_t2s, inds_src = forward_warp(
+            sel, target["rgb"].reshape(cfg.h, cfg.w, 3),
+            target["depth"].reshape(cfg.h, cfg.w), k_tar, e_tar, k_sv, e_sv,
+            src2tar=False)
+        top = ret["outputs_fine"] or ret["outputs_coarse"]
+        rgb_tar = (top["rgb"] if cfg.perturb_camera_no_detach
+                   else top["rgb"].detach())
+        cc = (cfg.cam_src2tar * L.smooth_l1(rgb_tar, rgb_s2t, rgb_s2t > 0)
+              + cfg.cam_tar2src * L.smooth_l1(
+                  rgb_src.reshape(-1, 3)[inds_src], rgb_t2s, rgb_t2s > 0))
+        return cc + cfg.cam_depth * (
+            L.smooth_l1(target["depth"][sel], depth_s2t, depth_s2t > 0)
+            + L.smooth_l1(depth_src.reshape(-1)[inds_src], depth_t2s,
+                          depth_t2s > 0))
+
+    def compute_losses(delta, rot, trans, target, src, draws, generator):
         src_cams = (transform_src_cameras(src["cameras"], rot, trans)
                     if cfg.perturb_camera else src["cameras"])
         feats = bundle.extract_features(src["rgbs"] + delta)
+        sel = draws["sel"]
         # delta reaches the renderer only through the feature maps: the RGB
         # taps stay on the clean source pixels, as in the reference
-        ret = render_subset(feats, target, src, src_cams, sel)
+        ret = render_at(feats, target["camera"], target, src, src_cams, sel,
+                        cfg.w, generator)
 
         if cfg.use_pseudo_gt:
             with torch.no_grad():
-                ret_gt = render_subset(src["featmaps_clean"], target, src,
-                                       src_cams, sel)
+                ret_gt = render_at(src["featmaps_clean"], target["camera"],
+                                   target, src, src_cams, sel, cfg.w, None,
+                                   gt_cfg)
             top_gt = ret_gt["outputs_fine"] or ret_gt["outputs_coarse"]
             gt_rgb, gt_depth = top_gt["rgb"], top_gt["depth"]
         else:
@@ -288,6 +381,7 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
             gt_depth = (target["depth"][sel]
                         if target.get("depth") is not None else None)
 
+        # inserted in JAX's order, which is the order of the sum
         terms = {"rgb": both_levels(lambda o: L.rgb_criterion(o, gt_rgb), ret)}
         if cfg.density_loss > 0:
             terms["density"] = cfg.density_loss * both_levels(
@@ -298,19 +392,28 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
         if cfg.depth_diff_loss > 0:
             terms["depth_diff"] = cfg.depth_diff_loss * both_levels(
                 lambda o: L.depth_diff_loss(o, gt_depth), ret)
+        if cfg.depth_consistency_loss > 0:
+            terms["depth_cons"] = cfg.depth_consistency_loss * \
+                depth_consistency(feats, ret, target, src, src_cams, draws,
+                                  generator)
         if cfg.depth_smooth_loss > 0:
             # a dedicated patch batch with the same perturbed features when
             # the main batch is not patch-sampled
-            ret_smooth = (ret if cfg.use_patch_sampling else render_subset(
-                feats, target, src, src_cams, sel_patch))
+            ret_smooth = (ret if cfg.use_patch_sampling else render_at(
+                feats, target["camera"], target, src, src_cams,
+                draws["sel_patch"], cfg.w, generator))
             terms["depth_smooth"] = cfg.depth_smooth_loss * both_levels(
                 lambda o: L.depth_smooth_loss(o["depth"], cfg.patch_size),
                 ret_smooth)
+        if cfg.camera_consistency_loss > 0:
+            terms["camera_cons"] = cfg.camera_consistency_loss * \
+                camera_consistency(ret, target, src, src_cams, draws)
         return terms
 
-    def step(state, target, src, generator=None, sel=None, sel_patch=None,
-             pc_order=None):
-        device = src["rgbs"].device
+    def draw(generator, device, n_src, sel, sel_patch, depth_src_id,
+             camera_src_id, sel_half):
+        """The step's random draws, each taken from ``generator`` unless the
+        caller gave it."""
         if sel is None:
             sel = select_ray_indices(generator, cfg, device)
         if (sel_patch is None and cfg.depth_smooth_loss > 0
@@ -318,6 +421,27 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
             sel_patch = select_ray_indices(
                 generator, dataclasses.replace(cfg, use_patch_sampling=True),
                 device)
+        draws = {"sel": sel, "sel_patch": sel_patch}
+        if cfg.depth_consistency_loss > 0:
+            draws["depth_src_id"] = draw_view(generator, n_src, device,
+                                              depth_src_id)
+            if cfg.ds_rgb and sel_half is None:
+                # the main batch's sampling mode at the reduced resolution
+                sel_half = select_ray_indices(generator, dataclasses.replace(
+                    cfg, h=int(cfg.h * cfg.resize_factor),
+                    w=int(cfg.w * cfg.resize_factor)), device)
+            draws["sel_half"] = sel_half
+        if cfg.camera_consistency_loss > 0:
+            draws["camera_src_id"] = draw_view(generator, n_src, device,
+                                               camera_src_id)
+        return draws
+
+    def step(state, target, src, generator=None, sel=None, sel_patch=None,
+             pc_order=None, depth_src_id=None, camera_src_id=None,
+             sel_half=None):
+        device = src["rgbs"].device
+        draws = draw(generator, device, src["rgbs"].shape[0], sel, sel_patch,
+                     depth_src_id, camera_src_id, sel_half)
         names = ("delta", "rot", "trans") if cfg.perturb_camera else ("delta",)
         params = [state[n].detach().requires_grad_(True) for n in names]
         live = dict(state, **dict(zip(names, params)))
@@ -330,7 +454,7 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
 
         with _frozen(modules), torch.enable_grad():
             terms = compute_losses(live["delta"], live["rot"], live["trans"],
-                                   target, src, sel, sel_patch)
+                                   target, src, draws, generator)
             loss = sum(terms.values())
             if cfg.use_pcgrad:
                 # one backward per loss term over the shared graph: surgery

@@ -8,9 +8,17 @@ sources. Universal (the default): one ``delta`` on a fixed global source set
 train-split target views streamed by a shuffled loader (``--use_unseen_views``:
 each target's pose replaced by an interpolated unseen pose, with a pseudo
 ground truth), then every test view rendered from that perturbed set.
-``--no_attack`` gives the clean rows of either. Renders are measured with
-PSNR and SSIM in the backbone's protocol (TF's for IBRNet, ``img2psnr`` and
-windowed SSIM for GNT). LPIPS is not ported and reads NaN.
+``--no_attack`` gives the clean rows of either. After either attack the
+defenses run on the attacked sources, as in the JAX evaluator:
+``--use_purification`` (``attack/purify.py``: a defensive perturbation
+optimized over streamed train views, then added to ``delta``), then
+``--def_random_noise`` (Gaussian noise on ``delta``). ``--use_clean_color``
+/ ``--use_clean_density`` render the test views as hybrids of the attacked
+and the clean sources' features; ``--geo_noise`` adds noise to IBRNet's
+sigma in the attack's renders and the evaluator's, drawn from the
+evaluator's generator. Renders are measured with PSNR and SSIM in the
+backbone's protocol (TF's for IBRNet, ``img2psnr`` and windowed SSIM for
+GNT). LPIPS is not ported and reads NaN.
 
 The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
 routes the differentiated GNT step through the ray-attention kernel
@@ -18,9 +26,7 @@ routes the differentiated GNT step through the ray-attention kernel
 the no-grad f32 GNT renders, ``--gnt_fused_vt`` their view attention
 through its forward-only kernel (``ops/view_attention.py``; ``auto``, the
 default, = on a CUDA device); on the CPU each takes its kernel's plain
-version. Not ported, raising ``NotImplementedError``
-by flag name: hybrid clean-feature renders, purification, the noise defense,
-``--geo_noise``, and the warp losses ``make_attack_step`` lists.
+version.
 
 GNT renders in float32 or bfloat16 (``--compute_dtype``); IBRNet in float32
 only. ``--gnt_fused_chain`` resolves as in the JAX evaluator: ``auto`` runs
@@ -54,6 +60,11 @@ from nerfool_tpu_torch.attack.attack import (
     init_attack_state,
     make_attack_step,
 )
+from nerfool_tpu_torch.attack.purify import (
+    PurifyConfig,
+    apply_random_noise_defense,
+    make_purify_step,
+)
 from nerfool_tpu_torch.attack.geo_interp import sample_unseen_pose
 from nerfool_tpu_torch.config import on_off_auto
 from nerfool_tpu_torch.data import dataset_dict
@@ -86,6 +97,9 @@ def render_config_from_args(args) -> RenderConfig:
                         ret_alpha=not gnt or bool(args.ret_alpha),
                         stop_camera_grad=not gnt and not getattr(
                             args, "perturb_camera_no_detach", False),
+                        geo_noise=float(args.geo_noise or 0.0),
+                        use_clean_color=bool(args.use_clean_color),
+                        use_clean_density=bool(args.use_clean_density),
                         compute_dtype=args.compute_dtype)
 
 
@@ -104,8 +118,11 @@ def build_attack_config(args, h, w) -> AttackConfig:
         depth_diff_loss=args.depth_diff_loss,
         depth_smooth_loss=args.depth_smooth_loss,
         depth_consistency_loss=args.depth_consistency_loss,
-        ds_rgb=args.ds_rgb,
+        ds_rgb=args.ds_rgb, resize_factor=args.resize_factor,
         camera_consistency_loss=args.camera_consistency_loss,
+        cam_src2tar=args.cam_src2tar, cam_tar2src=args.cam_tar2src,
+        cam_depth=args.cam_depth,
+        perturb_camera_no_detach=args.perturb_camera_no_detach,
         use_pcgrad=args.use_pcgrad, major_loss=args.major_loss,
         perturb_camera=args.perturb_camera,
         perturb_camera_no_opt=args.perturb_camera_no_opt,
@@ -132,12 +149,6 @@ def load_attack_state(path, device="cpu"):
     return state, blob["meta"]
 
 
-# flags of parts that are not ported: (flag, applies to clean runs too)
-_UNPORTED_FLAGS = (("use_clean_color", True), ("use_clean_density", True),
-                   ("use_purification", False), ("def_random_noise", False),
-                   ("geo_noise", False))
-
-
 class Evaluator:
     def __init__(self, args, bundle=None, dataset_kwargs=None, device="cuda",
                  seed=0):
@@ -156,7 +167,10 @@ class Evaluator:
         # the attack's random draws (delta's init, the ray subsets)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
-        self.last_attack = None  # losses and seconds of the newest attack
+        # the newest attack's losses, seconds, loss terms and final state
+        self.last_attack = None
+        self.last_purify = None  # and of the newest purification
+        self.last_defenses = []  # the defenses run after the newest attack
 
     def _dataset(self, mode, **kwargs):
         args = self.args
@@ -189,6 +203,8 @@ class Evaluator:
         src = {"rgbs": self._tensor(data["src_rgbs"]),
                "cameras": self._tensor(data["src_cameras"]).reshape(-1, 34),
                "featmaps_clean": None}
+        if data.get("src_depths") is not None:
+            src["depths"] = self._tensor(data["src_depths"])
         if clean_feats:
             with torch.no_grad():
                 src["featmaps_clean"] = self.bundle.extract_features(
@@ -319,7 +335,7 @@ class Evaluator:
         state = init_attack_state(self.generator, cfg, src["rgbs"], delta)
         n_iters = args.adv_iters
         every = max(1, n_iters // 10)
-        losses = []
+        losses, aux = [], None
         self._sync()
         t0 = time.perf_counter()
         for i in range(n_iters):
@@ -330,15 +346,18 @@ class Evaluator:
                       f"loss={float(aux['loss']):.5f} "
                       f"({(time.perf_counter() - t0) / (i + 1) * 1e3:.0f} "
                       "ms/iter)", flush=True)
-        self._record_attack(t0, losses)
+        self.last_attack = dict(
+            self._loop_record(t0, losses), state=state,
+            terms=tuple(k for k in (aux or {}) if k != "loss"))
         return self._finalize(state, src, cfg)
 
-    def _record_attack(self, t0, losses):
+    def _loop_record(self, t0, losses):
+        """Host seconds since ``t0`` ending in a device synchronize, and the
+        loop's iterations and losses."""
         self._sync()
-        self.last_attack = {
-            "seconds": time.perf_counter() - t0, "iters": len(losses),
-            "losses": (torch.stack(losses).cpu() if losses
-                       else torch.zeros(0))}
+        return {"seconds": time.perf_counter() - t0, "iters": len(losses),
+                "losses": (torch.stack(losses).cpu() if losses
+                           else torch.zeros(0))}
 
     def attack_universal(self, verbose=False, ckpt_path=None):
         """Optimize one ``delta`` on the global source set over train-split
@@ -385,7 +404,7 @@ class Evaluator:
             state = init_attack_state(self.generator, cfg, src["rgbs"])
 
         every = max(1, n_iters // 10)
-        losses = []
+        losses, aux = [], None
         self._sync()
         t0 = time.perf_counter()
         for i in range(start_iter, n_iters):
@@ -416,19 +435,63 @@ class Evaluator:
                     "iters_done": done,
                     "generator": self.generator.get_state(),
                     "pose_rng": rng.get_state()})
-        self._record_attack(t0, losses)
+        self.last_attack = dict(
+            self._loop_record(t0, losses), state=state,
+            terms=tuple(k for k in (aux or {}) if k != "loss"))
         return self._finalize(state, src, cfg)
 
     def _finalize(self, state, src, cfg):
-        for name in ("use_purification", "def_random_noise"):
-            if getattr(self.args, name, 0):
-                raise NotImplementedError(
-                    f"not ported to nerfool_tpu_torch: --{name}")
+        """The attacked ``delta`` after the defenses (purification, then
+        the noise defense), the sources, and the cameras moved by the
+        camera-pose attack. ``last_defenses`` names the defenses run."""
+        args = self.args
+        delta = state["delta"]
         src_cameras = src["cameras"]
         if cfg.perturb_camera:
             src_cameras = transform_src_cameras(src_cameras, state["rot"],
                                                 state["trans"])
-        return state["delta"], src, src_cameras
+        self.last_defenses = []
+        if args.use_purification:
+            delta = self._purify(delta, src)
+            self.last_defenses.append("purification")
+        if args.def_random_noise > 0:
+            delta = apply_random_noise_defense(self.generator, delta,
+                                               args.def_random_noise)
+            self.last_defenses.append("random_noise")
+        return delta, src, src_cameras
+
+    def _purify(self, delta, src):
+        """``--purif_iters`` purification steps over train-split views
+        streamed by a shuffled loader (seed 1); returns ``delta + purif``.
+        ``last_purify`` keeps the losses and the host seconds of the loop,
+        ending in a device synchronize."""
+        args = self.args
+        it = iter(Loader(self._dataset("train"), shuffle=True, seed=1,
+                         num_workers=args.workers, infinite=True))
+        _, (h, w) = self._make_target(next(it))
+        cfg = PurifyConfig(
+            h=h, w=w, purif_epsilon=args.purif_epsilon,
+            purif_iters=args.purif_iters, adam_lr=args.adam_lr or 1e-3,
+            lr_step_size=args.lr_step_size, lr_gamma=args.lr_gamma,
+            n_rand=args.N_rand, sample_mode=args.sample_mode,
+            center_ratio=args.center_ratio,
+            use_patch_sampling=args.use_patch_sampling,
+            patch_size=args.patch_size,
+            use_self_purification=args.use_self_purification,
+            purif_consistency_loss=args.purif_consistency_loss)
+        init_state, step = make_purify_step(self.bundle,
+                                            self._grad_render_cfg(), cfg)
+        state = init_state(self.generator, src["rgbs"], delta)
+        losses = []
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(args.purif_iters):
+            target, _ = self._make_target(next(it))
+            state, aux = step(state, target, src, delta,
+                              generator=self.generator)
+            losses.append(aux["loss"])
+        self.last_purify = self._loop_record(t0, losses)
+        return delta + state["purif"]
 
     def render_view(self, data, src, delta=None, src_cameras=None):
         """Whole-frame render of one test view from its source views, whose
@@ -450,6 +513,8 @@ class Evaluator:
         }
         feats = self.bundle.extract_features(
             src["rgbs"] if delta is None else src["rgbs"] + delta)
+        feats_clean = (self.bundle.extract_features(src["rgbs"])
+                       if self.render_cfg.hybrid else None)
         rcfg = self.view_render_cfg(int(src_cameras.shape[0]))
         if rcfg.bspg_specs is not None and self._bspg_hw != (h, w):
             rcfg = self._per_tap(rcfg, f"the BSPG plan covers "
@@ -458,20 +523,12 @@ class Evaluator:
         return render_single_image(
             self.bundle.nets, batch, feats, rcfg, h, w, src["rgbs"],
             src_cameras, chunk_size=args.chunk_size,
-            render_stride=args.render_stride)
+            render_stride=args.render_stride, featmaps_clean=feats_clean,
+            generator=self.generator)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def _check_ported(self):
-        args = self.args
-        bad = [name for name, clean_too in _UNPORTED_FLAGS
-               if getattr(args, name, 0) and (clean_too or not args.no_attack)]
-        if bad:
-            raise NotImplementedError(
-                "not ported to nerfool_tpu_torch: "
-                + ", ".join(f"--{name}" for name in bad))
 
     def evaluate(self, max_views=None, verbose=True, out_dir=None):
         """Attack (once on the global source set, or per view under
@@ -485,7 +542,6 @@ class Evaluator:
         With ``--i_attack_ckpt`` and an ``out_dir`` the universal attack is
         checkpointed to and resumed from ``out_dir/attack_state.pt``."""
         args = self.args
-        self._check_ported()
         scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
         psnr_fn, ssim_fn = ((img2psnr, ssim_windowed)
                             if args.backbone == "gnt" else (psnr, ssim))

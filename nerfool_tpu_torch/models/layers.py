@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nerfool_tpu_torch.utils import numerics
+
 
 def conv_reflect(cin, cout, kernel_size, stride=1, padding=None, bias=False):
     """2D conv with reflect padding (``nn.Conv2d(padding_mode='reflect')``)."""
@@ -36,9 +38,11 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):  # [N, C, H, W]
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = x32.mean(dim=(2, 3), keepdim=True)
-        var = x32.var(dim=(2, 3), keepdim=True, unbiased=False)
-        y = (x32 - mean) / torch.sqrt(var + self.eps)
+        # JAX's formula (two passes, a sqrt rounded to nearest): over maps of
+        # a few pixels the normalisation amplifies every rounding difference
+        c = x32 - x32.mean(dim=(2, 3), keepdim=True)
+        var = (c * c).mean(dim=(2, 3), keepdim=True)
+        y = c / numerics.sqrt(var + self.eps)
         y = y * self.weight[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 

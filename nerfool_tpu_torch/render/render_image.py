@@ -5,9 +5,13 @@ With BSPG specs the rays are first reordered into bh x bw pixel blocks
 (padding rays replicate the border pixel), rendered block-major in chunks of
 whole blocks, and put back in raster order before the image reshape. A
 ``chunk_size`` that is not a multiple of the block is rounded down to one (at
-least one block), and that is said once per chunk size and block.
+least one block), and that is said once per chunk size and block. Hybrid
+renders (``featmaps_clean`` with ``use_clean_color`` / ``use_clean_density``)
+take the per-tap gather, as in JAX.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -52,8 +56,10 @@ def block_major_order(hs, ws, bh, bw):
 
 def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                         src_rgbs, src_cameras, chunk_size=4096,
-                        render_stride=1):
+                        render_stride=1, featmaps_clean=None, generator=None):
     """Render a full frame; outputs reshaped to (H', W', ...).
+    ``featmaps_clean``: the clean branch of hybrid renders; ``generator``:
+    the source of the ``geo_noise`` draws.
 
     IBRNet's coarse rgb is painted white where the ray mask is empty (the
     reference's contract); its fine rgb is not. GNT outputs carry no mask
@@ -64,6 +70,8 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
     ray_o, ray_d = ray_batch["ray_o"], ray_batch["ray_d"]
     inv = None
     tables = None
+    if cfg.hybrid:
+        cfg = dataclasses.replace(cfg, bspg_specs=None)
     if cfg.bspg_specs is not None:
         bh, bw = cfg.bspg_specs[0].block
         chunk_size = block_chunk(chunk_size, bh, bw)
@@ -80,7 +88,9 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
         batch["ray_o"] = ray_o[i:i + chunk_size]
         batch["ray_d"] = ray_d[i:i + chunk_size]
         chunks.append(render_rays(nets, batch, featmaps, cfg, src_rgbs,
-                                  src_cameras, tables=tables))
+                                  src_cameras, tables=tables,
+                                  featmaps_clean=featmaps_clean,
+                                  generator=generator))
 
     ret = {}
     for level in ("outputs_coarse", "outputs_fine"):

@@ -7,6 +7,15 @@ differ in the aggregator and in how its raw output becomes radiance:
   * ibrnet: aggregator -> [R, S, 4] raw, alpha-composited by raw2outputs
   * gnt:    aggregator -> [R, 3 (+ S)] rgb (+ attention weights as density)
 
+Hybrid renders (``use_clean_color`` / ``use_clean_density``, the paper's
+density-versus-colour analysis) shade the clean features beside the attacked
+ones on the per-tap route and mix the two: IBRNet takes raw colour or sigma
+from the clean branch at both levels; GNT takes rgb or the attention weights
+from the clean branch at the coarse level only, keeps the attacked depth, and
+renders the fine level from the attacked features (the reference's quirks,
+kept). ``geo_noise`` adds Gaussian noise to IBRNet's sigma before
+compositing, drawn from the caller's generator or handed in.
+
 In bfloat16 (``compute_dtype``) the aggregator and its inputs run in bf16:
 the BSPG patch tables are cast before packing, and the gathered taps, ray
 differences, mask, points and ray directions before the aggregator, whose
@@ -48,6 +57,11 @@ class RenderConfig:
     # IBRNet stack does, the GNT stack does not (camera-pose attack
     # gradients flow through the projection)
     stop_camera_grad: bool = True
+    # std of the noise on IBRNet's sigma (a defense ablation; 0: none)
+    geo_noise: float = 0.0
+    # hybrid renders: colour / density from the clean features' branch
+    use_clean_color: bool = False
+    use_clean_density: bool = False
     # aggregator dtype: 'float32' or 'bfloat16'
     compute_dtype: str = "float32"
     # gnt in bfloat16: run the aggregation through the whole-chain kernel
@@ -69,6 +83,10 @@ class RenderConfig:
     # block-major and taps are rebuilt from per-(block, view) patch rows;
     # None keeps the per-tap gather
     bspg_specs: Optional[tuple] = None
+
+    @property
+    def hybrid(self):
+        return self.use_clean_color or self.use_clean_density
 
     @property
     def dtype(self):
@@ -97,7 +115,8 @@ def _chain_route(cfg, dtype):
 
 def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
            merged=None):
-    """Run the level's aggregator on gathered taps; raw output in f32.
+    """Run the level's aggregator on gathered taps; raw output in f32 (f64
+    stays f64).
     ``merged``: the chain's ``[V, R, S, 3 + c + 5]`` input already written
     by the caller (BSPG), ``rgb_feat`` a view of it."""
     dt = cfg.dtype
@@ -117,14 +136,15 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
         raw = net(rgb_feat, ray_diff, mask, pts, ray_d,
                   fused_attn=cfg.gnt_fused_attn, fused_vt=cfg.gnt_fused_vt,
                   fused_vt_lp=cfg.gnt_fused_vt_lp)
-    return raw.float()
+    return raw.to(torch.promote_types(raw.dtype, torch.float32))
 
 
-def _finalize(cfg, raw, z_vals, pixel_mask):
+def _finalize(cfg, raw, z_vals, pixel_mask, noise=None):
     """Raw aggregator output -> per-ray outputs. GNT: rgb directly, the
-    attention row as compositing weights, no validity mask."""
+    attention row as compositing weights, no validity mask, no noise."""
     if cfg.backbone == "ibrnet":
-        return raw2outputs(raw, z_vals, pixel_mask, white_bkgd=cfg.white_bkgd)
+        return raw2outputs(raw, z_vals, pixel_mask, white_bkgd=cfg.white_bkgd,
+                           geo_noise=cfg.geo_noise, noise=noise)
     if not cfg.ret_alpha:
         return {"rgb": raw}
     weights = raw[:, 3:]
@@ -133,7 +153,8 @@ def _finalize(cfg, raw, z_vals, pixel_mask):
 
 
 def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
-                src_cameras, tables=None):
+                src_cameras, tables=None, featmaps_clean=None, generator=None,
+                noise=None):
     """Render a batch of rays (coarse + optional fine pass).
 
     :param nets: {'net_coarse', 'net_fine'} aggregator modules
@@ -143,43 +164,85 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
     :param src_rgbs: [V, H, W, 3]; src_cameras: [V, 34]
     :param tables: BSPG patch tables from make_bspg_tables (built here when
         None and the config asks for BSPG)
+    :param featmaps_clean: the clean sources' (coarse, fine) features, for
+        hybrid renders (which take the per-tap gather)
+    :param generator: the ``torch.Generator`` of the ``geo_noise`` draws
+    :param noise: (coarse [R, S], fine [R, S + I]) standard normal draws
+        used instead of the generator's
     :return: {'outputs_coarse': {...}, 'outputs_fine': {...} | None}
     """
+    if cfg.hybrid and featmaps_clean is None:
+        raise ValueError("hybrid renders need the clean features")
     pts, z_vals = sample_along_camera_ray(
         ray_batch["ray_o"], ray_batch["ray_d"], ray_batch["depth_range"],
         cfg.n_samples, inv_uniform=cfg.inv_uniform)
-    if cfg.bspg_specs is not None:
+    if cfg.bspg_specs is not None and not cfg.hybrid:
         if tables is None:
             tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs,
                                       cfg.dtype)
         return _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables,
-                                 pts, z_vals)
+                                 pts, z_vals, generator, noise)
 
     cam = ray_batch["camera"].reshape(-1)[:34]
+    cams = src_cameras.detach() if cfg.stop_camera_grad else src_cameras
 
-    def run_level(pts_l, z_l, li):
+    def shade(pts_l, li, feats):
         rgb, feat, ray_diff, mask = epipolar_gather_components(
-            pts_l, cam, src_rgbs,
-            src_cameras.detach() if cfg.stop_camera_grad else src_cameras,
-            featmaps[li])
+            pts_l, cam, src_rgbs, cams, feats[li])
         raw = _shade(cfg, nets, li, torch.cat([rgb, feat], dim=-1), ray_diff,
                      mask, pts_l, ray_batch["ray_d"])
-        pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
-        return _finalize(cfg, raw, z_l, pixel_mask)
+        return raw, torch.sum(mask[..., 0], dim=0) > 1
 
+    def run_level(pts_l, z_l, li):
+        raw, pixel_mask = shade(pts_l, li, featmaps)
+        if cfg.hybrid and (cfg.backbone == "ibrnet" or li == 0):
+            raw_clean, _ = shade(pts_l, li, featmaps_clean)
+            if cfg.backbone == "ibrnet":
+                raw = torch.cat([
+                    (raw_clean if cfg.use_clean_color else raw)[..., :3],
+                    (raw_clean if cfg.use_clean_density else raw)[..., 3:4]],
+                    dim=-1)
+            else:  # the attacked depth either way
+                out = _finalize(cfg, raw, z_l, pixel_mask)
+                clean = _finalize(cfg, raw_clean, z_l, pixel_mask)
+                if cfg.use_clean_color:
+                    out["rgb"] = clean["rgb"]
+                if cfg.use_clean_density:
+                    out["weights"] = clean["weights"]
+                return out
+        return _finalize(cfg, raw, z_l, pixel_mask,
+                         _noise(cfg, noise, generator, li, raw))
+
+    return _two_levels(cfg, run_level, pts, z_vals, ray_batch["ray_o"],
+                       ray_batch["ray_d"])
+
+
+def _noise(cfg, noise, generator, li, raw):
+    """The level's standard normal draw for ``geo_noise`` (IBRNet), or
+    None."""
+    if cfg.backbone != "ibrnet" or not cfg.geo_noise > 0:
+        return None
+    if noise is not None:
+        return noise[li]
+    return torch.randn(raw.shape[:2], generator=generator, dtype=raw.dtype,
+                       device=raw.device)
+
+
+def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d):
+    """The coarse level, then the fine one at importance-sampled depths."""
     coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
         z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
                                   cfg.n_importance,
                                   inv_uniform=cfg.inv_uniform)
-        pts_fine = (z_all[..., None] * ray_batch["ray_d"][:, None, :]
-                    + ray_batch["ray_o"][:, None, :])
+        pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
         ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
     return ret
 
 
-def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
+def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals,
+                      generator, noise):
     """Coarse + fine rendering through the block segment-patch gather.
 
     Rays arrive BLOCK-MAJOR (render_image reorders raster rays into bh x bw
@@ -256,14 +319,7 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals):
         raw = _shade(cfg, nets, li, buf[..., :ci], ray_diff, mask, pts_l,
                      ray_d, buf if chain else None)
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
-        return _finalize(cfg, raw, z_l, pixel_mask)
+        return _finalize(cfg, raw, z_l, pixel_mask,
+                         _noise(cfg, noise, generator, li, raw))
 
-    coarse = run_level(pts, z_vals, 0)
-    ret = {"outputs_coarse": coarse, "outputs_fine": None}
-    if cfg.n_importance > 0:
-        z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
-                                  cfg.n_importance,
-                                  inv_uniform=cfg.inv_uniform)
-        pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
-        ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
-    return ret
+    return _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d)

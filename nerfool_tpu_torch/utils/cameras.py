@@ -44,11 +44,11 @@ def get_rays_at(sel, w, intrinsics, c2w):
 
     :param sel: [N] integer row-major pixel indices (v * w + u)
     :param w: image width
-    :param intrinsics, c2w: [4, 4] float32 tensors
+    :param intrinsics, c2w: [4, 4] float tensors (the rays' dtype)
     :return: (rays_o [N, 3], rays_d [N, 3])
     """
-    u = (sel % w).to(torch.float32)
-    v = torch.div(sel, w, rounding_mode="floor").to(torch.float32)
+    u = (sel % w).to(intrinsics.dtype)
+    v = torch.div(sel, w, rounding_mode="floor").to(intrinsics.dtype)
     pixels = torch.stack([u, v, torch.ones_like(u)], dim=0)
     k_inv = torch.linalg.inv(intrinsics[:3, :3])
     rays_d = (c2w[:3, :3] @ (k_inv @ pixels)).T.contiguous()

@@ -19,7 +19,9 @@ than its float32 one, so for it only the cosine is printed.
 ``--port-variant`` changes the port's float32 arithmetic on the CPU for the
 run: ``features_f64`` computes the feature net in float64 and rounds its
 output, ``conv_f64`` its convolutions alone, ``native_conv`` takes
-PyTorch's own convolution in place of oneDNN's.
+PyTorch's own convolution in place of oneDNN's, ``instancenorm_var`` puts
+back the InstanceNorm the port had before it took JAX's formula
+(``Tensor.var`` and ``torch.sqrt``).
 """
 import dataclasses
 import json
@@ -32,7 +34,8 @@ import tempfile
 import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
-VARIANTS = ("none", "features_f64", "conv_f64", "native_conv")
+VARIANTS = ("none", "features_f64", "conv_f64", "native_conv",
+            "instancenorm_var")
 CASES = {  # name: (backbone, n_importance, camera grads, pcgrad, AttackConfig)
     "every_loss": ("ibrnet", 8, False, False, dict(
         use_adam=True, adam_lr=1e-3, use_pseudo_gt=True, density_loss=0.5,
@@ -71,6 +74,17 @@ def _variant(name):
             out = torch.func.functional_call(self, params, (x.double(),))
             return tuple(None if o is None else o.float() for o in out)
         ResUNet.forward = forward64
+    elif name == "instancenorm_var":
+        from nerfool_tpu_torch.models.layers import InstanceNorm
+
+        def norm_var(self, x):
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = x32.mean(dim=(2, 3), keepdim=True)
+            var = x32.var(dim=(2, 3), keepdim=True, unbiased=False)
+            y = (x32 - mean) / torch.sqrt(var + self.eps)
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+            return y.to(x.dtype)
+        InstanceNorm.forward = norm_var
 
 
 def _steps(f64, sels):

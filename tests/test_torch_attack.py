@@ -39,6 +39,7 @@ from nerfool_tpu.utils.cameras import get_rays as j_get_rays
 from nerfool_tpu_torch.attack import attack as t_attack
 from nerfool_tpu_torch.attack import losses as t_losses
 from nerfool_tpu_torch.attack import perturb as t_perturb
+from nerfool_tpu_torch.engine import build_attack_config
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.convert import params_from_flax
 from nerfool_tpu_torch.render.render_rays import RenderConfig
@@ -335,27 +336,57 @@ def test_every_loss_term_matches_jax():
     _check_direction(tstate["m"].numpy(), jstate["opt_state"][0].mu[0])
 
 
-# ---- what is not ported raises ----
+# ---- the consistency options run ----
 
-@pytest.mark.parametrize("flag,value", [
-    ("depth_consistency_loss", 0.5), ("camera_consistency_loss", 0.5),
-    ("ds_rgb", True)])
-def test_unported_attack_options_raise(flag, value):
-    tb = create_model(backbone="ibrnet", seed=0)
-    cfg = t_attack.AttackConfig(h=H, w=W, **{flag: value})
-    assert cfg.unported() == [flag]
-    with pytest.raises(NotImplementedError, match=flag):
-        t_attack.make_attack_step(tb, RenderConfig(n_samples=8), cfg)
+def _ran(ev):
+    """What an evaluator's last run did: the attack's loss terms, the
+    defenses, the hybrid render modes and the sigma noise."""
+    cfg = ev.render_cfg
+    ran = set(ev.last_attack["terms"]) if ev.last_attack else set()
+    ran |= set(ev.last_defenses)
+    ran |= {n for n in ("use_clean_color", "use_clean_density")
+            if getattr(cfg, n)}
+    return ran | ({"geo_noise"} if cfg.geo_noise > 0 else set())
+
+
+def _run_tiny(tmp_path, argv, dataset_kwargs):
+    """``eval_adv``'s evaluator on one view: (evaluator, the view's row)."""
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.engine import Evaluator
+
+    args = eval_adv.parse_args([*argv, "--max_views", "1"])
+    ev = Evaluator(args, dataset_kwargs=dataset_kwargs, device="cpu", seed=0)
+    res = ev.evaluate(max_views=1, verbose=False)["synthetic"]
+    row = next(v for v in res.values() if isinstance(v, dict))
+    assert np.isfinite([row["coarse_psnr"], row["coarse_ssim"]]).all()
+    return ev, row
+
+
+@pytest.mark.parametrize("flag,value,ran", [
+    ("depth_consistency_loss", 0.5, {"rgb", "depth_cons"}),
+    ("camera_consistency_loss", 0.5, {"rgb", "camera_cons"}),
+    ("ds_rgb", True, {"rgb"})])
+def test_consistency_options_run(tmp_path, monkeypatch, flag, value, ran):
+    """A tiny view-specific ``eval_adv`` run with each option (1 iteration,
+    32 rays, 24x32 frames) gives finite rows and reports the terms it ran;
+    ``--ds_rgb`` alone changes nothing, as in JAX."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--eval_dataset", "synthetic", "--N_samples", "12",
+            "--num_source_views", "4", "--rootdir", str(tmp_path),
+            "--workers", "0", "--device", "cpu", "--N_rand", "32",
+            "--adv_iters", "1", "--view_specific", "--use_adam",
+            f"--{flag}", *(() if value is True else (str(value),))]
+    ev, _ = _run_tiny(tmp_path, argv, {"n_views": 8, "h": H, "w": W})
+    assert getattr(build_attack_config(ev.args, H, W), flag) == value
+    assert _ran(ev) == ran
 
 
 @pytest.mark.parametrize("flag", ["use_pcgrad", "perturb_camera",
                                   "perturb_camera_no_opt"])
 def test_ported_attack_options_build_a_step(flag):
-    """Gradient surgery and the camera-pose attack are ported: their flags
-    are no longer listed as missing, and a step is built."""
+    """Gradient surgery and the camera-pose attack build a step."""
     tb = create_model(backbone="ibrnet", seed=0)
     cfg = t_attack.AttackConfig(h=H, w=W, **{flag: True})
-    assert cfg.unported() == []
     assert callable(t_attack.make_attack_step(tb, RenderConfig(n_samples=8),
                                               cfg))
 

@@ -14,8 +14,9 @@ the port to the same bounds with GNT's protocol (img2psnr, windowed SSIM).
 The attacked evaluator (``python -m nerfool_tpu_torch.eval_adv``) is driven
 on the CPU for both backbones: finite rows after 2 iterations, the clean
 rows exactly under a zero perturbation (``--epsilon 0``), the transfer
-attack, and a clear error for every option that is not ported (the universal
-attack's own cases are in tests/test_torch_universal.py). Attacked
+attack, and every consistency term, defense and hybrid render mode in a
+tiny run (the universal attack's own cases are in
+tests/test_torch_universal.py). Attacked
 metrics are not compared with JAX's: trajectories diverge chaotically after
 a few iterations; tests/test_torch_attack.py compares single steps.
 """
@@ -47,6 +48,8 @@ from nerfool_tpu_torch.config import config_parser, port_parser
 from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.convert import params_from_flax
+
+from tests.test_torch_attack import _ran, _run_tiny
 
 # the test tier runs several worker processes on a few cores: two math
 # threads per process instead of one per core keeps them from thrashing
@@ -332,27 +335,33 @@ def test_transfer_attack_reuses_the_first_views_delta(tmp_path, monkeypatch):
     assert np.isfinite([r["coarse_psnr"] for r in rows]).all()
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--view_specific", "--geo_noise", "0.1"), "geo_noise"),
-    (("--view_specific", "--use_pcgrad", "--ds_rgb"), "ds_rgb"),
+@pytest.mark.parametrize("flags,ran", [
+    (("--view_specific", "--geo_noise", "0.1"), {"rgb", "geo_noise"}),
+    (("--view_specific", "--use_pcgrad", "--ds_rgb"), {"rgb"}),
     (("--view_specific", "--perturb_camera", "--camera_consistency_loss",
-      "0.5"), "camera_consistency_loss"),
+      "0.5"), {"rgb", "camera_cons"}),
     (("--view_specific", "--depth_consistency_loss", "0.5"),
-     "depth_consistency_loss"),
+     {"rgb", "depth_cons"}),
     (("--view_specific", "--camera_consistency_loss", "0.5"),
-     "camera_consistency_loss"),
-    (("--view_specific", "--ds_rgb"), "ds_rgb"),
-    (("--view_specific", "--use_purification"), "use_purification"),
-    (("--view_specific", "--def_random_noise", "0.1"), "def_random_noise"),
+     {"rgb", "camera_cons"}),
+    (("--view_specific", "--ds_rgb"), {"rgb"}),
+    (("--view_specific", "--use_purification"), {"rgb", "purification"}),
+    (("--view_specific", "--def_random_noise", "0.1"),
+     {"rgb", "random_noise"}),
     (("--view_specific", "--use_unseen_views", "--use_purification"),
-     "use_purification"),
-    (("--view_specific", "--use_clean_color"), "use_clean_color"),
+     {"rgb", "purification"}),
+    (("--view_specific", "--use_clean_color"), {"rgb", "use_clean_color"}),
     (("--view_specific", "--no_attack", "--use_clean_density"),
-     "use_clean_density"),
+     {"use_clean_density"}),
 ])
-def test_unported_options_raise_by_name(tmp_path, monkeypatch, flags, match):
+def test_defense_and_consistency_options_run_by_name(tmp_path, monkeypatch,
+                                                     flags, ran):
+    """Each flag set in a tiny view-specific ``eval_adv`` run (1 iteration,
+    1 purification step, 32 rays) gives finite rows and reports the terms,
+    defenses and render modes it ran (``--ds_rgb`` without the
+    depth-consistency term changes nothing, as in JAX)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        port_eval_adv.main(_port_argv(tmp_path, "--adv_iters", "1",
-                                      "--N_rand", "32", "--max_views", "1",
-                                      "--use_bspg", "False", *flags))
+    ev, _ = _run_tiny(tmp_path, _port_argv(
+        tmp_path, "--adv_iters", "1", "--purif_iters", "1", "--N_rand", "32",
+        "--use_bspg", "False", *flags), SMALL)
+    assert _ran(ev) == ran

@@ -29,8 +29,8 @@ import torch
 
 from helpers import orbit_cameras
 from tests.test_engine import _engine_args
-from tests.test_torch_attack import (H, W, _check_direction, _render_cfgs,
-                                     _scene, _t)
+from tests.test_torch_attack import (H, W, _check_direction, _ran,
+                                     _render_cfgs, _run_tiny, _scene, _t)
 
 from nerfool_tpu.attack import attack as j_attack
 from nerfool_tpu.attack import geo_interp as j_geo
@@ -517,19 +517,22 @@ def test_pose_attack_renders_per_tap(tmp_path, monkeypatch, capsys):
         "size covers the epipolar spans of this camera set"]
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--use_purification",), "use_purification"),
-    (("--def_random_noise", "0.1"), "def_random_noise"),
-    (("--geo_noise", "0.1"), "geo_noise"),
-    (("--no_attack", "--use_clean_color"), "use_clean_color"),
-    (("--use_clean_density",), "use_clean_density"),
-    (("--depth_consistency_loss", "0.5"), "depth_consistency_loss"),
-    (("--camera_consistency_loss", "0.5"), "camera_consistency_loss"),
-    (("--ds_rgb",), "ds_rgb"),
+@pytest.mark.parametrize("flags,ran", [
+    (("--use_purification",), {"rgb", "purification"}),
+    (("--def_random_noise", "0.1"), {"rgb", "random_noise"}),
+    (("--geo_noise", "0.1"), {"rgb", "geo_noise"}),
+    (("--no_attack", "--use_clean_color"), {"use_clean_color"}),
+    (("--use_clean_density",), {"rgb", "use_clean_density"}),
+    (("--depth_consistency_loss", "0.5"), {"rgb", "depth_cons"}),
+    (("--camera_consistency_loss", "0.5"), {"rgb", "camera_cons"}),
+    (("--ds_rgb",), {"rgb"}),
 ])
-def test_universal_unported_options_raise_by_name(tmp_path, monkeypatch,
-                                                  flags, match):
+def test_universal_defense_and_consistency_options_run_by_name(
+        tmp_path, monkeypatch, flags, ran):
+    """Each flag set in a tiny universal ``eval_adv`` run (1 iteration on
+    the global source set, 1 purification step) gives finite rows and
+    reports the terms, defenses and render modes it ran."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        port_eval_adv.main(_argv(tmp_path, "--adv_iters", "1", "--max_views",
-                                 "1", *flags))
+    ev, _ = _run_tiny(tmp_path, _argv(tmp_path, "--adv_iters", "1",
+                                      "--purif_iters", "1", *flags), TINY)
+    assert _ran(ev) == ran
