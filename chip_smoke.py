@@ -116,6 +116,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
      defended sources' attacked frame as hybrids, ``--use_clean_density``
      and ``--use_clean_color`` with ``--gnt_fused_attn on`` (per-tap route:
      K3 forward and K4 launches = chunks x depth x both branches)
+ 17. the evaluator's outputs: random LPIPS weights written with the port's
+     ``save_lpips_weights``; one clean view per backbone (IBRNet at
+     378x504 on phase 6's plan, GNT in bf16 at render_stride 2 on phase 9's)
+     through ``Evaluator.evaluate`` with ``--lpips_weights`` and
+     ``--export_adv_source_img`` into a temporary directory: finite LPIPS
+     per level, equal to a recompute on the card and within rtol 1e-4 of the
+     CPU's LPIPS of the same frame, its ms per frame; the exact file set of
+     the dumps, each PNG's IHDR (width, height, bit depth, colour type)
+     against its array; K1 against its plain version at the IBRNet slice's
+     bf16 table shapes, both levels; the IBRNet view-specific attack and the
+     GNT attack with ``--feature_dtype bfloat16`` in turns with f32 features
+     (f32, bf16, bf16, f32; 2 warm-up and 4 timed iterations), delta inside
+     its bounds, K3 launches = iterations x depth; the IBRNet frame with
+     ``--compute_dtype bfloat16`` in turns with f32 on BSPG (K1 on bf16
+     tables, launches = tables x levels x chunks) and per tap, rays/s, the
+     BSPG bf16 frame's coarse rgb no farther from the f32 frame than twice
+     the per-tap bf16 frame is
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
@@ -124,8 +141,10 @@ line ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -298,6 +317,18 @@ TOL_VT_RENDER = TOL_FUSED_RENDER
 # gnt_cross_device); the K2 render rounds less than the plain path, so its
 # spread should be no larger, and 2x leaves room for the rounding orders
 GNT_RENDER_FACTOR = 2.0
+# LPIPS on the card against the CPU's LPIPS of the same frame: two float32
+# VGG16s (TF32 off) that differ in the convolutions' summation order only,
+# as the CPU port and the JAX package differ; tests/test_torch_lpips.py holds
+# those two at rtol 1e-4, so the card is held at the same
+TOL_LPIPS_REL = 1e-4
+# IBRNet in bf16 (phase 17): the BSPG frame (K1 on bf16 tables) against the
+# f32 frame may sit at most this multiple of the per-tap bf16 frame's own
+# distance from its f32 frame: both round the aggregator's inputs and
+# weights to bf16; BSPG interpolates bf16 texels where per tap rounds the
+# interpolated value, which moves the error's pattern, not its scale
+# (tests/test_torch_bf16.py holds both routes to JAX's bf16 render so)
+IBR_BF16_FACTOR = 2.0
 
 
 def log(phase, msg):
@@ -1752,6 +1783,250 @@ def defended_attack(ibr_bundle, gnt_bundle, card):
     return out
 
 
+def png_header(path):
+    """(width, height, bit depth, colour type) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">IIBB", head[16:26])
+
+
+def lpips_rows(name, ev, wpath, tmp, card):
+    """One clean view through ``Evaluator.evaluate`` with LPIPS and the
+    dumps; LPIPS against a recompute on the card and the CPU's of the same
+    frame; the dumps' file set and headers. Returns the stats dict."""
+    import numpy as np
+    import torch
+    from nerfool_tpu_torch.metrics import lpips as lp
+
+    out_dir = os.path.join(tmp, name)
+    res = ev.evaluate(max_views=1, verbose=False, out_dir=out_dir)
+    data = ev.test_dataset[0]
+    fid = os.path.splitext(os.path.basename(data["rgb_path"]))[0]
+    row = res["synthetic"][fid]
+    src = ev._make_src(data)
+    with torch.inference_mode():
+        ret = ev.render_view(data, src)
+    stride = ev.args.render_stride
+    gt_np = np.asarray(data["rgb"])[::stride, ::stride]
+    gt = ev._tensor(gt_np)
+    card_fn = ev._build_lpips()
+    cpu_fn = lp.LPIPS(card_fn.normalize).load_params(
+        lp.load_lpips_weights(wpath))
+    levels = [lv for lv in ("coarse", "fine")
+              if ret[f"outputs_{lv}"] is not None]
+    stats = {"levels": {}}
+    for lv in levels:
+        pred = torch.clamp(ret[f"outputs_{lv}"]["rgb"], 0, 1)
+        with torch.no_grad():
+            again = float(card_fn(pred[None], gt[None])[0])
+            ms = time_ms(lambda: card_fn(pred[None], gt[None]), 5)
+            cpu = float(cpu_fn(pred[None].cpu(), gt[None].cpu())[0])
+        rel = abs(again - cpu) / abs(cpu)
+        stats["levels"][lv] = dict(lpips=row[f"{lv}_lpips"], recompute=again,
+                                   cpu=cpu, rel_err=rel, ms=ms)
+        if not (math.isfinite(row[f"{lv}_lpips"])
+                and abs(row[f"{lv}_lpips"] - again) <= 1e-6 * abs(again)
+                and rel <= TOL_LPIPS_REL):
+            raise AssertionError(f"{name} {lv} LPIPS: {stats['levels'][lv]}")
+    if ev.args.backbone == "gnt" and (levels != ["coarse"] or math.isfinite(
+            row["fine_lpips"])):
+        raise AssertionError(f"GNT LPIPS levels {levels}, row {row}")
+    # the dumps: the exact file set, each header against its array
+    hs, ws = gt_np.shape[:2]
+    h, w = np.asarray(data["rgb"]).shape[:2]
+    want = {f"{fid}_gt_rgb.png": (ws, hs, 8, 2),
+            f"{fid}_average.png": (w, h, 8, 2)}
+    for lv in levels:
+        outs = ret[f"outputs_{lv}"]
+        want[f"{fid}_pred_{lv}.png"] = want[f"{fid}_err_map_{lv}.png"] = (
+            ws, hs, 8, 2)
+        if outs.get("depth") is not None:
+            want[f"{fid}_depth_{lv}.png"] = (ws, hs, 16, 0)
+            want[f"{fid}_depth_vis_{lv}.png"] = (ws, hs, 8, 2)
+        if outs.get("weights") is not None:
+            want[f"{fid}_acc_map_{lv}.png"] = (ws, hs, 8, 2)
+    for j in range(src["rgbs"].shape[0]):
+        want[f"adv_src_0_{j}.png"] = (w, h, 8, 2)
+    got = {f for f in os.listdir(out_dir) if f.endswith(".png")}
+    if got != set(want):
+        raise AssertionError(f"{name} dumps: {sorted(got ^ set(want))} "
+                             "differ from the expected set")
+    for f, head in want.items():
+        if png_header(os.path.join(out_dir, f)) != head:
+            raise AssertionError(f"{name} {f}: IHDR "
+                                 f"{png_header(os.path.join(out_dir, f))}, "
+                                 f"expected {head}")
+    stats["files"] = len(want)
+    log("evaluator outputs", f"{name} {hs}x{ws}: LPIPS " + ", ".join(
+        f"{lv} {v['lpips']:.6f} (card again {v['recompute']:.6f}, CPU "
+        f"{v['cpu']:.6f}, rel {v['rel_err']:.2g} <= {TOL_LPIPS_REL:g}; "
+        f"{v['ms']:.2f} ms per frame)" for lv, v in stats["levels"].items())
+        + f"; {len(want)} PNGs, headers match their arrays, plus "
+        f"{sorted(set(os.listdir(out_dir)) - got)}; {card}")
+    return stats
+
+
+def feature_dtype_turns(name, evs, data, card):
+    """The view-specific attack with f32 and bf16 features in turns (f32,
+    bf16, bf16, f32) after a warm-up each: ms/iteration, the K3 launches
+    of each evaluator's timed turns, the constraints on the bf16 delta."""
+    import torch
+
+    for ev in evs.values():
+        ev.args.adv_iters = DEF_WARMUP
+        ev.attack_view_specific(data)
+    turns, launches = {}, {}
+    for key in ("f32", "bf16", "bf16", "f32"):
+        ev = evs[key]
+        ev.args.adv_iters = DEF_ITERS
+        zero_kernel_counts()
+        ev.attack_view_specific(data)
+        counts = kernel_counts()
+        turns.setdefault(key, []).append(
+            ev.last_attack["seconds"] / DEF_ITERS * 1e3)
+        for k in ("ray_attention_fwd", "ray_attention_bwd"):
+            launches.setdefault(key, {}).setdefault(k, 0)
+            launches[key][k] += counts[k]
+        if not bool(torch.isfinite(ev.last_attack["losses"]).all()):
+            raise AssertionError(f"{name} {key}: non-finite losses")
+    bf = evs["bf16"]
+    delta = bf.last_attack["state"]["delta"]
+    src = bf._make_src(data)
+    bounds = check_delta(f"{name} bf16 features", delta,
+                         torch.zeros_like(delta), src["rgbs"],
+                         bf.args.epsilon / 255.0)
+    log("evaluator outputs", f"{name} attack, ms/iteration in turns: f32 "
+        "features " + ", ".join(f"{x:.2f}" for x in turns["f32"])
+        + "; bf16 features " + ", ".join(f"{x:.2f}" for x in turns["bf16"])
+        + f"; K3 launches {launches}; bf16 delta inside its bounds {bounds}"
+        f"; {card}")
+    return dict(ms_per_iter=turns, launches=launches, delta=bounds)
+
+
+def evaluator_outputs(ibr_plan, gnt_plan, ibr_bundle, gnt_bundle, card):
+    """Phase 17 (see the module docstring). Returns the stats dict."""
+    import numpy as np
+    import torch
+    from nerfool_tpu_torch import eval as port_eval, eval_adv
+    from nerfool_tpu_torch.engine import Evaluator
+    from nerfool_tpu_torch.metrics import lpips as lp
+    from nerfool_tpu_torch.ops import bspg_select
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def make(parse, argv, bundle=None, plan=None):
+        ev = Evaluator(parse(argv), bundle=bundle, dataset_kwargs=SLICE_DATA,
+                       device="cuda", seed=0)
+        if plan is not None:
+            ev.adopt_plan(plan)
+        return ev
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            weights = lp.LPIPS().params()
+        wpath = os.path.join(tmp, "lpips_random.npz")
+        lp.save_lpips_weights(weights, wpath)
+        extra = ["--lpips_weights", wpath, "--export_adv_source_img"]
+        out["ibrnet_rows"] = lpips_rows(
+            "IBRNet", make(port_eval.parse_args, SLICE_ARGV + extra,
+                           ibr_bundle, ibr_plan), wpath, tmp, card)
+        out["gnt_rows"] = lpips_rows(
+            "GNT", make(port_eval.parse_args, GNT_ARGV + extra, gnt_bundle,
+                        gnt_plan), wpath, tmp, card)
+
+    # K1 at the IBRNet slice's shapes with bf16 tables, both levels
+    args = ibr_plan.args
+    spec_f, spec_r = ibr_plan.view_render_cfg(args.num_source_views).bspg_specs
+    levels = (("coarse", args.N_samples),
+              ("fine", args.N_samples + args.N_importance))
+    shapes = []
+    for table, spec, c in (("feat", spec_f, 32), ("rgb", spec_r, 3)):
+        shapes += select_shapes(spec, c, table, levels, (torch.bfloat16,),
+                                args.num_source_views, args.chunk_size)
+    out["k1_bf16"] = check_select(shapes, "ibrnet_bf16", 200, card)
+
+    # the attacks with bf16 features, in turns with f32 features
+    flags = ["--use_bspg", "False"]
+    bf = ["--feature_dtype", "bfloat16"]
+    ibr = {"f32": make(eval_adv.parse_args, IBR_ATTACK_ARGV + flags,
+                       ibr_bundle),
+           "bf16": make(eval_adv.parse_args, IBR_ATTACK_ARGV + flags + bf)}
+    data = ibr["f32"].test_dataset[0]
+    out["ibrnet_attack"] = feature_dtype_turns("IBRNet", ibr, data, card)
+    del ibr
+    gnt = {"f32": make(eval_adv.parse_args, GNT_ATTACK_ARGV + flags,
+                       gnt_bundle),
+           "bf16": make(eval_adv.parse_args, GNT_ATTACK_ARGV + flags + bf)}
+    depth = gnt["f32"].args.trans_depth
+    out["gnt_attack"] = feature_dtype_turns("GNT", gnt, data, card)
+    for key, counts in out["gnt_attack"]["launches"].items():
+        exp = 2 * DEF_ITERS * depth  # two timed turns each
+        if (counts["ray_attention_fwd"], counts["ray_attention_bwd"]) != (
+                exp, exp):
+            raise AssertionError(f"GNT attack, {key} features: K3 launches "
+                                 f"{counts}, expected {exp} each")
+    del gnt
+
+    # the IBRNet frame in bf16, in turns with f32, on BSPG and per tap
+    evs = {dt: make(port_eval.parse_args, SLICE_ARGV + [
+        "--compute_dtype", dt], ibr_bundle, ibr_plan)
+           for dt in ("float32", "bfloat16")}
+    src = evs["float32"]._make_src(data)
+    hh, ww = SLICE_DATA["h"], SLICE_DATA["w"]
+    bh, bw = spec_f.block
+    n_chunks = -(-(-(-hh // bh) * bh * -(-ww // bw) * bw) // args.chunk_size)
+    exp_k1 = (len(spec_f.groups) + len(spec_r.groups)) * len(levels) \
+        * n_chunks
+    rates, rgb, k1_bf16 = {}, {}, 0
+    for bspg in (True, False):
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            ev = evs[dt]
+            ev.args.use_bspg = bspg
+            before = bspg_select.select_taps.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                ret = ev.render_view(data, src)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = bspg_select.select_taps.launches - before
+            if launched != (exp_k1 if bspg else 0):
+                raise AssertionError(f"IBRNet {dt} frame, BSPG {bspg}: K1 "
+                                     f"launched {launched}, expected "
+                                     f"{exp_k1 if bspg else 0}")
+            if dt == "bfloat16" and bspg:
+                k1_bf16 += launched
+            for lv in ("outputs_coarse", "outputs_fine"):
+                for k in ("rgb", "depth", "weights"):
+                    if not bool(torch.isfinite(ret[lv][k]).all()):
+                        raise AssertionError(f"IBRNet {dt}: non-finite "
+                                             f"{lv}/{k}")
+            route = "bspg" if bspg else "per_tap"
+            rates.setdefault(f"{route}_{dt}", []).append(hh * ww / seconds)
+            rgb[(route, dt)] = ret["outputs_coarse"]["rgb"].float()
+            del ret
+    err = {r: float((rgb[(r, "bfloat16")] - rgb[(r, "float32")]).abs().max())
+           for r in ("bspg", "per_tap")}
+    del rgb, evs
+    out["ibrnet_bf16_frame"] = dict(rays_per_s=rates, rgb_err=err,
+                                    k1_launches=k1_bf16)
+    log("evaluator outputs", f"IBRNet frame {hh}x{ww}, rays/s in turns: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.1f}" for x in v)
+                    for k, v in rates.items())
+        + f"; coarse rgb bf16 vs f32 max abs: BSPG {err['bspg']:.4g}, per "
+        f"tap {err['per_tap']:.4g} (BSPG <= {IBR_BF16_FACTOR:g} x per tap); "
+        f"K1 launches in the bf16 BSPG frames {k1_bf16}; {card}")
+    if not 0 < err["bspg"] <= IBR_BF16_FACTOR * err["per_tap"]:
+        raise AssertionError(f"IBRNet bf16 frame errors {err}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("evaluator outputs", f"phase took {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -2026,6 +2301,7 @@ def main():
     aargs = eval_adv.parse_args(GNT_ATTACK_ARGV)
     aev = Evaluator(aargs, dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
     aev.adopt_plan(gev)
+    gnt_plan = gev
     uev = Evaluator(eval_adv.parse_args(UNI_ARGV), bundle=aev.bundle,
                     dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
     uev.adopt_plan(gev)
@@ -2064,6 +2340,7 @@ def main():
     iev = Evaluator(iargs, bundle=ev.bundle, dataset_kwargs=SLICE_DATA,
                     device="cuda", seed=0)
     iev.adopt_plan(ev)
+    ibr_plan = ev
     del ev
     data = iev.test_dataset[0]
     delta, src, ibr_attack = run_attack("IBRNet attack", iev, data, card)
@@ -2099,7 +2376,11 @@ def main():
 
     # 16. the defended attack: consistency terms, purification, hybrids
     defended = defended_attack(ibr_bundle, gnt_bundle, card)
-    del ibr_bundle, gnt_bundle
+
+    # 17. LPIPS, the image dumps, bf16 features and bf16 IBRNet
+    outputs = evaluator_outputs(ibr_plan, gnt_plan, ibr_bundle, gnt_bundle,
+                                card)
+    del ibr_bundle, gnt_bundle, ibr_plan, gnt_plan
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
@@ -2120,7 +2401,9 @@ def main():
     k1_paths = {"ibrnet": ibr_launches, "gnt": k1_gnt,
                 "gnt_attacked_render": gnt_adv["k1_launches"],
                 "ibrnet_attacked_render": ibr_adv["k1_launches"],
-                "universal_attacked_render": uni_render["bspg_select"]}
+                "universal_attacked_render": uni_render["bspg_select"],
+                "ibrnet_bf16_frames": outputs["ibrnet_bf16_frame"][
+                    "k1_launches"]}
     purif, hybrids = defended["purification"]["launches"], [
         defended[m]["launches"] for m in ("use_clean_density",
                                           "use_clean_color")]
@@ -2131,10 +2414,14 @@ def main():
                         uni_render["ray_attention_fwd"],
                     "defended_attack": purif["ray_attention_fwd"],
                     "hybrid_renders": sum(h["ray_attention_fwd"]
-                                          for h in hybrids)}
+                                          for h in hybrids),
+                    "gnt_attack_bf16_features": outputs["gnt_attack"][
+                        "launches"]["bf16"]["ray_attention_fwd"]}
     k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
                     "universal_attack": uni_attack["ray_attention_bwd"],
-                    "defended_attack": purif["ray_attention_bwd"]}
+                    "defended_attack": purif["ray_attention_bwd"],
+                    "gnt_attack_bf16_features": outputs["gnt_attack"][
+                        "launches"]["bf16"]["ray_attention_bwd"]}
     va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
     k4_paths = {"gnt_attacked_render": gnt_adv["k4_launches"],
                 "universal_attacked_render": uni_render["view_attention"],
@@ -2160,7 +2447,7 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "bound_old_ms": head["bound_old_ms"],
-        "library_ms": None, "shapes": checks,
+        "library_ms": None, "shapes": checks + outputs["k1_bf16"],
         "route_ab_rays_per_s": {"ibrnet": ibr_ab, "gnt": gnt_ab}}, {
         "name": "gnt_chain", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/gnt_chain.cu",
@@ -2218,7 +2505,8 @@ def main():
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
                    "universal": universal, "small_modes": small_modes,
-                   "defended": defended}}))
+                   "defended": defended},
+        "evaluator_outputs": outputs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

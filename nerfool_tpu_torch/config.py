@@ -128,8 +128,8 @@ def config_parser():
     parser.add_argument("--coarse_only", action="store_true")
     parser.add_argument("--anti_alias_pooling", type=int, default=1)
     # computation dtypes (no reference counterpart). compute_dtype drives the
-    # aggregation/render path (RenderConfig); feature_dtype parses only (the
-    # port's ResUNet runs in float32)
+    # aggregation/render path (RenderConfig); feature_dtype the ResUNet's
+    # convolutions (its outputs stay float32)
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--feature_dtype", type=str, default="float32",

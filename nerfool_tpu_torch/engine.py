@@ -18,7 +18,10 @@ and the clean sources' features; ``--geo_noise`` adds noise to IBRNet's
 sigma in the attack's renders and the evaluator's, drawn from the
 evaluator's generator. Renders are measured with PSNR and SSIM in the
 backbone's protocol (TF's for IBRNet, ``img2psnr`` and windowed SSIM for
-GNT). LPIPS is not ported and reads NaN.
+GNT), and with LPIPS when ``--lpips_weights`` names a weights file (IBRNet's
+convention scales [0, 1] images to [-1, 1], GNT's feeds them raw; without
+weights LPIPS reads NaN, as in the JAX evaluator). With an ``out_dir`` the
+evaluator writes the JAX evaluator's image dumps (``utils/vis.py``).
 
 The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
 routes the differentiated GNT step through the ray-attention kernel
@@ -28,11 +31,13 @@ through its forward-only kernel (``ops/view_attention.py``; ``auto``, the
 default, = on a CUDA device); on the CPU each takes its kernel's plain
 version.
 
-GNT renders in float32 or bfloat16 (``--compute_dtype``); IBRNet in float32
-only. ``--gnt_fused_chain`` resolves as in the JAX evaluator: ``auto`` runs
-bf16 whole-frame GNT renders on a CUDA device through the whole-chain kernel
-(``ops/chain.py``), ``on`` forces the chain (its plain version on the CPU),
-``off`` keeps the module path. f32 renders take the module path either way.
+Both backbones render in float32 or bfloat16 (``--compute_dtype``: the
+aggregator and its inputs), and ``--feature_dtype bfloat16`` runs the
+feature net's convolutions in bf16 with f32 outputs. ``--gnt_fused_chain``
+resolves as in the JAX evaluator: ``auto`` runs bf16 whole-frame GNT renders
+on a CUDA device through the whole-chain kernel (``ops/chain.py``), ``on``
+forces the chain (its plain version on the CPU), ``off`` keeps the module
+path. f32 renders take the module path either way.
 
 Whole-frame renders take the per-tap gather by default; ``--use_bspg
 True`` takes the block segment-patch gather: it is planned once over every
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 import warnings
 
@@ -71,11 +77,14 @@ from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.data.base import Loader
 from nerfool_tpu_torch.device import resolve_device
 from nerfool_tpu_torch.metrics.image import img2psnr, psnr, ssim, ssim_windowed
+from nerfool_tpu_torch.metrics.lpips import LPIPS, load_lpips_weights
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.resunet import feature_hw
 from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
 from nerfool_tpu_torch.utils.cameras import get_rays, transform_src_cameras
+from nerfool_tpu_torch.utils.logging import save_run_config
+from nerfool_tpu_torch.utils.vis import colorize_np, to8b, write_png
 
 
 def render_config_from_args(args) -> RenderConfig:
@@ -85,9 +94,6 @@ def render_config_from_args(args) -> RenderConfig:
         raise ValueError(f"--compute_dtype {args.compute_dtype} (float32 or "
                          "bfloat16)")
     gnt = args.backbone == "gnt"
-    if args.compute_dtype != "float32" and not gnt:
-        raise ValueError("the port renders IBRNet in float32 only "
-                         f"(--compute_dtype {args.compute_dtype})")
     return RenderConfig(n_samples=args.N_samples,
                         n_importance=args.N_importance,
                         inv_uniform=bool(args.inv_uniform),
@@ -309,13 +315,10 @@ class Evaluator:
         self._bspg_hw = other._bspg_hw
 
     def _grad_render_cfg(self):
-        """Render config of the differentiated attack step: float32, and
-        with ``--gnt_fused_attack`` GNT's ray attention through the fused
-        kernel (its plain version on the CPU)."""
+        """Render config of the differentiated attack step: with
+        ``--gnt_fused_attack`` GNT's ray attention through the fused kernel
+        (its plain version on the CPU)."""
         args = self.args
-        if args.compute_dtype != "float32":
-            raise ValueError("the attack runs in float32 "
-                             f"(--compute_dtype {args.compute_dtype})")
         return dataclasses.replace(
             self.render_cfg, gnt_fused_attn=(
                 args.backbone == "gnt"
@@ -530,7 +533,48 @@ class Evaluator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def evaluate(self, max_views=None, verbose=True, out_dir=None):
+    def _build_lpips(self):
+        """The LPIPS metric on the device under the backbone's convention
+        (IBRNet's results scale [0, 1] images to [-1, 1], GNT's feed them
+        raw), or None without ``--lpips_weights``: LPIPS then reads NaN."""
+        path = getattr(self.args, "lpips_weights", "")
+        if not path:
+            print("WARNING: --lpips_weights not set; LPIPS is unmeasurable and "
+                  "will be recorded as NaN / excluded from means (export "
+                  "weights with scripts/export_lpips_weights.py)",
+                  file=sys.stderr)
+            return None
+        model = LPIPS(normalize=self.args.backbone != "gnt")
+        return model.load_params(load_lpips_weights(path)).to(
+            self.device).eval()
+
+    def _save_view_images(self, out_dir, file_id, name, pred, gt, outputs,
+                          data):
+        """A level's dumps, as the JAX evaluator writes them: the render, the
+        ground truth (with the coarse level), the squared-error map, the
+        depth in millimetres (uint16) and coloured, the accumulated
+        weights."""
+        path = lambda f: os.path.join(out_dir, f"{file_id}_{f}.png")
+        write_png(path(f"pred_{name}"), to8b(pred))
+        if name == "coarse":
+            write_png(path("gt_rgb"), to8b(gt))
+        err = np.sum((pred - gt) ** 2, axis=-1)
+        write_png(path(f"err_map_{name}"),
+                  to8b(colorize_np(err, range=(0.0, 1.0))))
+        if outputs.get("depth") is not None:
+            depth = outputs["depth"].float().cpu().numpy()
+            write_png(path(f"depth_{name}"),
+                      (depth.squeeze() * 1000.0).astype(np.uint16))
+            drange = tuple(np.asarray(data["depth_range"]).reshape(-1)[:2])
+            write_png(path(f"depth_vis_{name}"),
+                      to8b(colorize_np(depth, range=drange)))
+        if outputs.get("weights") is not None:
+            acc = np.sum(outputs["weights"].float().cpu().numpy(), axis=-1)
+            write_png(path(f"acc_map_{name}"),
+                      to8b(colorize_np(acc, range=(0.0, 1.0))))
+
+    def evaluate(self, max_views=None, verbose=True, out_dir=None,
+                 save_images=True):
         """Attack (once on the global source set, or per view under
         ``--view_specific``; not at all under ``--no_attack``), render and
         measure every test view. Returns the results dict keyed like the JAX
@@ -539,12 +583,23 @@ class Evaluator:
         ``render_seconds``, host time of the render ending in a device
         synchronize, and after a view-specific attack ``attack_seconds``
         (the universal attack's are under the scene's ``attack_seconds``).
+        With an ``out_dir`` the run's flags go to ``args.txt`` (and the
+        config file to ``config.txt``) and, with ``save_images``, each
+        view's dumps beside them: per level ``<id>_pred``, ``_err_map``,
+        ``_depth`` (uint16, depth x 1000), ``_depth_vis`` and ``_acc_map``
+        PNGs, ``<id>_gt_rgb.png`` and ``<id>_average.png`` (the sources'
+        mean), and with ``--export_adv_source_img`` the perturbed sources
+        as ``adv_src_<view>_<source>.png``.
         With ``--i_attack_ckpt`` and an ``out_dir`` the universal attack is
         checkpointed to and resumed from ``out_dir/attack_state.pt``."""
         args = self.args
         scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
         psnr_fn, ssim_fn = ((img2psnr, ssim_windowed)
                             if args.backbone == "gnt" else (psnr, ssim))
+        lpips_fn = self._build_lpips()
+        if out_dir:
+            save_run_config(out_dir, args)
+        dump = bool(save_images and out_dir)
         results = {scene: {}}
         rows_acc = []
         n_views = len(self.test_dataset)
@@ -594,8 +649,9 @@ class Evaluator:
                 ret = self.render_view(data, src, delta, view_cams)
             self._sync()
             row["render_seconds"] = time.perf_counter() - t0
-            gt = self._tensor(np.asarray(data["rgb"])[::args.render_stride,
-                                                      ::args.render_stride])
+            gt_np = np.asarray(data["rgb"])[::args.render_stride,
+                                            ::args.render_stride]
+            gt = self._tensor(gt_np)
             for level, name in (("outputs_coarse", "coarse"),
                                 ("outputs_fine", "fine")):
                 row[f"{name}_lpips"] = float("nan")
@@ -605,6 +661,24 @@ class Evaluator:
                 pred = torch.clamp(ret[level]["rgb"], 0, 1)
                 row[f"{name}_psnr"] = float(psnr_fn(pred, gt))
                 row[f"{name}_ssim"] = float(ssim_fn(pred, gt))
+                if lpips_fn is not None:
+                    with torch.no_grad():
+                        row[f"{name}_lpips"] = float(
+                            lpips_fn(pred[None], gt[None])[0])
+                if dump:
+                    self._save_view_images(
+                        out_dir, file_id, name, pred.float().cpu().numpy(),
+                        gt_np, ret[level], data)
+            if dump:
+                rgbs = src["rgbs"].cpu().numpy()
+                write_png(os.path.join(out_dir, f"{file_id}_average.png"),
+                          to8b(np.mean(rgbs, axis=0)))
+                if args.export_adv_source_img:
+                    adv = (src["rgbs"] if delta is None
+                           else src["rgbs"] + delta).detach().cpu().numpy()
+                    for j in range(adv.shape[0]):
+                        write_png(os.path.join(out_dir, f"adv_src_{i}_{j}.png"),
+                                  to8b(adv[j]))
             results[scene][file_id] = row
             rows_acc.append([row["coarse_psnr"], row["fine_psnr"],
                              row["coarse_ssim"], row["fine_ssim"],
@@ -613,6 +687,8 @@ class Evaluator:
                 print(f"{scene} {file_id}: coarse/fine psnr "
                       f"{row['coarse_psnr']:.3f}/{row['fine_psnr']:.3f}  ssim "
                       f"{row['coarse_ssim']:.3f}/{row['fine_ssim']:.3f}  "
+                      f"lpips {row['coarse_lpips']:.3f}/"
+                      f"{row['fine_lpips']:.3f}  "
                       f"render {row['render_seconds']:.3f} s", flush=True)
 
         with warnings.catch_warnings():

@@ -1,8 +1,11 @@
 """Clean (no-attack) evaluation on the port: render every test view
-whole-frame and measure PSNR/SSIM.
+whole-frame and measure PSNR, SSIM and LPIPS (with ``--lpips_weights``).
 
     python -m nerfool_tpu_torch.eval --config configs/ibrnet/eval_llff.txt \\
         [--device cuda] [--seed 0] [--max_views N] [--dataset_kwargs JSON]
+
+Results and the image dumps go to ``<eval_dataset>/<expname>_clean/<scene>/``,
+as ``python -m nerfool_tpu_torch.eval_adv`` writes them.
 
 Flags parse with the port's own ``config.port_parser`` (the flags and
 defaults of ``scripts/eval.py``, plus ``--device``, ``--seed`` (random weights
@@ -11,6 +14,8 @@ JSON object of dataset constructor keywords, e.g. the procedural
 ``synthetic`` scene's size).
 """
 from __future__ import annotations
+
+import os
 
 from nerfool_tpu_torch.config import port_parser
 
@@ -28,9 +33,11 @@ def main(argv=None):
     from nerfool_tpu_torch.engine import Evaluator
 
     scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
+    out_dir = os.path.join(args.eval_dataset, args.expname + "_clean", scene)
     evaluator = Evaluator(args, dataset_kwargs=args.dataset_kwargs,
                           device=args.device, seed=args.seed)
-    results = evaluator.evaluate(max_views=args.max_views, verbose=True)
+    results = evaluator.evaluate(max_views=args.max_views, verbose=True,
+                                 out_dir=out_dir)
     print(results[scene])
     return results
 

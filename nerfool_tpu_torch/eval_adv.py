@@ -4,20 +4,26 @@
 sources, then the whole-frame render from the perturbed sources. Without it,
 the universal attack: one perturbation of the global source set, optimised
 over streamed train-split target views, then every test view rendered from
-that set. PSNR/SSIM per view and their means.
+that set. PSNR, SSIM and LPIPS per view and their means.
 
     python -m nerfool_tpu_torch.eval_adv --config configs/ibrnet/eval_llff.txt \\
         [--view_specific] --adv_iters 1000 --epsilon 8 --use_adam \\
         --adam_lr 1e-3 --adv_lr 1 [--use_pseudo_gt --use_center_view] \\
         [--backbone gnt --gnt_fused_attack True --gnt_fused_attn on \\
          --gnt_fused_vt True] [--device cuda] [--seed 0] [--max_views N] \\
-        [--dataset_kwargs JSON]
+        [--dataset_kwargs JSON] [--lpips_weights lpips.npz] \\
+        [--export_adv_source_img]
 
 Runs on the card unless ``--device cpu``. ``--no_attack`` gives the clean
-rows of either mode. Results go to ``<eval_dataset>/<expname>/<scene>/
-psnr_<scene>.txt``, with ``--i_attack_ckpt N`` the universal attack's state
-to ``attack_state.pt`` beside it (resumed from when present); the image
-dumps of the JAX evaluator are not ported.
+rows of either mode. LPIPS reads NaN unless ``--lpips_weights`` names a
+weights file (an ``.npz`` that ``metrics/lpips.save_lpips_weights`` or the
+JAX package's writes, or a ``.pth`` of torchvision's VGG16 ``features`` and
+pip-lpips' ``lins`` state dicts). Results go to
+``<eval_dataset>/<expname>/<scene>/``: ``psnr_<scene>.txt``, ``args.txt``,
+each view's PNGs (render, error map, depth, accumulated weights per level,
+the ground truth, the sources' average; with ``--export_adv_source_img``
+the perturbed sources), and with ``--i_attack_ckpt N`` the universal
+attack's state as ``attack_state.pt`` (resumed from when present).
 """
 from __future__ import annotations
 

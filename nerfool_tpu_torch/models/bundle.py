@@ -57,8 +57,8 @@ def _seeded_init_(module: nn.Module, generator: torch.Generator):
 def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
                  fine_feat_dim=32, anti_alias_pooling=True, coarse_only=False,
                  netwidth=64, trans_depth=8, single_net=False, ret_alpha=True,
-                 ckpt_path=None, state_dicts=None, seed=0,
-                 device="cpu") -> ModelBundle:
+                 ckpt_path=None, state_dicts=None, seed=0, device="cpu",
+                 feature_dtype="float32") -> ModelBundle:
     """Build the IBRNet or GNT modules on ``device``.
 
     Weights come from, in order of precedence: ``state_dicts``
@@ -66,8 +66,10 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
     layout, e.g. from ``convert.params_from_flax``); a reference checkpoint
     at ``ckpt_path``; or a random init drawn on the CPU from
     ``torch.Generator().manual_seed(seed)``, so a seed gives the same weights
-    on every device. ``args`` (a parsed CLI namespace) supplies the same
-    fields by their flag names.
+    on every device. ``feature_dtype`` ('float32' or 'bfloat16') is the
+    feature net's compute dtype (its outputs are float32 either way).
+    ``args`` (a parsed CLI namespace) supplies the same fields by their flag
+    names.
     """
     if args is not None:
         backbone = getattr(args, "backbone", backbone)
@@ -76,6 +78,7 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
         anti_alias_pooling = bool(args.anti_alias_pooling)
         coarse_only = args.coarse_only
         ckpt_path = args.ckpt_path or ckpt_path
+        feature_dtype = getattr(args, "feature_dtype", feature_dtype)
         if backbone == "gnt":  # single_net is a GNT-stack concept
             netwidth = args.netwidth
             trans_depth = args.trans_depth
@@ -84,10 +87,14 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
     if backbone not in ("ibrnet", "gnt"):
         raise ValueError(f"unknown backbone {backbone!r}")
     single_net = single_net and backbone == "gnt"
+    if feature_dtype not in (None, "", "float32", "bfloat16"):
+        raise ValueError(f"feature_dtype {feature_dtype!r} (float32 or "
+                         "bfloat16)")
+    feat_dt = torch.bfloat16 if feature_dtype == "bfloat16" else None
 
     with torch.random.fork_rng(devices=[]):  # module defaults draw globally
         feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only,
-                              single_net)
+                              single_net, compute_dtype=feat_dt)
         if backbone == "ibrnet":
             net_coarse = IBRNetAggregator(coarse_feat_dim, anti_alias_pooling)
             net_fine = (None if coarse_only

@@ -1,9 +1,10 @@
 """Shared layers (port of ``nerfool_tpu/models/layers.py``), NCHW inside.
 
 Parameter names follow the reference PyTorch modules, so reference
-checkpoints load with ``load_state_dict``: a plain ``nn.Conv2d`` in reflect
-padding mode, an affine InstanceNorm with ``weight``/``bias``, and MLPs laid
-out as ``nn.Sequential(Linear, act, Linear, ...)``.
+checkpoints load with ``load_state_dict``: ``nn.Conv2d``s (reflect padding
+mode where the reference pads so) that compute in their input's dtype, an
+affine InstanceNorm with ``weight``/``bias``, and MLPs laid out as
+``nn.Sequential(Linear, act, Linear, ...)``.
 """
 from __future__ import annotations
 
@@ -16,11 +17,22 @@ import torch.nn.functional as F
 from nerfool_tpu_torch.utils import numerics
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` applied in its input's dtype: the float32 weight and
+    bias are cast to it explicitly (a bf16 input runs a bf16 convolution,
+    as flax's ``nn.Conv(dtype=...)`` does; the parameters stay float32)."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 def conv_reflect(cin, cout, kernel_size, stride=1, padding=None, bias=False):
-    """2D conv with reflect padding (``nn.Conv2d(padding_mode='reflect')``)."""
+    """2D conv with reflect padding (``nn.Conv2d(padding_mode='reflect')``),
+    in its input's dtype."""
     pad = (kernel_size - 1) // 2 if padding is None else padding
-    return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
-                     bias=bias, padding_mode="reflect")
+    return Conv2d(cin, cout, kernel_size, stride=stride, padding=pad,
+                  bias=bias, padding_mode="reflect")
 
 
 class InstanceNorm(nn.Module):

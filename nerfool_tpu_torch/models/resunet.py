@@ -7,6 +7,13 @@ a 1x1 conv that yields the coarse and fine channel groups at about 1/4 of the
 input size. GNT's ``single_net`` variant has one head of ``coarse_out_ch``
 channels that serves both levels. NCHW inside; NHWC at the boundary, as in
 the JAX package.
+
+``compute_dtype`` (e.g. ``torch.bfloat16``) is the dtype of the conv stack,
+as in the JAX package: the input and every convolution's weight and bias are
+cast to it explicitly (no autocast, which picks casts per op), the
+InstanceNorm statistics stay float32, and the output is cast back to float32
+so the gather tables, and the attack's backward scatter into them, keep full
+precision. The parameters stay float32.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nerfool_tpu_torch.models.layers import (
+    Conv2d,
     InstanceNorm,
     conv_reflect,
     upsample2_aligned,
@@ -41,7 +49,7 @@ class BasicBlock(nn.Module):
         self.bn2 = InstanceNorm(planes)
         self.downsample = (
             nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+                Conv2d(inplanes, planes, 1, stride=stride, bias=False),
                 InstanceNorm(planes),
             ) if downsample else None)
 
@@ -83,8 +91,9 @@ def _skip_concat(up, enc):
 
 class ResUNet(nn.Module):
     def __init__(self, coarse_out_ch=32, fine_out_ch=32, coarse_only=False,
-                 single_net=False):
+                 single_net=False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.coarse_out_ch = coarse_out_ch
         self.fine_out_ch = fine_out_ch
         self.coarse_only = coarse_only
@@ -103,7 +112,7 @@ class ResUNet(nn.Module):
         self.iconv3 = ConvBlock(128 + 128, 128)
         self.upconv2 = UpConv(128, 64)
         self.iconv2 = ConvBlock(64 + 64, out_ch)
-        self.out_conv = nn.Conv2d(out_ch, out_ch, 1, 1)
+        self.out_conv = Conv2d(out_ch, out_ch, 1, 1)
 
     @staticmethod
     def _stage(inplanes, planes, blocks):
@@ -116,7 +125,10 @@ class ResUNet(nn.Module):
         :return: (coarse [V, H/4, W/4, Cc], fine [V, H/4, W/4, Cf] or None);
             under ``single_net`` the one head twice, as the same tensor
         """
+        dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2)
+        if dt is not None:
+            x = x.to(dt)
         x = F.relu(self.bn1(self.conv1(x)))
         x1 = self.layer1(x)
         x2 = self.layer2(x1)
@@ -125,6 +137,8 @@ class ResUNet(nn.Module):
         u = self.iconv3(_skip_concat(self.upconv3(x3), x2))
         u = self.iconv2(_skip_concat(self.upconv2(u), x1))
         out = self.out_conv(u).permute(0, 2, 3, 1)
+        if dt is not None:
+            out = out.float()
         if self.coarse_only:
             return out.contiguous(), None
         if self.single_net:

@@ -19,7 +19,10 @@ compositing, drawn from the caller's generator or handed in.
 In bfloat16 (``compute_dtype``) the aggregator and its inputs run in bf16:
 the BSPG patch tables are cast before packing, and the gathered taps, ray
 differences, mask, points and ray directions before the aggregator, whose
-output is promoted back to f32. Geometry, projection and compositing stay
+output is promoted back to f32. IBRNet's parameters are cast to bf16 on each
+call (``torch.func.functional_call``), as the JAX package casts its
+parameter tree, so a weight update needs no restack; GNT's layers cast their
+weights to their operands' dtype. Geometry, projection and compositing stay
 f32. Per-tap renders gather in f32 and cast the taps.
 """
 from __future__ import annotations
@@ -126,7 +129,12 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
         pts, ray_d = pts.to(dt), ray_d.to(dt)
     net = nets["net_coarse" if level == 0 or cfg.single_net else "net_fine"]
     if cfg.backbone == "ibrnet":
-        raw = net(rgb_feat, ray_diff, mask)
+        if dt != torch.float32:
+            params = {k: p.to(dt) for k, p in net.named_parameters()}
+            raw = torch.func.functional_call(net, params,
+                                             (rgb_feat, ray_diff, mask))
+        else:
+            raw = net(rgb_feat, ray_diff, mask)
     elif _chain_route(cfg, rgb_feat.dtype):
         from nerfool_tpu_torch.ops.chain import fused_chain_aggregate
 

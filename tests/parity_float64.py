@@ -21,7 +21,17 @@ run: ``features_f64`` computes the feature net in float64 and rounds its
 output, ``conv_f64`` its convolutions alone, ``native_conv`` takes
 PyTorch's own convolution in place of oneDNN's, ``instancenorm_var`` puts
 back the InstanceNorm the port had before it took JAX's formula
-(``Tensor.var`` and ``torch.sqrt``).
+(``Tensor.var`` and ``torch.sqrt``). The bisect of the feature net by op
+family: ``instancenorm_f64`` takes the InstanceNorm's two reductions (the
+mean and ``mean(c * c)``) in float64 and rounds them, ``elu_f64`` the
+decoder's ELUs, ``upsample_f64`` the bilinear upsamples,
+``reflect_pad_f64`` the reflection padding, ``residual_f64`` the residual
+adds, ``skip_concat_f64`` the skip concatenations (the last three are exact
+in float32, so they reproduce ``none``); ``instancenorm_xla`` sums each map
+in raster order with one float32 accumulator and multiplies by the float32
+reciprocal of its size, as XLA's CPU backend computes ``jnp.mean`` and
+``jnp.var``; ``instancenorm_recip`` keeps PyTorch's sum and multiplies by
+that reciprocal.
 """
 import dataclasses
 import json
@@ -35,7 +45,9 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 VARIANTS = ("none", "features_f64", "conv_f64", "native_conv",
-            "instancenorm_var")
+            "instancenorm_var", "instancenorm_f64", "elu_f64", "upsample_f64",
+            "instancenorm_xla", "instancenorm_recip", "reflect_pad_f64",
+            "residual_f64", "skip_concat_f64")
 CASES = {  # name: (backbone, n_importance, camera grads, pcgrad, AttackConfig)
     "every_loss": ("ibrnet", 8, False, False, dict(
         use_adam=True, adam_lr=1e-3, use_pseudo_gt=True, density_loss=0.5,
@@ -52,6 +64,7 @@ CASES = {  # name: (backbone, n_importance, camera grads, pcgrad, AttackConfig)
 def _variant(name):
     import torch
     import torch.nn as nn
+    import torch.nn.functional as F
     if name == "native_conv":
         torch.backends.mkldnn.enabled = False
     elif name == "conv_f64":
@@ -85,6 +98,87 @@ def _variant(name):
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
             return y.to(x.dtype)
         InstanceNorm.forward = norm_var
+    elif name == "instancenorm_f64":
+        from nerfool_tpu_torch.models.layers import InstanceNorm
+        from nerfool_tpu_torch.utils import numerics
+
+        def norm_f64(self, x):
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+            if x32.dtype != torch.float32:
+                c = x32 - x32.mean(dim=(2, 3), keepdim=True)
+                var = (c * c).mean(dim=(2, 3), keepdim=True)
+            else:
+                c = x32 - x32.double().mean(dim=(2, 3), keepdim=True).float()
+                c64 = c.double()
+                var = (c64 * c64).mean(dim=(2, 3), keepdim=True).float()
+            y = c / numerics.sqrt(var + self.eps)
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+            return y.to(x.dtype)
+        InstanceNorm.forward = norm_f64
+    elif name in ("instancenorm_xla", "instancenorm_recip"):
+        from nerfool_tpu_torch.models.layers import InstanceNorm
+        from nerfool_tpu_torch.utils import numerics
+
+        def flat_sum(t):  # one float32 accumulator over H*W in raster order
+            if name == "instancenorm_recip":
+                return t.sum(dim=(2, 3), keepdim=True)
+            f = t.flatten(2)
+            acc = f[..., 0]
+            for k in range(1, f.shape[-1]):
+                acc = acc + f[..., k]
+            return acc[..., None, None]
+
+        def norm_xla(self, x):
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+            inv = torch.tensor(1.0 / (x32.shape[2] * x32.shape[3]),
+                               dtype=x32.dtype)
+            c = x32 - flat_sum(x32) * inv
+            var = flat_sum(c * c) * inv
+            y = c / numerics.sqrt(var + self.eps)
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+            return y.to(x.dtype)
+        InstanceNorm.forward = norm_xla
+    elif name == "reflect_pad_f64":
+        conv = nn.Conv2d._conv_forward
+
+        def conv_pad64(self, x, w, b):
+            if self.padding_mode == "zeros" or x.dtype != torch.float32:
+                return conv(self, x, w, b)
+            x = F.pad(x.double(), self._reversed_padding_repeated_twice,
+                      mode=self.padding_mode).float()
+            return F.conv2d(x, w, b, self.stride, 0, self.dilation,
+                            self.groups)
+        nn.Conv2d._conv_forward = conv_pad64
+    elif name == "residual_f64":
+        from nerfool_tpu_torch.models import resunet
+
+        def block64(self, x):
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            identity = x if self.downsample is None else self.downsample(x)
+            if out.dtype == torch.float32:
+                return F.relu((out.double() + identity.double()).float())
+            return F.relu(out + identity)
+        resunet.BasicBlock.forward = block64
+    elif name == "skip_concat_f64":
+        from nerfool_tpu_torch.models import resunet
+        cat = resunet._skip_concat
+        resunet._skip_concat = lambda up, enc: (
+            cat(up.double(), enc.double()).float()
+            if up.dtype == torch.float32 else cat(up, enc))
+    elif name == "elu_f64":
+        from nerfool_tpu_torch.models import resunet
+
+        def elu_block(self, x):
+            y = self.bn(self.conv(x))
+            return (F.elu(y.double()).float() if y.dtype == torch.float32
+                    else F.elu(y))
+        resunet.ConvBlock.forward = elu_block
+    elif name == "upsample_f64":
+        from nerfool_tpu_torch.models import resunet
+        up = resunet.upsample2_aligned
+        resunet.upsample2_aligned = lambda x: (
+            up(x.double()).float() if x.dtype == torch.float32 else up(x))
 
 
 def _steps(f64, sels):

@@ -311,6 +311,61 @@ def test_adam_attack_step_matches_jax(backbone):
                                np.asarray(jstate["delta"])[same], atol=2e-5)
 
 
+@pytest.mark.parametrize("backbone", ["ibrnet", "gnt"])
+def test_attack_step_float64_matches_jax(backbone):
+    """One view-specific Adam step per backbone in float64 on the module
+    path, against JAX under x64 from the same delta0 and ray indices (drawn
+    under x64, whose bits differ): the loss at PARITY.md's TRAJECTORY bound
+    (step-1 loss 1e-7), the gradients (Adam's first moments) 1e-7 of their
+    scale. Where the float32 step is held at 1e-4 (the feature net's float32
+    rounding, ROADMAP §3), float64 takes that rounding out. GNT computes its
+    positional encodings of float64 points in float32 in both packages, as
+    tests/test_torch_defenses.py's GNT renders do."""
+    rng = np.random.RandomState(7)
+    jb, tb, target, src, delta0 = _scene(rng, backbone)
+    jr, tr = _render_cfgs(backbone)
+    jr = dataclasses.replace(jr, compute_dtype="float64")
+    cfg_kw = dict(h=H, w=W, n_rand=32, use_adam=True, adam_lr=1e-3)
+    jcfg = j_attack.AttackConfig(**cfg_kw)
+    tcfg = t_attack.AttackConfig(**cfg_kw)
+    f64 = lambda d: {k: v.astype(np.float64) if v.dtype.kind == "f" else v
+                     for k, v in d.items()}
+    target, src, delta0 = f64(target), f64(src), delta0.astype(np.float64)
+    key = jax.random.PRNGKey(2)
+    with jax.enable_x64(True):
+        k_sel, k_render, _ = jax.random.split(key, 3)
+        sel = np.asarray(j_attack.select_ray_indices(k_sel, jcfg))
+        sel_patch = np.asarray(j_attack.select_ray_indices(
+            jax.random.fold_in(k_render, 23),
+            dataclasses.replace(jcfg, use_patch_sampling=True)))
+        jb = dataclasses.replace(jb, params=jax.tree.map(
+            lambda a: jnp.asarray(a, jnp.float64), jb.params))
+        jsrc = {k: jnp.asarray(v) for k, v in src.items()}
+        jsrc["featmaps_clean"] = jb.extract_features(jsrc["rgbs"])
+        jstate = dict(j_attack.init_attack_state(
+            jax.random.PRNGKey(1), jcfg, jsrc["rgbs"]),
+            delta=jnp.asarray(delta0))
+        jstate, jaux = jax.jit(j_attack.make_attack_step(jb, jr, jcfg))(
+            jstate, {k: jnp.asarray(v) for k, v in target.items()}, jsrc, key)
+        jm = np.asarray(jstate["opt_state"][0].mu[0])
+        jloss = float(jaux["loss"])
+    for m in (tb.feature_net, tb.net_coarse, tb.net_fine):
+        if m is not None:
+            m.double()
+    tsrc = {k: _t(v) for k, v in src.items()}
+    with torch.no_grad():
+        tsrc["featmaps_clean"] = tb.extract_features(tsrc["rgbs"])
+    tstate = t_attack.init_attack_state(None, tcfg, tsrc["rgbs"],
+                                        delta=_t(delta0))
+    tstate, taux = t_attack.make_attack_step(tb, tr, tcfg)(
+        tstate, {k: _t(v) for k, v in target.items()}, tsrc, sel=_t(sel),
+        sel_patch=_t(sel_patch))
+    assert tstate["m"].dtype == torch.float64
+    np.testing.assert_allclose(float(taux["loss"]), jloss, rtol=1e-7)
+    np.testing.assert_allclose(tstate["m"].numpy(), jm, rtol=0,
+                               atol=1e-7 * np.abs(jm).max())
+
+
 def test_pgd_attack_step_matches_jax():
     """Sign-PGD: delta moves by adv_lr / 255 along the gradient's sign."""
     jstate, jaux, tstate, taux, _ = _run_both("ibrnet", adv_lr=2.0)

@@ -218,18 +218,26 @@ def test_cli_rejects_missing_card_and_unported_options(tmp_path):
         pytest.skip("checks the no-card path")
     with pytest.raises(RuntimeError, match="cuda"):
         port_eval.main(_port_argv(tmp_path, "--device", "cuda"))
-    with pytest.raises(ValueError, match="float32"):
-        port_eval.main(_port_argv(tmp_path, "--compute_dtype", "bfloat16"))
+    # every dtype the parser offers runs (IBRNet in bf16 since it is ported:
+    # tests/test_torch_bf16.py); one it does not offer is refused
+    with pytest.raises(SystemExit):
+        port_eval.main(_port_argv(tmp_path, "--compute_dtype", "float16"))
+    with pytest.raises(ValueError, match="feature_dtype"):
+        create_model(feature_dtype="float16")
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     """Every ``.py`` under ``nerfool_tpu_torch/`` and ``chip_smoke.py``,
     parsed: no import of ``nerfool_tpu``, ``jax``, ``jaxlib``, ``flax`` or
-    ``optax``, at any depth of the file."""
+    ``optax``, at any depth of the file; and no imaging package (imageio,
+    PIL, matplotlib, cv2, torchvision) at module level, which the card's
+    machine lacks (the loaders of image datasets import imageio where they
+    read a file)."""
     files = glob.glob(os.path.join(REPO, "nerfool_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 40
     banned = {"nerfool_tpu", "jax", "jaxlib", "flax", "optax"}
+    imaging = {"imageio", "PIL", "matplotlib", "cv2", "torchvision"}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -241,6 +249,13 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 names = [node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for name in names:
+                assert name.split(".")[0] not in imaging, (path, name)
 
 
 def test_port_config_defaults_equal_the_jax_packages(tmp_path):
