@@ -133,6 +133,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
      tables, launches = tables x levels x chunks) and per tap, rays/s, the
      BSPG bf16 frame's coarse rgb no farther from the f32 frame than twice
      the per-tap bf16 frame is
+ 18. training through ``python -m nerfool_tpu_torch.train``'s ``main`` on
+     the synthetic train split at 378x504, 10 source views, f32, random
+     weights, 2 warm-up and 10 timed steps each (ms per step, losses, peak
+     device memory): (a) IBRNet at ``configs/ibrnet/pretrain.txt``'s widths
+     (64 + 64 samples, inv_uniform, N_rand 320): every parameter group
+     moved and every value finite, the final checkpoint reloaded through
+     ``create_model`` with equal tensors, one ``i_img`` panel set (file
+     names, PNG headers); (b) the same with ``--use_adv_train --adv_iters
+     3``: the inner delta inside the eps-ball and the image box; (c) GNT at
+     ``configs/gnt/gnt_full.txt``'s widths (depth 8, 192 samples, N_rand
+     800, single_net) with ``--gnt_fused_attn on``: K3 forward, backward and
+     backward-with-weight-gradient launches = steps x depth, one step's
+     every parameter gradient through K3 against the module path's from the
+     same draws (the limbs of phase 11's step check), then steps of the
+     two routes in turns (K3, module, module, K3); two more steps of IBRNet
+     and of GNT (through K3) under ``torch.profiler``
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
@@ -223,6 +239,25 @@ UNI_ARGV = [a for a in GNT_ARGV if a not in ("--compute_dtype", "bfloat16")] \
        "on"]
 VA_ODD_SHAPE = (3, 15)  # views, rows
 VA_MASKED_ROWS = 100  # rows masked in every view (5 at the odd shape)
+# the training phase (18): the port's trainer through its entry point on the
+# synthetic train split at 378x504 with 10 source views, f32, random weights:
+# IBRNet at configs/ibrnet/pretrain.txt's widths (64 + 64 samples,
+# inv_uniform, N_rand 320, lrates 1e-3 and 5e-4), plain and adversarial
+# (--adv_iters 3, the trainer's default: the reference flag's 100 do not fit
+# the phase), then GNT at configs/gnt/gnt_full.txt's (depth 8, 192 samples,
+# N_rand 800, single_net) with the ray attention through K3, forward and
+# backward with the weight gradients
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_TURN_STEPS = 5  # steps per turn of the route A/B, the first untimed
+TRAIN_COMMON = ["--train_dataset", "synthetic", "--ckpt_path", "",
+                "--num_source_views", "10", "--workers", "2",
+                "--dataset_kwargs", json.dumps(SLICE_DATA), "--i_print", "1",
+                "--i_weights", "1000000", "--no_reload",
+                "--n_iters", str(TRAIN_WARMUP + TRAIN_STEPS)]
+IBR_TRAIN_ARGV = ["--config", os.path.join(ROOT, "configs/ibrnet/pretrain.txt"),
+                  *TRAIN_COMMON]
+GNT_TRAIN_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
+                  "--gnt_fused_attn", "on", "--i_img", "0", *TRAIN_COMMON]
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, f32 on the
 # CUDA cores, TF32 and bf16 on the tensor cores (FLOP/s)
@@ -301,6 +336,12 @@ TOL_STEP_GRAD_REL = 1e-3
 TOL_STEP_GRAD_L2 = 1e-3
 TOL_STEP_SMALL_GRAD_L2 = 1e-2
 TOL_STEP_GRAD_COS = 0.9999
+# a parameter tensor of the GNT training step whose gradient is zero in
+# exact arithmetic carries f32 rounding noise alone: 4e-14 to 2e-11 of the
+# step's largest gradient entry, measured on an H100 at the phase's size,
+# where the least tensor with a gradient reached 7.5e-8 of it (see
+# train_step_limbs)
+TRAIN_GRAD_NOISE = 1e-8
 # the attacked f32 GNT render with the fused ray attention against the same
 # render through the unfused module path, on the card: the ray attention's
 # rounding only (with the FMA forward: rgb 4.2e-7, depth 7.2e-7 at depths
@@ -1381,6 +1422,7 @@ def kernel_counts():
             "gnt_chain": chain.gnt_chain.launches,
             "ray_attention_fwd": ra.ray_attention_fwd.launches,
             "ray_attention_bwd": ra.ray_attention_bwd.launches,
+            "ray_attention_bwd_dw": ra.ray_attention_bwd.dw_launches,
             "view_attention": va.view_attention.launches}
 
 
@@ -1393,6 +1435,7 @@ def zero_kernel_counts():
                ra.ray_attention_fwd, ra.ray_attention_bwd,
                va.view_attention):
         fn.launches = 0
+    ra.ray_attention_bwd.dw_launches = 0
 
 
 def timed_render(ev, data, src, delta, cams):
@@ -1506,12 +1549,15 @@ def universal_slice(uev, card, depth, chunks, n_tables):
         f"rays/s) with the view-attention kernel, outputs finite, coarse "
         f"PSNR {stats['attacked_psnr']:.4f} dB; launches in the render "
         f"{render}; {card}")
+    # the attack freezes the weights: no backward with the weight gradients
     want_attack = dict(bspg_select=0, gnt_chain=0, view_attention=0,
                        ray_attention_fwd=2 * ATTACK_ITERS * depth,
-                       ray_attention_bwd=ATTACK_ITERS * depth)
+                       ray_attention_bwd=ATTACK_ITERS * depth,
+                       ray_attention_bwd_dw=0)
     want_render = dict(bspg_select=n_tables * chunks, gnt_chain=0,
                        view_attention=chunks * depth,
-                       ray_attention_fwd=chunks * depth, ray_attention_bwd=0)
+                       ray_attention_fwd=chunks * depth, ray_attention_bwd=0,
+                       ray_attention_bwd_dw=0)
     if attack != want_attack or render != want_render:
         raise AssertionError(f"universal launches: attack {attack} (expected "
                              f"{want_attack}), render {render} (expected "
@@ -2027,6 +2073,367 @@ def evaluator_outputs(ibr_plan, gnt_plan, ibr_bundle, gnt_bundle, card):
     return out
 
 
+def run_training(name, argv, card):
+    """``python -m nerfool_tpu_torch.train``'s ``main`` on ``argv``:
+    (trainer, stats) with the ms per step over the last ``TRAIN_STEPS``
+    steps (host clock; each step ends in a synchronize, its loss read), the
+    losses, peak device memory and the kernels it launched."""
+    import numpy as np
+    import torch
+    from nerfool_tpu_torch.train.__main__ import main as train_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    trainer = train_main(argv)
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    hist = trainer.history
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    if [h["step"] for h in hist] != list(range(1, n + 1)):
+        raise AssertionError(f"{name}: logged steps "
+                             f"{[h['step'] for h in hist]}")
+    losses = [h["loss"] for h in hist]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: losses {losses}")
+    stats = dict(
+        ms_per_step=(hist[-1]["time"] - hist[TRAIN_WARMUP - 1]["time"])
+        / TRAIN_STEPS * 1e3, losses=losses, seconds=seconds,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        n_rand=trainer.cfg.n_rand, launches=counts)
+    log(name, f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up through "
+        f"the entry point, N_rand {trainer.cfg.n_rand}, "
+        f"{trainer.last_batch['src_rgbs'].shape[0]} source views at "
+        f"{tuple(trainer.last_batch['src_rgbs'].shape[1:3])}: "
+        f"{stats['ms_per_step']:.2f} ms/step; loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, all finite; peak device memory "
+        f"{stats['peak_gib']:.2f} GiB; kernel launches {counts}; main "
+        f"{seconds:.1f} s; {card}")
+    return trainer, stats
+
+
+def params_moved(trainer, start):
+    """Each parameter group's largest move from ``start`` (the bundle the
+    run began from), with every parameter finite; raises where a group did
+    not move."""
+    import torch
+
+    named = {id(p): (m, n) for m, mod in trainer._modules().items()
+             for n, p in mod.named_parameters()}
+    init = {m: dict(mod.named_parameters())
+            for m, mod in (("feature_net", start.feature_net),
+                           ("net_coarse", start.net_coarse),
+                           ("net_fine", start.net_fine)) if mod is not None}
+    moved, still = [], {}
+    for group in trainer.optimizer.param_groups:
+        most = 0.0
+        for p in group["params"]:
+            m, n = named[id(p)]
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"non-finite {m}.{n}")
+            d = float((p.detach().cpu() - init[m][n].detach()).abs().max())
+            if d == 0:  # a gradient of exactly zero at every step
+                still[m] = still.get(m, 0) + 1
+            most = max(most, d)
+        moved.append(most)
+    if not all(m > 0 for m in moved):
+        raise AssertionError(f"a parameter group did not move: {moved}")
+    return dict(group_max_move=moved, tensors_unmoved=still)
+
+
+def train_step_limbs(outs, names):
+    """The limbs of ``fused_against_unfused_step`` applied to every
+    parameter tensor's gradient from one step of each route with the same
+    draws, and to Adam's first update ``lr g / (|g| + 1e-8)``. Per tensor:
+    the largest entry's difference, the relative L2, the cosine and the
+    update where |g| > STEP_GRAD_FLOOR; over the whole step's gradient,
+    where single entries near Adam's eps would decide a small tensor: the
+    relative L2 of the entries under the floor and the share of entries
+    whose update agrees. Delta's limb on the share under the floor (at most
+    half) is not applied: the random-weight ResUNet's weight gradients put
+    most parameter entries under it (0.87, measured on an H100), and
+    the per-tensor limbs above keep the comparison from being vacuous. A
+    tensor whose gradient is zero in exact arithmetic (a convolution's bias
+    ahead of an InstanceNorm, which removes it; the bias of the view
+    attention's last layer ahead of the softmax over views, which no shift
+    changes) carries f32 rounding noise alone, ~1e-11 of the step's largest
+    entry: it is held to staying below TRAIN_GRAD_NOISE of that entry on
+    both routes."""
+    import torch
+
+    (loss_f, g_fs, lrs), (loss_u, g_us, _) = outs[True], outs[False]
+    norm = torch.linalg.norm
+    top = max(float(g.abs().max()) for g in g_us)
+    rows, small_d, small_g, agree = [], [], [], []
+    for name, g_f, g_u, lr in zip(names, g_fs, g_us, lrs):
+        g_f, g_u = g_f.double().reshape(-1), g_u.double().reshape(-1)
+        big = max(float(g_u.abs().max()), float(g_f.abs().max()))
+        row = dict(name=name, numel=g_u.numel(), grad_max=big)
+        if big <= TRAIN_GRAD_NOISE * top:
+            row.update(noise=True, ok=True)
+            rows.append(row)
+            continue
+        small = g_u.abs() <= STEP_GRAD_FLOOR
+        small_d.append((g_f - g_u)[small])
+        small_g.append(g_u[small])
+        upd = lambda g: lr * g / (g.abs() + 1e-8)
+        diff = (upd(g_f) - upd(g_u)).abs()
+        agree.append(diff <= TOL_STEP_DELTA_ABS)
+        scale = float(g_u.abs().max())
+        row.update(
+            grad_rel=float((g_f - g_u).abs().max()) / scale,
+            grad_l2=float(norm(g_f - g_u) / norm(g_u)),
+            cosine=float(torch.sum(g_f * g_u) / (norm(g_f) * norm(g_u))),
+            under=float(small.double().mean()),
+            upd_floor=(float(diff[~small].max()) if bool((~small).any())
+                       else 0.0),
+            share=float((diff <= TOL_STEP_DELTA_ABS).double().mean()))
+        row["ok"] = (row["grad_rel"] <= TOL_STEP_GRAD_REL
+                     and row["grad_l2"] <= TOL_STEP_GRAD_L2
+                     and row["cosine"] >= TOL_STEP_GRAD_COS
+                     and row["upd_floor"] <= TOL_STEP_DELTA_ABS)
+        rows.append(row)
+    small_d, small_g = torch.cat(small_d), torch.cat(small_g)
+    return dict(loss_rel=abs(loss_f - loss_u) / abs(loss_u), tensors=rows,
+                grad_max=top, under=small_g.numel() / sum(
+                    r["numel"] for r in rows if not r.get("noise")),
+                small_l2=float(norm(small_d) / norm(small_g)),
+                share=float(torch.cat(agree).double().mean()))
+
+
+def gnt_train_step_check(trainer, card):
+    """One GNT training step's gradients through K3 (forward, and backward
+    with the weight gradients) against the same step, with the same draws,
+    through the module path on the card (``train_step_limbs``)."""
+    import dataclasses
+    import torch
+    from nerfool_tpu_torch.train.trainer import make_train_step
+
+    batch = trainer.last_batch
+    draws = trainer.step_fn.draw(
+        torch.Generator(device="cuda").manual_seed(1), batch)
+    named = [(f"{m}.{n}", p) for m, mod in trainer._modules().items()
+             for n, p in mod.named_parameters()]
+    outs, launches = {}, {}
+    for fused in (True, False):
+        step, opt, _ = make_train_step(
+            trainer.bundle, dataclasses.replace(trainer.render_cfg,
+                                                gnt_fused_attn=fused),
+            trainer.cfg)
+        lr = {id(p): g["lr"] for g in opt.param_groups for p in g["params"]}
+        zero_kernel_counts()
+        aux, grads = step.loss_and_grads(batch, draws)
+        torch.cuda.synchronize()
+        launches[fused] = kernel_counts()
+        by_id = dict(zip(map(id, step.params), grads))
+        outs[fused] = (float(aux["loss"]), [by_id[id(p)] for _, p in named],
+                       [lr[id(p)] for _, p in named])
+    res = train_step_limbs(outs, [n for n, _ in named])
+    res["launches"] = {"fused": launches[True], "module": launches[False]}
+    rows = [r for r in res["tensors"] if not r.get("noise")]
+    noise = [r["name"] for r in res["tensors"] if r.get("noise")]
+    bad = [r["name"] for r in rows if not r["ok"]]
+    worst = {k: max(r[k] for r in rows) for k in ("grad_rel", "grad_l2",
+                                                  "upd_floor")}
+    worst.update(cosine=min(r["cosine"] for r in rows),
+                 share=min(r["share"] for r in rows))  # reported only
+    res["worst"] = worst
+    log("GNT training", f"one step, K3 against the module path with the same "
+        f"draws, {len(rows)} parameter tensors: loss rel "
+        f"{res['loss_rel']:.3g} (tol {TOL_STEP_LOSS_REL:g}); worst tensor's "
+        f"gradient max abs diff {worst['grad_rel']:.3g} of its largest entry "
+        f"(tol {TOL_STEP_GRAD_REL:g}), relative L2 {worst['grad_l2']:.3g} "
+        f"(tol {TOL_STEP_GRAD_L2:g}), cosine {worst['cosine']:.10f} (min "
+        f"{TOL_STEP_GRAD_COS:g}); Adam's first update max abs diff "
+        f"{worst['upd_floor']:.3g} where |g| > {STEP_GRAD_FLOOR:g} (tol "
+        f"{TOL_STEP_DELTA_ABS:g}), over all entries {res['share']:.6f} "
+        f"within it (min {TOL_STEP_SHARE:g}; the least tensor's "
+        f"{worst['share']:.6f}); the {res['under']:.4f}"
+        f" of entries with |g| <= {STEP_GRAD_FLOOR:g}: relative L2 "
+        f"{res['small_l2']:.3g} (tol {TOL_STEP_SMALL_GRAD_L2:g}); "
+        f"{len(noise)} tensors zero in exact arithmetic below "
+        f"{TRAIN_GRAD_NOISE:g} of the largest entry "
+        f"{res['grad_max']:.3g} on both routes; launches fused "
+        f"{launches[True]}, module {launches[False]}; failing {bad}; {card}")
+    if (bad or res["loss_rel"] > TOL_STEP_LOSS_REL
+            or res["small_l2"] > TOL_STEP_SMALL_GRAD_L2
+            or res["share"] < TOL_STEP_SHARE):
+        raise AssertionError("the GNT training step through K3 disagrees "
+                             "with the module path")
+    return res
+
+
+def profile_training(name, trainer, stream, card):
+    """Two more steps of ``trainer`` under ``torch.profiler``: device time
+    per step by kernel and operator (``profile_attack.profile_device``),
+    the ResUNet's convolutions and K3 (its forward, backward and weight
+    packing kernels) within it."""
+    import torch
+    from nerfool_tpu_torch import profile_attack
+
+    steps = 2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _, tables = profile_attack.profile_device(
+        lambda: trainer.train(stream, steps, generator=gen, i_print=1,
+                              log_fn=lambda s: None), name, steps)
+    per = lambda rows, keep: sum(r[0] for r in rows if keep(r[2])) / steps
+    out = dict(device_ms=per(tables["kernel"], lambda k: True),
+               conv_fwd_ms=per(tables["operator"],
+                               lambda k: k == "aten::cudnn_convolution"),
+               conv_bwd_ms=per(tables["operator"],
+                               lambda k: k == "aten::convolution_backward"),
+               k3_ms=per(tables["kernel"], lambda k: any(
+                   f"ra_{part}_kernel" in k for part in ("fwd", "bwd",
+                                                         "pack"))),
+               wall_ms=(trainer.history[-1]["time"]
+                        - trainer.history[-steps]["time"]) / (steps - 1)
+               * 1e3)
+    conv = out["conv_fwd_ms"] + out["conv_bwd_ms"]
+    log(name, f"profiled: {out['device_ms']:.1f} ms of device kernel time a "
+        f"step, of it the ResUNet's convolutions {out['conv_fwd_ms']:.1f} "
+        f"forward + {out['conv_bwd_ms']:.1f} backward "
+        f"({100 * conv / out['device_ms']:.1f}%), K3 {out['k3_ms']:.2f}; "
+        f"{card}")
+    return out
+
+
+def training(card):
+    """Phase 18 (see the module docstring). Returns the stats dict."""
+    import dataclasses
+    import torch
+    from nerfool_tpu_torch.data import create_training_dataset
+    from nerfool_tpu_torch.data.base import Loader
+    from nerfool_tpu_torch.models.bundle import create_model
+    from nerfool_tpu_torch.train.__main__ import parse_args
+    from nerfool_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) IBRNet, with one i_img panel set at the last step
+        argv = IBR_TRAIN_ARGV + ["--out_dir", tmp, "--expname", "ibrnet",
+                                 "--i_img", str(n)]
+        args = parse_args(argv)
+        start = create_model(args=args, seed=args.seed)
+        trainer, stats = run_training("IBRNet training", argv, card)
+        if any(stats["launches"].values()):
+            raise AssertionError("IBRNet training launched a kernel")
+        stats.update(params_moved(trainer, start))
+        path = os.path.join(tmp, "ibrnet", f"model_{n:06d}.pth")
+        loaded = create_model(args=args, ckpt_path=path, device="cuda")
+        for name, mod in trainer._modules().items():
+            want = mod.state_dict()
+            got = getattr(loaded, name).state_dict()
+            if set(got) != set(want) or not all(
+                    torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"{name} reloaded from {path} differs")
+        img_dir = os.path.join(tmp, "ibrnet", "images")
+        panels = sorted(os.listdir(img_dir))
+        want_panels = [f"val_{k}_{n:08d}.png" for k in (
+            "depth_coarse", "depth_fine", "gt_rgb", "pred_coarse",
+            "pred_fine")]
+        heads = {f: png_header(os.path.join(img_dir, f)) for f in panels}
+        if panels != want_panels or any(
+                hd[:2] != (SLICE_DATA["w"], SLICE_DATA["h"])
+                for hd in heads.values()):
+            raise AssertionError(f"log_view panels {heads}")
+        stats.update(checkpoint=os.path.basename(path), panels=panels)
+        stream = iter(Loader(create_training_dataset(
+            args, **args.dataset_kwargs), shuffle=True, seed=777,
+            num_workers=2, infinite=True))
+        stats["profile"] = profile_training("IBRNet training", trainer,
+                                            stream, card)
+        stream.close()
+        log("IBRNet training", f"every parameter group moved (largest move "
+            f"{stats['group_max_move']}, unmoved tensors by module "
+            f"{stats['tensors_unmoved']}), all finite; "
+            f"{os.path.basename(path)} reloaded through create_model with "
+            f"equal tensors; log_view panels "
+            f"{panels} at {SLICE_DATA['w']}x{SLICE_DATA['h']}; {card}")
+        out["ibrnet"] = stats
+        del trainer, loaded, start
+
+        # (b) IBRNet with adversarial training
+        argv = IBR_TRAIN_ARGV + ["--out_dir", tmp, "--expname", "adv",
+                                 "--i_img", "0", "--use_adv_train",
+                                 "--adv_iters", "3"]
+        trainer, stats = run_training("IBRNet adversarial training", argv,
+                                      card)
+        if any(stats["launches"].values()):
+            raise AssertionError("IBRNet training launched a kernel")
+        eps = trainer.cfg.epsilon / 255.0
+        delta = trainer.last_aux["delta"]
+        src = trainer.last_batch["src_rgbs"]
+        stats.update(adv_iters=trainer.cfg.adv_iters,
+                     max_abs_delta=float(delta.abs().max()), eps=eps,
+                     min_image=float((src + delta).min()),
+                     max_image=float((src + delta).max()))
+        log("IBRNet adversarial training", f"--adv_iters "
+            f"{trainer.cfg.adv_iters}: the last step's inner delta max abs "
+            f"{stats['max_abs_delta']:.6f} <= {eps:.6f}, src + delta in "
+            f"[{stats['min_image']:.4f}, {stats['max_image']:.4f}]; {card}")
+        if not (stats["max_abs_delta"] <= eps + 1e-7
+                and stats["min_image"] >= -1e-7
+                and stats["max_image"] <= 1 + 1e-7
+                and stats["max_abs_delta"] > 0
+                and bool(torch.isfinite(delta).all())):
+            raise AssertionError("the inner delta left its bounds")
+        out["ibrnet_adv"] = stats
+        del trainer
+
+        # (c) GNT through K3, forward and backward with the weight gradients
+        argv = GNT_TRAIN_ARGV + ["--out_dir", tmp, "--expname", "gnt"]
+        args = parse_args(argv)
+        trainer, stats = run_training("GNT training", argv, card)
+        levels = 2 if args.N_importance > 0 else 1
+        exp = n * args.trans_depth * levels
+        got = stats["launches"]
+        if (got["ray_attention_fwd"], got["ray_attention_bwd"],
+                got["ray_attention_bwd_dw"], got["view_attention"],
+                got["gnt_chain"], got["bspg_select"]) != (exp, exp, exp, 0,
+                                                          0, 0):
+            raise AssertionError(f"GNT training launches {got}, expected K3 "
+                                 f"forward, backward and backward with the "
+                                 f"weight gradients {exp} each, no other")
+        stats["step_check"] = gnt_train_step_check(trainer, card)
+        # the two routes in turns, on the same stream of train views
+        stream = iter(Loader(create_training_dataset(
+            args, **args.dataset_kwargs), shuffle=True, seed=777,
+            num_workers=2, infinite=True))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        turns = []
+        for fused in (True, False, False, True):
+            tr = Trainer(trainer.bundle, dataclasses.replace(
+                trainer.render_cfg, gnt_fused_attn=fused), trainer.cfg,
+                out_dir=os.path.join(tmp, "turns"))
+            zero_kernel_counts()
+            tr.train(stream, TRAIN_TURN_STEPS, generator=gen, i_print=1,
+                     log_fn=lambda s: None)
+            k3 = kernel_counts()["ray_attention_bwd_dw"]
+            if k3 != (TRAIN_TURN_STEPS * args.trans_depth * levels
+                      if fused else 0):
+                raise AssertionError(f"route {fused}: {k3} K3 launches")
+            h = tr.history
+            turns.append(("K3" if fused else "module",
+                          (h[-1]["time"] - h[0]["time"])
+                          / (TRAIN_TURN_STEPS - 1) * 1e3))
+        stats["profile"] = profile_training("GNT training", tr, stream,
+                                            card)
+        if not stats["profile"]["k3_ms"] > 0:
+            raise AssertionError("the profiled GNT steps show no K3 kernel")
+        stream.close()
+        stats["turns_ms_per_step"] = turns
+        log("GNT training", "steps in turns, ms/step: " + ", ".join(
+            f"{r} {ms:.2f}" for r, ms in turns) + f"; {card}")
+        out["gnt"] = stats
+        del trainer
+    out["seconds"] = time.perf_counter() - t_phase
+    log("training", f"phase took {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -2382,6 +2789,10 @@ def main():
                                 card)
     del ibr_bundle, gnt_bundle, ibr_plan, gnt_plan
 
+    # 18. the trainer: IBRNet, plain and adversarial, and GNT through K3
+    train = training(card)
+    gnt_train = train["gnt"]["launches"]
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
            or m == "nerfool_tpu" or m.startswith("nerfool_tpu.")]
@@ -2416,12 +2827,16 @@ def main():
                     "hybrid_renders": sum(h["ray_attention_fwd"]
                                           for h in hybrids),
                     "gnt_attack_bf16_features": outputs["gnt_attack"][
-                        "launches"]["bf16"]["ray_attention_fwd"]}
+                        "launches"]["bf16"]["ray_attention_fwd"],
+                    "gnt_train": gnt_train["ray_attention_fwd"]}
     k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
                     "universal_attack": uni_attack["ray_attention_bwd"],
                     "defended_attack": purif["ray_attention_bwd"],
                     "gnt_attack_bf16_features": outputs["gnt_attack"][
-                        "launches"]["bf16"]["ray_attention_bwd"]}
+                        "launches"]["bf16"]["ray_attention_bwd"],
+                    "gnt_train": gnt_train["ray_attention_bwd"]}
+    # the launches with the weight gradients: the training step's alone
+    k3_dw_paths = {"gnt_train": gnt_train["ray_attention_bwd_dw"]}
     va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
     k4_paths = {"gnt_attacked_render": gnt_adv["k4_launches"],
                 "universal_attacked_render": uni_render["view_attention"],
@@ -2489,7 +2904,10 @@ def main():
         "bound_ms": ra_f32["bwd_no_dw_bound_ms"],
         "bound_by": ra_f32["bwd_no_dw_bound_by"],
         "bound_fma_ms": ra_f32["bwd_bound_one_rate_ms"],
+        "dw_launches": sum(k3_dw_paths.values()),
+        "dw_launches_by_path": k3_dw_paths,
         "dw_ms": ra_f32["bwd_ms"], "dw_bound_ms": ra_f32["bwd_bound_ms"],
+        "dw_shape": list(RA_SHAPE),
         "resources": ra_f32["bwd_resources"], "library_ms": None}, {
         "name": "view_attention", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/view_attention.cu",
@@ -2506,7 +2924,7 @@ def main():
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
                    "universal": universal, "small_modes": small_modes,
                    "defended": defended},
-        "evaluator_outputs": outputs}))
+        "evaluator_outputs": outputs, "training": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -9,9 +9,10 @@ import torch
 
 
 def clamp(x, lower, upper):
-    """Elementwise clamp with tensor or scalar bounds."""
-    return torch.maximum(torch.minimum(x, torch.as_tensor(upper).to(x)),
-                         torch.as_tensor(lower).to(x))
+    """Elementwise clamp with tensor or scalar bounds, in ``x``'s dtype (a
+    Python float bound is not rounded to float32 first)."""
+    as_x = lambda b: torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    return torch.maximum(torch.minimum(x, as_x(upper)), as_x(lower))
 
 
 def init_delta(generator, src_rgbs, epsilon, lower=0.0, upper=1.0):

@@ -65,22 +65,21 @@ class MixDataset(Dataset):
         return ds[self.rng.randint(len(ds))]
 
 
-def create_training_dataset(args, seed=0):
+def create_training_dataset(args, seed=0, **kwargs):
     """'a+b+c' dataset spec -> a single (possibly mixed) training dataset.
 
     Mirrors the reference semantics: one dataset passes through; multiple
     datasets mix either uniformly over samples (weights unset -> sizes) or by
-    explicit --dataset_weights.
+    explicit --dataset_weights. ``kwargs`` go to every dataset's constructor
+    (``--dataset_kwargs``).
     """
     names = args.train_dataset.split("+")
+    scenes = getattr(args, "train_scenes", ())
     if len(names) == 1:
-        return dataset_dict[names[0]](
-            args, mode="train", scenes=getattr(args, "train_scenes", ())
-        )
-    datasets = [
-        dataset_dict[n](args, mode="train", scenes=getattr(args, "train_scenes", ()))
-        for n in names
-    ]
+        return dataset_dict[names[0]](args, mode="train", scenes=scenes,
+                                      **kwargs)
+    datasets = [dataset_dict[n](args, mode="train", scenes=scenes, **kwargs)
+                for n in names]
     weights = list(getattr(args, "dataset_weights", []) or [])
     if not weights:
         sizes = np.array([min(len(d), 10**6) for d in datasets], dtype=np.float64)

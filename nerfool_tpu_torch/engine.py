@@ -97,6 +97,7 @@ def render_config_from_args(args) -> RenderConfig:
     return RenderConfig(n_samples=args.N_samples,
                         n_importance=args.N_importance,
                         inv_uniform=bool(args.inv_uniform),
+                        det=bool(args.det),
                         white_bkgd=bool(args.white_bkgd),
                         backbone=args.backbone,
                         single_net=gnt and bool(args.single_net),

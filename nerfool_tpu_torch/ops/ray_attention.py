@@ -331,9 +331,10 @@ def _packed(wqkv, wo, dtype):
 
 def ray_attention_bwd(x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=True):
     """The backward on ``x``'s device: the CUDA kernel for CUDA tensors
-    (counted in ``ray_attention_bwd.launches``), the plain version for CPU
-    ones. ``want_dw=False`` skips the weight gradients (an attack freezes
-    the weights) and returns None for them.
+    (counted in ``ray_attention_bwd.launches``, and those with the weight
+    gradients in ``ray_attention_bwd.dw_launches`` too), the plain version
+    for CPU ones. ``want_dw=False`` skips the weight gradients (an attack
+    freezes the weights) and returns None for them.
 
     :return: (dx [R, S, D] in ``x``'s dtype, dwqkv [D, 3D], dwo [D, D] in
         float32)
@@ -350,6 +351,7 @@ def ray_attention_bwd(x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=True):
     out = launch_bwd(_lib(), x, wqkv, wo, gout, gattn0, n_heads, want_dw,
                      _packed(wqkv, wo, x.dtype))
     ray_attention_bwd.launches += 1
+    ray_attention_bwd.dw_launches += bool(want_dw)
     return out
 
 
@@ -388,6 +390,7 @@ def launch_bwd(lib, x, wqkv, wo, gout, gattn0, n_heads=4, want_dw=False,
 
 
 ray_attention_bwd.launches = 0
+ray_attention_bwd.dw_launches = 0
 
 
 class _RayAttention(torch.autograd.Function):

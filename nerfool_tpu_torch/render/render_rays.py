@@ -14,7 +14,9 @@ from the clean branch at both levels; GNT takes rgb or the attention weights
 from the clean branch at the coarse level only, keeps the attacked depth, and
 renders the fine level from the attacked features (the reference's quirks,
 kept). ``geo_noise`` adds Gaussian noise to IBRNet's sigma before
-compositing, drawn from the caller's generator or handed in.
+compositing, drawn from the caller's generator or handed in. Training
+samples stochastically (``det=False``): the coarse depths' jitter and the
+fine level's quantiles come from the same generator, or are handed in.
 
 In bfloat16 (``compute_dtype``) the aggregator and its inputs run in bf16:
 the BSPG patch tables are cast before packing, and the gathered taps, ray
@@ -47,11 +49,14 @@ from nerfool_tpu_torch.render.sampling import (
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration (deterministic sampling)."""
+    """Static rendering configuration."""
 
     n_samples: int = 64
     n_importance: int = 0
     inv_uniform: bool = False
+    # deterministic sampling (the evaluators'); False jitters the coarse
+    # depths and draws the fine quantiles (training)
+    det: bool = True
     white_bkgd: bool = False
     backbone: str = "ibrnet"  # 'ibrnet' | 'gnt'
     single_net: bool = False  # gnt: net_coarse also renders the fine pass
@@ -162,7 +167,7 @@ def _finalize(cfg, raw, z_vals, pixel_mask, noise=None):
 
 def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
                 src_cameras, tables=None, featmaps_clean=None, generator=None,
-                noise=None):
+                noise=None, samples=None):
     """Render a batch of rays (coarse + optional fine pass).
 
     :param nets: {'net_coarse', 'net_fine'} aggregator modules
@@ -175,21 +180,27 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
     :param featmaps_clean: the clean sources' (coarse, fine) features, for
         hybrid renders (which take the per-tap gather)
     :param generator: the ``torch.Generator`` of the ``geo_noise`` draws
+        and, with ``cfg.det`` False, of the sampling draws
     :param noise: (coarse [R, S], fine [R, S + I]) standard normal draws
         used instead of the generator's
+    :param samples: with ``cfg.det`` False, (coarse [R, S], fine [R, I])
+        U[0, 1) draws (the coarse depths' jitter, the fine quantiles) used
+        instead of the generator's; either may be None
     :return: {'outputs_coarse': {...}, 'outputs_fine': {...} | None}
     """
     if cfg.hybrid and featmaps_clean is None:
         raise ValueError("hybrid renders need the clean features")
+    samples = samples if samples is not None else (None, None)
     pts, z_vals = sample_along_camera_ray(
         ray_batch["ray_o"], ray_batch["ray_d"], ray_batch["depth_range"],
-        cfg.n_samples, inv_uniform=cfg.inv_uniform)
+        cfg.n_samples, inv_uniform=cfg.inv_uniform, det=cfg.det,
+        generator=generator, t_rand=samples[0])
     if cfg.bspg_specs is not None and not cfg.hybrid:
         if tables is None:
             tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs,
                                       cfg.dtype)
         return _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables,
-                                 pts, z_vals, generator, noise)
+                                 pts, z_vals, generator, noise, samples[1])
 
     cam = ray_batch["camera"].reshape(-1)[:34]
     cams = src_cameras.detach() if cfg.stop_camera_grad else src_cameras
@@ -222,7 +233,7 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
                          _noise(cfg, noise, generator, li, raw))
 
     return _two_levels(cfg, run_level, pts, z_vals, ray_batch["ray_o"],
-                       ray_batch["ray_d"])
+                       ray_batch["ray_d"], generator, samples[1])
 
 
 def _noise(cfg, noise, generator, li, raw):
@@ -236,21 +247,25 @@ def _noise(cfg, noise, generator, li, raw):
                        device=raw.device)
 
 
-def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d):
-    """The coarse level, then the fine one at importance-sampled depths."""
+def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,
+                u_fine):
+    """The coarse level, then the fine one at importance-sampled depths
+    (``u_fine``: the fine quantiles when sampling stochastically, or None
+    to draw them from ``generator``)."""
     coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
         z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
                                   cfg.n_importance,
-                                  inv_uniform=cfg.inv_uniform)
+                                  inv_uniform=cfg.inv_uniform, det=cfg.det,
+                                  generator=generator, u=u_fine)
         pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
         ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
     return ret
 
 
 def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals,
-                      generator, noise):
+                      generator, noise, u_fine):
     """Coarse + fine rendering through the block segment-patch gather.
 
     Rays arrive BLOCK-MAJOR (render_image reorders raster rays into bh x bw
@@ -330,4 +345,5 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals,
         return _finalize(cfg, raw, z_l, pixel_mask,
                          _noise(cfg, noise, generator, li, raw))
 
-    return _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d)
+    return _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,
+                       u_fine)

@@ -311,43 +311,85 @@ def test_adam_attack_step_matches_jax(backbone):
                                np.asarray(jstate["delta"])[same], atol=2e-5)
 
 
-@pytest.mark.parametrize("backbone", ["ibrnet", "gnt"])
-def test_attack_step_float64_matches_jax(backbone):
-    """One view-specific Adam step per backbone in float64 on the module
-    path, against JAX under x64 from the same delta0 and ray indices (drawn
-    under x64, whose bits differ): the loss at PARITY.md's TRAJECTORY bound
-    (step-1 loss 1e-7), the gradients (Adam's first moments) 1e-7 of their
-    scale. Where the float32 step is held at 1e-4 (the feature net's float32
-    rounding, ROADMAP §3), float64 takes that rounding out. GNT computes its
+# the float64 holds: (backbone, attack flags, how the target is chosen).
+# universal: a streamed target camera between the sources with the pseudo
+# ground truth of the clean features; pcgrad: gradient surgery over rgb and
+# depth variance; unseen: an interpolated unseen pose as the target
+# (pseudo ground truth, which --use_unseen_views forces), a fine level, the
+# density and depth-difference terms; pose: the camera-pose attack on GNT
+# from a non-zero rot / trans
+F64_CASES = {
+    "ibrnet": ("ibrnet", {}, None),
+    "gnt": ("gnt", {}, None),
+    "universal": ("ibrnet", {"use_pseudo_gt": True}, "between"),
+    "pcgrad": ("ibrnet", {"use_pcgrad": True, "depth_var_loss": 0.1}, None),
+    "unseen": ("ibrnet", {"use_pseudo_gt": True, "density_loss": 0.5,
+                          "depth_diff_loss": 0.3}, "unseen"),
+    "pose": ("gnt", {"perturb_camera": True, "rot_epsilon": 5.0,
+                     "trans_epsilon": 0.05}, None),
+}
+
+
+@pytest.mark.parametrize("case", list(F64_CASES))
+def test_attack_step_float64_matches_jax(case):
+    """One Adam step of the attack in float64 on the module path, per
+    backbone (view-specific) and per mode (``F64_CASES``), against JAX under
+    x64 from the same delta0 (rot0, trans0) and ray indices (drawn under
+    x64, whose bits differ): the loss at PARITY.md's TRAJECTORY bound
+    (step-1 loss 1e-7), the gradients (Adam's first moments; the camera
+    parameters' too under the pose attack) 1e-7 of their scale. Where the
+    float32 step is held at 1e-4 (the feature net's float32 rounding,
+    ROADMAP §3), float64 takes that rounding out. GNT computes its
     positional encodings of float64 points in float32 in both packages, as
     tests/test_torch_defenses.py's GNT renders do."""
+    from helpers import orbit_cameras
+    from nerfool_tpu_torch.attack.geo_interp import sample_unseen_pose
+
+    backbone, flags, target_kind = F64_CASES[case]
     rng = np.random.RandomState(7)
     jb, tb, target, src, delta0 = _scene(rng, backbone)
-    jr, tr = _render_cfgs(backbone)
+    jr, tr = _render_cfgs(backbone, 8 if case == "unseen" else 0)
     jr = dataclasses.replace(jr, compute_dtype="float64")
-    cfg_kw = dict(h=H, w=W, n_rand=32, use_adam=True, adam_lr=1e-3)
+    if case == "pose":  # the camera gradient flows through the projection
+        tr = dataclasses.replace(tr, stop_camera_grad=False)
+    cfg_kw = dict(h=H, w=W, n_rand=32, use_adam=True, adam_lr=1e-3, **flags)
     jcfg = j_attack.AttackConfig(**cfg_kw)
     tcfg = t_attack.AttackConfig(**cfg_kw)
+    if target_kind == "between":
+        target["camera"] = orbit_cameras(8, H, W)[3]
+    elif target_kind == "unseen":
+        pose = sample_unseen_pose(np.random.RandomState(5),
+                                  src["cameras"][:, 18:34].reshape(-1, 4, 4))
+        target["camera"] = target["camera"].copy()
+        target["camera"][18:34] = pose.reshape(-1)
+    cams0 = {}
+    if case == "pose":
+        r = np.random.RandomState(3)
+        cams0 = {"rot": (r.rand(3, 3) * 2 - 1) * np.deg2rad(5.0) * 0.5,
+                 "trans": (r.rand(3, 3) * 2 - 1) * 0.05 * 0.5}
     f64 = lambda d: {k: v.astype(np.float64) if v.dtype.kind == "f" else v
                      for k, v in d.items()}
     target, src, delta0 = f64(target), f64(src), delta0.astype(np.float64)
     key = jax.random.PRNGKey(2)
     with jax.enable_x64(True):
-        k_sel, k_render, _ = jax.random.split(key, 3)
+        k_sel, k_render, k_pc = jax.random.split(key, 3)
         sel = np.asarray(j_attack.select_ray_indices(k_sel, jcfg))
         sel_patch = np.asarray(j_attack.select_ray_indices(
             jax.random.fold_in(k_render, 23),
             dataclasses.replace(jcfg, use_patch_sampling=True)))
+        order = np.asarray(jax.random.permutation(
+            k_pc, len(jcfg.enabled_losses())))
         jb = dataclasses.replace(jb, params=jax.tree.map(
             lambda a: jnp.asarray(a, jnp.float64), jb.params))
         jsrc = {k: jnp.asarray(v) for k, v in src.items()}
         jsrc["featmaps_clean"] = jb.extract_features(jsrc["rgbs"])
         jstate = dict(j_attack.init_attack_state(
             jax.random.PRNGKey(1), jcfg, jsrc["rgbs"]),
-            delta=jnp.asarray(delta0))
+            delta=jnp.asarray(delta0),
+            **{k: jnp.asarray(v) for k, v in cams0.items()})
         jstate, jaux = jax.jit(j_attack.make_attack_step(jb, jr, jcfg))(
             jstate, {k: jnp.asarray(v) for k, v in target.items()}, jsrc, key)
-        jm = np.asarray(jstate["opt_state"][0].mu[0])
+        jm = [np.asarray(m) for m in jstate["opt_state"][0].mu]
         jloss = float(jaux["loss"])
     for m in (tb.feature_net, tb.net_coarse, tb.net_fine):
         if m is not None:
@@ -355,15 +397,21 @@ def test_attack_step_float64_matches_jax(backbone):
     tsrc = {k: _t(v) for k, v in src.items()}
     with torch.no_grad():
         tsrc["featmaps_clean"] = tb.extract_features(tsrc["rgbs"])
-    tstate = t_attack.init_attack_state(None, tcfg, tsrc["rgbs"],
-                                        delta=_t(delta0))
+    tstate = t_attack.init_attack_state(
+        None, tcfg, tsrc["rgbs"], delta=_t(delta0),
+        **{k: _t(v) for k, v in cams0.items()})
     tstate, taux = t_attack.make_attack_step(tb, tr, tcfg)(
         tstate, {k: _t(v) for k, v in target.items()}, tsrc, sel=_t(sel),
-        sel_patch=_t(sel_patch))
+        sel_patch=_t(sel_patch), pc_order=order)
     assert tstate["m"].dtype == torch.float64
+    assert set(taux) == set(jaux)
     np.testing.assert_allclose(float(taux["loss"]), jloss, rtol=1e-7)
-    np.testing.assert_allclose(tstate["m"].numpy(), jm, rtol=0,
-                               atol=1e-7 * np.abs(jm).max())
+    names = ("m", "m_rot", "m_trans") if case == "pose" else ("m",)
+    for name, ref in zip(names, jm):
+        got = tstate[name].numpy()
+        assert np.abs(ref).max() > 0, name
+        np.testing.assert_allclose(got, ref, rtol=0, err_msg=name,
+                                   atol=1e-7 * np.abs(ref).max())
 
 
 def test_pgd_attack_step_matches_jax():

@@ -663,6 +663,41 @@ def test_ray_attention_kernels_match_plain_f32(r, s, both):
 
 
 @pytest.mark.cuda
+def test_ray_attention_weight_gradients_at_training_shape():
+    """K3's backward with the weight gradients as a GNT training step
+    launches it: R=800 rays of S=192 samples in f32 through the
+    autograd.Function, the weights requiring grad, against autograd through
+    the plain forward at the backward's bounds (1e-5 of each tensor's
+    scale); counted in ``dw_launches``, which a backward to ``x`` alone
+    leaves as it was."""
+    _require_cuda()
+    args = _ra_case(800, 192, seed=12, device="cuda")
+    counts = lambda: (ra.ray_attention_fwd.launches,
+                      ra.ray_attention_bwd.launches,
+                      ra.ray_attention_bwd.dw_launches)
+    before = counts()
+    got = _ra_grads(ra.ray_attention, *args)
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + 1 for b in before)
+    ref = _ra_grads(ra.ray_attention_plain, *args)
+    for name, g, r_ in zip(("out", "attn0", "dx", "dwqkv", "dwo", "dbo"),
+                           got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        g, r_ = g.detach(), r_.detach()
+        tol = 1e-5 * max(1.0, float(r_.abs().max()))
+        assert float((g - r_).abs().max()) <= tol, (name, tol)
+    x = args[0].clone().requires_grad_()
+    out, attn0 = ra.ray_attention(x, *args[1:4])
+    before = counts()
+    dx, = torch.autograd.grad((out * args[4]).sum()
+                              + (attn0 * args[5]).sum(), x)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2])
+    torch.testing.assert_close(dx, got[2], rtol=0, atol=1e-5 * max(
+        1.0, float(ref[2].abs().max())))
+
+
+@pytest.mark.cuda
 def test_ray_attention_bwd_kernel_matches_plain_bwd():
     """The backward wrapper alone against the plain backward (the same
     formulas in tensor ops), and its ``want_dw=False`` route."""
