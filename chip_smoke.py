@@ -149,6 +149,28 @@ Phases, each printing a line; any failure raises and exits non-zero:
      same draws (the limbs of phase 11's step check), then steps of the
      two routes in turns (K3, module, module, K3); two more steps of IBRNet
      and of GNT (through K3) under ``torch.profiler``
+ 19. the ray split, the video and the sweep: (a) two processes on the one
+     card in a gloo group (NCCL refuses two ranks on one device; gloo
+     carries CUDA tensors for all-reduce), each running this script with
+     ``--split-rank``: the GNT attack evaluator of phase 11 finds the
+     group; one view-specific attack step (f32, N_rand 800, through K3)
+     split over the ranks against the one-process step from the same delta
+     and rays (the limbs of phase 11's step check), the attacked
+     whole-frame GNT render (K1, K3, K4 on the plan of phase 9) split by
+     chunks against the one-process frame, one GNT train step through K3
+     with dW (each rank its own view and draws) against the one-process
+     step with the ranks' gradients averaged (phase 18's limbs), K1's, K3's
+     and K4's launches per rank, and each route's time; (b) ``python -m
+     nerfool_tpu_torch.train --distributed`` in a world of one rank under
+     NCCL, 2 steps at pretrain.txt's widths, against the run without the
+     flag; (c) ``python -m nerfool_tpu_torch.render_video``, 2 spiral
+     frames of a 378x504 fixture LLFF scene (``verify_parity.make_fixture``,
+     read back by the port's PNG reader): GNT at gnt_full.txt's widths in
+     bf16 through K2 (launches = chunks x frames) and IBRNet per tap, the
+     PNG headers, s/frame, and the PNG reader's seconds on one LLFF frame
+     of ``images_4``'s size (756x1008 RGB, rows in all five filters); (d) ``python -m nerfool_tpu_torch.sweep`` over
+     the synthetic scene (IBRNet, 2 attack iterations on 2 views): the
+     report's keys, finite rows, s/scene
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
@@ -258,6 +280,25 @@ IBR_TRAIN_ARGV = ["--config", os.path.join(ROOT, "configs/ibrnet/pretrain.txt"),
                   *TRAIN_COMMON]
 GNT_TRAIN_ARGV = ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
                   "--gnt_fused_attn", "on", "--i_img", "0", *TRAIN_COMMON]
+
+# phase 19: the ray split on two ranks of one card (gloo: NCCL refuses two
+# ranks on one device), GNT at the attack slice's widths, one warm-up then
+# SPLIT_ITERS timed iterations (attack) and steps (training) per route; the
+# NCCL world of one through the trainer; the video of a fixture LLFF scene
+# (VIDEO_VIEWS views, so that 11 train views hold the 10 sources); the
+# sweep over the synthetic scene
+SPLIT_WORLD = 2
+SPLIT_ITERS = 3
+SPLIT_TIMEOUT = 600  # seconds for each rank
+VIDEO_FRAMES, VIDEO_VIEWS = 2, 12
+SWEEP_ITERS, SWEEP_VIEWS = 2, 2
+# the NCCL world of one against the plain run: the first step's loss comes
+# before any update from the same weights and draws (the forward is
+# deterministic: equal to rounding); the second follows one Adam update
+# whose backward (grid_sample's atomic adds, cuDNN's weight gradients) sums
+# in another order from run to run, which moves Adam's first update only
+# where |g| is near its eps: 1e-4 relative
+TOL_WORLD1_LOSS = (1e-6, 1e-4)
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, f32 on the
 # CUDA cores, TF32 and bf16 on the tensor cores (FLOP/s)
@@ -1220,8 +1261,30 @@ def fused_against_unfused_step(ev, data, delta, card):
                        torch.cuda.max_memory_allocated() / 2 ** 30,
                        state["m"] / -0.1)
         del state, state0, aux
-    loss_rel = abs(outs[True][0] - outs[False][0]) / abs(outs[False][0])
-    g_f, g_u = outs[True][3].double(), outs[False][3].double()
+    res = step_limbs(outs[True][0], outs[False][0], outs[True][3],
+                     outs[False][3], outs[True][1], outs[False][1])
+    log("GNT attack", "one step, fused against unfused from the same delta "
+        f"and rays: {res['text']}; peak device memory {outs[True][2]:.2f} "
+        f"GiB fused, {outs[False][2]:.2f} GiB unfused; {card}")
+    if not res.pop("ok"):
+        raise AssertionError("the fused attack step disagrees with the "
+                             "unfused one")
+    res.pop("text")
+    return dict(res, peak_gib_fused=outs[True][2],
+                peak_gib_unfused=outs[False][2])
+
+
+def step_limbs(loss_a, loss_b, g_a, g_b, upd_a, upd_b):
+    """Two attack steps from the same delta and rays, route a against route
+    b (the reference), held on the limbs set out above STEP_GRAD_FLOOR:
+    the loss; the gradient g (read from Adam's first moment) at every entry,
+    in relative L2 and by its cosine, and over the entries under the floor;
+    delta's update above the floor and the share of all entries within
+    TOL_STEP_DELTA_ABS. Returns the readings with 'ok' and a 'text'."""
+    import torch
+
+    loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+    g_f, g_u = g_a.double(), g_b.double()
     norm = torch.linalg.norm
     grad_rel = float((g_f - g_u).abs().max() / g_u.abs().max())
     grad_l2 = float(norm(g_f - g_u) / norm(g_u))
@@ -1229,12 +1292,12 @@ def fused_against_unfused_step(ev, data, delta, card):
     small = g_u.abs() <= STEP_GRAD_FLOOR
     under = float(small.float().mean())
     small_l2 = float(norm((g_f - g_u)[small]) / norm(g_u[small]))
-    diff = (outs[True][1] - outs[False][1]).abs()
+    diff = (upd_a - upd_b).abs()
     upd = float(diff.max())
     upd_floor = float(diff[~small].max())
     share = float((diff <= TOL_STEP_DELTA_ABS).float().mean())
-    log("GNT attack", f"one step, fused against unfused from the same delta "
-        f"and rays: loss {outs[True][0]:.6f} vs {outs[False][0]:.6f} (rel "
+    text = (
+        f"loss {loss_a:.6f} vs {loss_b:.6f} (rel "
         f"{loss_rel:.3g}, tol {TOL_STEP_LOSS_REL:g}); gradient max abs diff "
         f"{grad_rel:.3g} of its largest entry {float(g_u.abs().max()):.3g} "
         f"(tol {TOL_STEP_GRAD_REL:g}), relative L2 {grad_l2:.3g} (tol "
@@ -1244,22 +1307,18 @@ def fused_against_unfused_step(ev, data, delta, card):
         f"{small_l2:.3g} (tol {TOL_STEP_SMALL_GRAD_L2:g}); delta update max "
         f"abs diff {upd_floor:.3g} where |g| > {STEP_GRAD_FLOOR:g} (tol "
         f"{TOL_STEP_DELTA_ABS:g}), {upd:.3g} over all entries, {share:.6f} "
-        f"of them within {TOL_STEP_DELTA_ABS:g} (min {TOL_STEP_SHARE:g}); "
-        f"peak device memory {outs[True][2]:.2f} GiB fused, "
-        f"{outs[False][2]:.2f} GiB unfused; {card}")
-    if not (loss_rel <= TOL_STEP_LOSS_REL and grad_rel <= TOL_STEP_GRAD_REL
-            and grad_l2 <= TOL_STEP_GRAD_L2 and cosine >= TOL_STEP_GRAD_COS
-            and under <= STEP_FLOOR_SHARE
-            and small_l2 <= TOL_STEP_SMALL_GRAD_L2
-            and upd_floor <= TOL_STEP_DELTA_ABS and share >= TOL_STEP_SHARE):
-        raise AssertionError("the fused attack step disagrees with the "
-                             "unfused one")
+        f"of them within {TOL_STEP_DELTA_ABS:g} (min {TOL_STEP_SHARE:g})")
+    ok = (loss_rel <= TOL_STEP_LOSS_REL and grad_rel <= TOL_STEP_GRAD_REL
+          and grad_l2 <= TOL_STEP_GRAD_L2 and cosine >= TOL_STEP_GRAD_COS
+          and under <= STEP_FLOOR_SHARE
+          and small_l2 <= TOL_STEP_SMALL_GRAD_L2
+          and upd_floor <= TOL_STEP_DELTA_ABS and share >= TOL_STEP_SHARE)
     return dict(loss_rel=loss_rel, grad_rel_diff=grad_rel,
                 grad_rel_l2=grad_l2, grad_cosine=cosine,
                 share_under_grad_floor=under, small_grad_rel_l2=small_l2,
                 delta_update_diff_above_floor=upd_floor,
                 delta_update_diff=upd, delta_update_share_within_tol=share,
-                peak_gib_fused=outs[True][2], peak_gib_unfused=outs[False][2])
+                ok=ok, text=text)
 
 
 def va_operands(v, n, dtype, seed, masked_rows, d=64):
@@ -1827,6 +1886,38 @@ def defended_attack(ibr_bundle, gnt_bundle, card):
     out["seconds"] = time.perf_counter() - t_phase
     log("defended attack", f"phase took {out['seconds']:.1f} s; {card}")
     return out
+
+
+def filtered_png(path, img):
+    """Write uint8 [H, W, 3] ``img`` as a PNG whose rows take the five row
+    filters in turn (None, Sub, Up, Average, Paeth), as an encoder with
+    adaptive filtering mixes them."""
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int32)
+    up = np.concatenate([np.zeros((1, w * c), np.int32), cur[:-1]])
+    left = np.concatenate([np.zeros((h, c), np.int32), cur[:, :-c]], 1)
+    ul = np.concatenate([np.zeros((h, c), np.int32), up[:, :-c]], 1)
+    pa, pb, pc = abs(up - ul), abs(left - ul), abs(left + up - 2 * ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    kind = np.arange(h)[:, None] % 5
+    pred = np.choose(kind, [np.zeros_like(cur), left, up, (left + up) // 2,
+                            paeth])
+    raw = np.concatenate([kind, (cur - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(k, d):
+        return (struct.pack(">I", len(d)) + k + d
+                + struct.pack(">I", zlib.crc32(k + d) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
 
 
 def png_header(path):
@@ -2434,6 +2525,467 @@ def training(card):
     return out
 
 
+def split_rank(rank, world, init, tmp):
+    """Phase 19 (a), one rank of ``world`` on the card, run as ``python3
+    chip_smoke.py --split-rank RANK WORLD INIT_URL DIR``: the GNT attack
+    evaluator at the attack slice's widths finds the group and splits its
+    rays. Every rank draws the same delta and rays; it runs the split attack
+    step, the split attacked frame (the plan of phase 9, from DIR) and the
+    split train step (its own view and draws, the gradients averaged);
+    rank 0 alone then runs each one-process counterpart while the other
+    ranks wait. Results go to DIR/rankN.pt."""
+    sys.path.insert(0, ROOT)
+    import dataclasses
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.attack.attack import (init_attack_state,
+                                                 make_attack_step,
+                                                 select_ray_indices)
+    from nerfool_tpu_torch.attack.perturb import init_delta
+    from nerfool_tpu_torch.config import port_parser
+    from nerfool_tpu_torch.data import create_training_dataset
+    from nerfool_tpu_torch.engine import (Evaluator, build_attack_config,
+                                          render_config_from_args)
+    from nerfool_tpu_torch.parallel import distributed as pd
+    from nerfool_tpu_torch.parallel.mesh import ray_split
+    from nerfool_tpu_torch.train.trainer import (make_batch, make_train_step,
+                                                 train_config_from_args)
+
+    pd.initialize(backend="gloo", device="cuda", init_method=init,
+                  world_size=world, rank=rank)
+    split = ray_split()
+    ev = Evaluator(eval_adv.parse_args(GNT_ATTACK_ARGV),
+                   dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
+    if ev.split != split or split is None:
+        raise AssertionError(f"rank {rank}: the evaluator's split "
+                             f"{ev.split}, the group's {split}")
+    with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
+        ev._bspg_specs, ev._bspg_hw = pickle.load(f)
+    data = ev.test_dataset[0]
+    target, (h, w) = ev._make_target(data)
+    src = ev._make_src(data)
+    cfg = build_attack_config(ev.args, h, w)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    delta0 = init_delta(gen, src["rgbs"], cfg.eps)
+    sels = [select_ray_indices(gen, cfg, "cuda")
+            for _ in range(SPLIT_ITERS + 1)]
+    out = {"rank": rank}
+
+    def attack(sp):
+        """Warm-up step (the one compared), then SPLIT_ITERS timed."""
+        step = make_attack_step(ev.bundle, ev._grad_render_cfg(), cfg,
+                                split=sp)
+        state = init_attack_state(None, cfg, src["rgbs"], delta=delta0)
+        for i, sel in enumerate(sels):
+            if i == 1:
+                torch.cuda.synchronize()
+                zero_kernel_counts()
+                t0 = time.perf_counter()
+            state, aux = step(state, target, src, sel=sel)
+            if i == 0:  # Adam's first moment after one step is -0.1 g
+                first = dict(loss=float(aux["loss"]),
+                             update=(state["delta"] - delta0).cpu(),
+                             g=(state["m"] / -0.1).cpu())
+        torch.cuda.synchronize()
+        return dict(first, ms_per_iter=(time.perf_counter() - t0)
+                    / SPLIT_ITERS * 1e3, launches=kernel_counts(),
+                    delta=state["delta"])
+
+    def render(delta):
+        """One attacked whole-frame render (untimed warm-up: the attack)."""
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            t0 = time.perf_counter()
+            ret = ev.render_view(data, src, delta)["outputs_coarse"]
+            torch.cuda.synchronize()
+        return dict(seconds=time.perf_counter() - t0,
+                    launches=kernel_counts(),
+                    frame={k: ret[k].float().cpu()
+                           for k in ("rgb", "depth", "weights")})
+
+    out["attack"] = attack(split)
+    delta = out["attack"].pop("delta")
+    out["render"] = render(delta)
+    dist.barrier()
+    if rank == 0:
+        one = attack(None)
+        one.pop("delta")
+        out["attack_one"] = one
+        ev.split = None
+        out["render_one"] = render(delta)
+        ev.split = split
+    dist.barrier()
+    del delta
+
+    # the train step: GNT at gnt_full.txt's widths through K3 with dW
+    targs = port_parser().parse_args(GNT_TRAIN_ARGV)
+    ds = create_training_dataset(targs, **targs.dataset_kwargs)
+    batches = [make_batch(ds[r], "cuda") for r in range(world)]
+    tcfg = train_config_from_args(targs, h, w,
+                                  batches[0]["src_rgbs"].shape[0])
+    trcfg = dataclasses.replace(render_config_from_args(targs),
+                                gnt_fused_attn=True)
+    bundle = ev.bundle
+    names = {id(p): f"{m}.{n}" for m, mod in (
+        ("feature_net", bundle.feature_net), ("net_coarse", bundle.net_coarse),
+        ("net_fine", bundle.net_fine)) if mod is not None
+        for n, p in mod.named_parameters()}
+    ref_step, ref_opt, _ = make_train_step(bundle, trcfg, tcfg)
+    gens = [torch.Generator(device="cuda").manual_seed(pd.host_seed(0, r))
+            for r in range(world)]
+    draws = [ref_step.draw(gens[r], batches[r]) for r in range(world)]
+    lrs = {id(p): g["lr"] for g in ref_opt.param_groups for p in g["params"]}
+    out["train_names"] = [names[id(p)] for p in ref_step.params]
+    out["train_lrs"] = [lrs[id(p)] for p in ref_step.params]
+    if rank == 0:  # the ranks' mean gradient, before any update
+        grads, losses = None, []
+        for r in range(world):
+            aux, g = ref_step.loss_and_grads(batches[r], draws[r])
+            losses.append(float(aux["loss"]))
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        out["train_one"] = dict(losses=losses,
+                                grads=[(g / world).cpu() for g in grads])
+        del grads
+    dist.barrier()
+    step, opt, _ = make_train_step(bundle, trcfg, tcfg, split=split)
+    zero_kernel_counts()
+    aux = step(batches[rank], draws=draws[rank])
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    out["train"] = dict(
+        loss=float(aux["loss"]), launches=launches,
+        grads=[(opt.state[p]["exp_avg"] / (1 - 0.9)).cpu()
+               for p in step.params])
+
+    def steps(fn):
+        fn(batches[rank], generator=gens[rank])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPLIT_ITERS):
+            fn(batches[rank], generator=gens[rank])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SPLIT_ITERS * 1e3
+
+    out["train"]["ms_per_step"] = steps(step)
+    dist.barrier()
+    if rank == 0:
+        out["train_one"]["ms_per_step"] = steps(ref_step)
+    dist.barrier()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def split_paths(plan, depth, n_rays, chunk, card):
+    """Phase 19 (a): two ranks on the one card (``split_rank``), each held
+    against the one-process run on rank 0: the attack step (``step_limbs``),
+    the attacked frame (TOL_FUSED_RENDER: the same chunks through the same
+    kernels), the train step's gradients (``train_step_limbs``); K1's, K3's
+    and K4's launches per rank. ``plan``: (specs, frame) of phase 9;
+    ``n_rays``: the frame's rays padded to whole blocks."""
+    import pickle
+    import torch
+    from nerfool_tpu_torch.parallel.mesh import RaySplit
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "plan.pkl"), "wb") as f:
+            pickle.dump(plan, f)
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        init = f"file://{tmp}/rendezvous"
+        procs, logs = [], []
+        for r in range(SPLIT_WORLD):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--split-rank",
+                 str(r), str(SPLIT_WORLD), init, tmp], stdout=logs[-1],
+                stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+        fails = []
+        for r, (p, lg) in enumerate(zip(procs, logs)):
+            try:
+                rc = p.wait(timeout=SPLIT_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                p.wait()
+                rc = "timeout"
+            lg.seek(0)
+            tail = lg.read()[-4000:]
+            lg.close()
+            if rc != 0:
+                fails.append(f"rank {r} rc={rc}:\n{tail}")
+        for p in procs:  # none outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if fails:
+            raise AssertionError("split ranks failed:\n" + "\n".join(fails))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SPLIT_WORLD)]
+    r0, r1 = ranks
+    out = {}
+    # (1) the attack step
+    a, one = r0["attack"], r0["attack_one"]
+    res = step_limbs(a["loss"], one["loss"], a["g"], one["g"], a["update"],
+                     one["update"])
+    ok = res.pop("ok")
+    same = all(torch.equal(r0["attack"][k], r1["attack"][k])
+               for k in ("update", "g")) and r0["attack"]["loss"] == \
+        r1["attack"]["loss"]
+    exp = SPLIT_ITERS * depth
+    launches = [r["attack"]["launches"] for r in ranks]
+    log("split", f"GNT attack step on {SPLIT_WORLD} ranks against one "
+        f"process from the same delta and rays: {res.pop('text')}; the ranks "
+        f"hold the same step bit for bit: {same}; ms/iteration "
+        f"{[r['attack']['ms_per_iter'] for r in ranks]} on the ranks, "
+        f"{one['ms_per_iter']:.2f} in one process; ray_attention launches "
+        f"per rank forward {[x['ray_attention_fwd'] for x in launches]}, "
+        f"backward {[x['ray_attention_bwd'] for x in launches]}; {card}")
+    if not ok or not same:
+        raise AssertionError("the split attack step disagrees with the "
+                             "one-process step")
+    for x in launches + [one["launches"]]:
+        if (x["ray_attention_fwd"], x["ray_attention_bwd"]) != (exp, exp):
+            raise AssertionError(f"split attack launches {x}, expected "
+                                 f"{exp} forward and backward")
+    out["attack"] = dict(res, ms_per_iter=[r["attack"]["ms_per_iter"]
+                                           for r in ranks],
+                         one_ms_per_iter=one["ms_per_iter"],
+                         launches=launches, one_launches=one["launches"])
+    # (2) the attacked frame
+    one = r0["render_one"]
+    errs = {k: max(float((r["render"]["frame"][k] - one["frame"][k]).abs()
+                         .max()) for r in ranks) for k in TOL_FUSED_RENDER}
+    same = all(torch.equal(r0["render"]["frame"][k], r1["render"]["frame"][k])
+               for k in TOL_FUSED_RENDER)
+    groups = sum(len(sp.groups) for sp in plan[0][next(iter(plan[0]))])
+    for r in ranks:
+        rows = RaySplit(r["rank"], SPLIT_WORLD).rows(n_rays, chunk)
+        k = -(-(rows.stop - rows.start) // chunk) * depth
+        got = r["render"]["launches"]
+        if (got["ray_attention_fwd"], got["view_attention"]) != (k, k) or \
+                got["bspg_select"] != groups * k // depth:
+            raise AssertionError(f"rank {r['rank']} attacked-frame launches "
+                                 f"{got}, expected K3 and K4 {k}, K1 "
+                                 f"{groups * k // depth}")
+    log("split", f"attacked GNT frame on {SPLIT_WORLD} ranks against one "
+        "process: max abs diff " + ", ".join(
+            f"{k} {errs[k]:.3g} (tol {TOL_FUSED_RENDER[k]:g})" for k in errs)
+        + f"; the ranks' frames equal: {same}; seconds "
+        f"{[r['render']['seconds'] for r in ranks]} on the ranks, "
+        f"{one['seconds']:.3f} in one process; launches per rank "
+        f"{[r['render']['launches'] for r in ranks]}; {card}")
+    if not same or not all(errs[k] <= TOL_FUSED_RENDER[k] for k in errs):
+        raise AssertionError("the split attacked frame disagrees with the "
+                             "one-process frame")
+    out["render"] = dict(errors=errs, seconds=[r["render"]["seconds"]
+                                               for r in ranks],
+                         one_seconds=one["seconds"],
+                         launches=[r["render"]["launches"] for r in ranks],
+                         one_launches=one["launches"])
+    # (3) the train step
+    one = r0["train_one"]
+    lrs, names = r0["train_lrs"], r0["train_names"]
+    res = train_step_limbs({True: (r0["train"]["loss"], r0["train"]["grads"],
+                                   lrs),
+                            False: (one["losses"][0], one["grads"], lrs)},
+                           names)
+    rows = [x for x in res["tensors"] if not x.get("noise")]
+    bad = [x["name"] for x in rows if not x["ok"]]
+    same = all(torch.equal(x, y) for x, y in zip(r0["train"]["grads"],
+                                                  r1["train"]["grads"]))
+    worst = {k: max(x[k] for x in rows) for k in ("grad_rel", "grad_l2",
+                                                  "upd_floor")}
+    worst["cosine"] = min(x["cosine"] for x in rows)
+    exp = depth
+    launches = [r["train"]["launches"] for r in ranks]
+    log("split", f"GNT train step on {SPLIT_WORLD} ranks (each its own view "
+        f"and draws) against one process with the ranks' gradients "
+        f"averaged, {len(rows)} parameter tensors: rank 0's loss rel "
+        f"{res['loss_rel']:.3g}; worst tensor's gradient max abs diff "
+        f"{worst['grad_rel']:.3g} of its largest entry, relative L2 "
+        f"{worst['grad_l2']:.3g}, cosine {worst['cosine']:.10f}; Adam's "
+        f"first update max abs diff {worst['upd_floor']:.3g} where |g| > "
+        f"{STEP_GRAD_FLOOR:g}, {res['share']:.6f} of entries within "
+        f"{TOL_STEP_DELTA_ABS:g}; entries under the floor relative L2 "
+        f"{res['small_l2']:.3g}; the ranks' mean gradients equal: {same}; "
+        f"ms/step {[r['train']['ms_per_step'] for r in ranks]} on the ranks, "
+        f"{one['ms_per_step']:.2f} in one process; launches per rank "
+        f"{launches}; failing {bad}; {card}")
+    if (bad or not same or res["loss_rel"] > TOL_STEP_LOSS_REL
+            or res["small_l2"] > TOL_STEP_SMALL_GRAD_L2
+            or res["share"] < TOL_STEP_SHARE):
+        raise AssertionError("the split train step disagrees with the "
+                             "one-process step")
+    for x in launches:
+        if (x["ray_attention_fwd"], x["ray_attention_bwd"],
+                x["ray_attention_bwd_dw"]) != (exp, exp, exp):
+            raise AssertionError(f"split train launches {x}, expected {exp}")
+    out["train"] = dict(loss_rel=res["loss_rel"], worst=worst,
+                        share=res["share"], small_l2=res["small_l2"],
+                        ms_per_step=[r["train"]["ms_per_step"]
+                                     for r in ranks],
+                        one_ms_per_step=one["ms_per_step"],
+                        launches=launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def nccl_world_of_one(tmp, card):
+    """Phase 19 (b): ``python -m nerfool_tpu_torch.train``'s ``main`` at
+    pretrain.txt's widths for 2 steps, then the same with ``--distributed``
+    in a world of one rank under NCCL (the env:// variables set for the
+    call): the same losses (TOL_WORLD1_LOSS)."""
+    import socket
+    import torch.distributed as dist
+    from nerfool_tpu_torch.train.__main__ import main as train_main
+
+    argv = ["--config", os.path.join(ROOT, "configs/ibrnet/pretrain.txt"),
+            "--train_dataset", "synthetic", "--ckpt_path", "",
+            "--num_source_views", "10", "--workers", "2", "--dataset_kwargs",
+            json.dumps(SLICE_DATA), "--i_print", "1", "--i_weights",
+            "1000000", "--no_reload", "--n_iters", "2", "--out_dir", tmp]
+    plain = train_main(argv + ["--expname", "plain"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        one = train_main(argv + ["--expname", "nccl", "--distributed"])
+        backend, world = dist.get_backend(), dist.get_world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    a = [h["loss"] for h in plain.history]
+    b = [h["loss"] for h in one.history]
+    rel = [abs(x - y) / abs(y) for x, y in zip(b, a)]
+    ok = (backend == "nccl" and world == 1 and one.split is None
+          and len(a) == len(b) == 2
+          and all(r <= t for r, t in zip(rel, TOL_WORLD1_LOSS)))
+    log("NCCL world of one", f"train --distributed ({backend}, world "
+        f"{world}) losses {b} against the plain run's {a}: rel {rel} (tol "
+        f"{list(TOL_WORLD1_LOSS)}); checkpoints "
+        f"{sorted(os.listdir(os.path.join(tmp, 'nccl')))}; {card}")
+    if not ok or not os.path.exists(os.path.join(tmp, "nccl",
+                                                 "model_000002.pth")):
+        raise AssertionError("the NCCL world of one disagrees with the "
+                             "plain trainer")
+    return dict(backend=backend, world=world, losses=b, plain_losses=a,
+                loss_rel=rel)
+
+
+def video(tmp, card):
+    """Phase 19 (c): ``python -m nerfool_tpu_torch.render_video`` of
+    VIDEO_FRAMES spiral frames of a 378x504 fixture LLFF scene
+    (``verify_parity.make_fixture``), GNT at gnt_full.txt's widths in bf16
+    through K2 and IBRNet at eval_llff.txt's per tap: K2's launches = chunks
+    x frames, the PNGs' headers, seconds per frame; then the port's PNG
+    reader (the loaders' reader where imageio does not import) on one
+    756x1008 frame with rows in every filter: equal to what was written,
+    and its seconds."""
+    import numpy as np
+    from nerfool_tpu_torch import render_video
+    from nerfool_tpu_torch.utils.vis import read_png
+    from nerfool_tpu_torch.verify_parity import make_fixture
+
+    h, w = SLICE_DATA["h"], SLICE_DATA["w"]
+    make_fixture(tmp, "ibrnet", h=h, w=w, n=VIDEO_VIEWS)
+    common = ["--rootdir", tmp, "--llff_factor", "1", "--eval_dataset",
+              "llff_test", "--eval_scenes", "fixscene", "--ckpt_path", "",
+              "--num_source_views", "10", "--chunk_size", "4096",
+              "--video_frames", str(VIDEO_FRAMES)]
+    runs = {"gnt": ["--config", os.path.join(ROOT, "configs/gnt/gnt_full.txt"),
+                    "--compute_dtype", "bfloat16", "--gnt_fused_chain", "on"],
+            "ibrnet": ["--config",
+                       os.path.join(ROOT, "configs/ibrnet/eval_llff.txt")]}
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for name, flags in runs.items():
+            zero_kernel_counts()
+            res = render_video.main(flags + common + ["--expname", name])
+            launches = kernel_counts()
+            heads = [png_header(p) for p in res["frames"]]
+            exp_k2 = (-(-h * w // 4096)) * VIDEO_FRAMES if name == "gnt" \
+                else 0
+            log("video", f"{name}: {len(res['frames'])} frames, s/frame "
+                f"{res['seconds']}, PNG headers {sorted(set(heads))}, mp4 "
+                f"{res['mp4']}; launches {launches} (gnt_chain expected "
+                f"{exp_k2}); {card}")
+            if (len(heads) != VIDEO_FRAMES
+                    or set(heads) != {(w - 64, h - 64, 8, 2)}
+                    or launches["gnt_chain"] != exp_k2
+                    or not np.isfinite(res["seconds"]).all()):
+                raise AssertionError(f"the {name} video is not as expected")
+            out[name] = dict(seconds=res["seconds"], launches=launches)
+    finally:
+        os.chdir(cwd)
+    img = np.cumsum(np.random.RandomState(0).randint(0, 9, (756, 1008, 3)),
+                    axis=1).astype(np.uint8)
+    path = os.path.join(tmp, "llff_frame.png")
+    filtered_png(path, img)
+    t0 = time.perf_counter()
+    got = read_png(path)
+    out["png_read_s"] = time.perf_counter() - t0
+    log("video", f"read_png of a 756x1008 RGB frame, rows in all five "
+        f"filters: {out['png_read_s']:.3f} s; {card}")
+    if not np.array_equal(got, img):
+        raise AssertionError("read_png does not undo the row filters")
+    return out
+
+
+def sweep_run(tmp, card):
+    """Phase 19 (d): ``python -m nerfool_tpu_torch.sweep`` over the
+    synthetic scene at 378x504, IBRNet at eval_llff.txt's widths, the
+    view-specific attack for SWEEP_ITERS iterations on SWEEP_VIEWS views:
+    the report's keys, finite PSNR / SSIM rows, seconds per scene."""
+    import numpy as np
+    from nerfool_tpu_torch import sweep
+
+    argv = ["--config", os.path.join(ROOT, "configs/ibrnet/eval_llff.txt"),
+            "--eval_dataset", "synthetic", "--ckpt_path", "",
+            "--num_source_views", "10", "--chunk_size", "4096",
+            "--view_specific", "--adv_iters", str(SWEEP_ITERS), "--use_adam",
+            "--adam_lr", "1e-3", "--adv_lr", "1", "--epsilon", "8",
+            "--max_views", str(SWEEP_VIEWS), "--dataset_kwargs",
+            json.dumps(SLICE_DATA), "--expname", "sweep"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        report = sweep.main(argv)
+        seconds = time.perf_counter() - t0
+        path = os.path.join("synthetic", "sweep", "sweep_report.json")
+        with open(path) as f:
+            written = json.load(f)
+    finally:
+        os.chdir(cwd)
+    scene = report["synthetic/"]
+    views = [v for v in scene.values() if isinstance(v, dict)]
+    vals = [v[k] for v in views for k in ("coarse_psnr", "fine_psnr",
+                                          "coarse_ssim", "fine_ssim")]
+    means = [scene[k] for k in ("coarse_mean_psnr", "fine_mean_psnr",
+                                "coarse_mean_ssim", "fine_mean_ssim")]
+    log("sweep", f"synthetic: {len(views)} views, {SWEEP_ITERS} attack "
+        f"iterations each, {seconds:.2f} s/scene; means {means}; {card}")
+    if (sorted(written) != ["synthetic/"] or len(views) != SWEEP_VIEWS
+            or not np.isfinite(vals + means).all()):
+        raise AssertionError(f"the sweep report is not as expected: {report}")
+    return dict(seconds_per_scene=seconds, means=means)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "nerfool_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository "
@@ -2787,11 +3339,32 @@ def main():
     # 17. LPIPS, the image dumps, bf16 features and bf16 IBRNet
     outputs = evaluator_outputs(ibr_plan, gnt_plan, ibr_bundle, gnt_bundle,
                                 card)
+    split_plan = (gnt_plan._bspg_specs, gnt_plan._bspg_hw)
     del ibr_bundle, gnt_bundle, ibr_plan, gnt_plan
 
     # 18. the trainer: IBRNet, plain and adversarial, and GNT through K3
     train = training(card)
     gnt_train = train["gnt"]["launches"]
+
+    # 19. the ray split on two ranks, the NCCL world of one, the video and
+    # the sweep
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    split = split_paths(split_plan, depth, g_rays_padded, gargs.chunk_size,
+                        card)
+    with tempfile.TemporaryDirectory() as tmp:
+        split["nccl_world_of_one"] = nccl_world_of_one(tmp, card)
+        split["video"] = video(tmp, card)
+        split["sweep"] = sweep_run(tmp, card)
+    split["seconds"] = time.perf_counter() - t19
+    log("split, video, sweep", f"phase took {split['seconds']:.1f} s; {card}")
+    s_att, s_ren, s_tr = (split["attack"]["launches"],
+                          split["render"]["launches"],
+                          split["train"]["launches"])
+    rank_sum = lambda runs, k: sum(x[k] for x in runs)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
@@ -2814,7 +3387,8 @@ def main():
                 "ibrnet_attacked_render": ibr_adv["k1_launches"],
                 "universal_attacked_render": uni_render["bspg_select"],
                 "ibrnet_bf16_frames": outputs["ibrnet_bf16_frame"][
-                    "k1_launches"]}
+                    "k1_launches"],
+                "split_attacked_render": rank_sum(s_ren, "bspg_select")}
     purif, hybrids = defended["purification"]["launches"], [
         defended[m]["launches"] for m in ("use_clean_density",
                                           "use_clean_color")]
@@ -2828,19 +3402,27 @@ def main():
                                           for h in hybrids),
                     "gnt_attack_bf16_features": outputs["gnt_attack"][
                         "launches"]["bf16"]["ray_attention_fwd"],
-                    "gnt_train": gnt_train["ray_attention_fwd"]}
+                    "gnt_train": gnt_train["ray_attention_fwd"],
+                    "split_attack": rank_sum(s_att, "ray_attention_fwd"),
+                    "split_attacked_render": rank_sum(s_ren,
+                                                      "ray_attention_fwd"),
+                    "split_train": rank_sum(s_tr, "ray_attention_fwd")}
     k3_bwd_paths = {"gnt_attack": gnt_attack["bwd_launches"],
                     "universal_attack": uni_attack["ray_attention_bwd"],
                     "defended_attack": purif["ray_attention_bwd"],
                     "gnt_attack_bf16_features": outputs["gnt_attack"][
                         "launches"]["bf16"]["ray_attention_bwd"],
-                    "gnt_train": gnt_train["ray_attention_bwd"]}
-    # the launches with the weight gradients: the training step's alone
-    k3_dw_paths = {"gnt_train": gnt_train["ray_attention_bwd_dw"]}
+                    "gnt_train": gnt_train["ray_attention_bwd"],
+                    "split_attack": rank_sum(s_att, "ray_attention_bwd"),
+                    "split_train": rank_sum(s_tr, "ray_attention_bwd")}
+    # the launches with the weight gradients: the training steps' alone
+    k3_dw_paths = {"gnt_train": gnt_train["ray_attention_bwd_dw"],
+                   "split_train": rank_sum(s_tr, "ray_attention_bwd_dw")}
     va_head = next(r for r in va_rows if r["dtype"] == "f32")  # a whole chunk
     k4_paths = {"gnt_attacked_render": gnt_adv["k4_launches"],
                 "universal_attacked_render": uni_render["view_attention"],
-                "hybrid_renders": sum(h["view_attention"] for h in hybrids)}
+                "hybrid_renders": sum(h["view_attention"] for h in hybrids),
+                "split_attacked_render": rank_sum(s_ren, "view_attention")}
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
@@ -2867,7 +3449,9 @@ def main():
         "name": "gnt_chain", "route": "cuda",
         "source": "nerfool_tpu_torch/csrc/gnt_chain.cu",
         "replaces": "nerfool_tpu/ops/chain_kernel.py:220",
-        "launches": k2_gnt,
+        "launches": k2_gnt + split["video"]["gnt"]["launches"]["gnt_chain"],
+        "launches_by_path": {"gnt": k2_gnt, "video": split["video"]["gnt"][
+            "launches"]["gnt_chain"]},
         "max_abs_err": k2_head["max_abs_err"],
         "f32_max_abs_err": chain_rows[0]["max_abs_err"],
         "ms": k2_head["ms"], "plain_ms": k2_head["plain_ms"],
@@ -2924,10 +3508,15 @@ def main():
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
                    "universal": universal, "small_modes": small_modes,
                    "defended": defended},
-        "evaluator_outputs": outputs, "training": train}))
+        "evaluator_outputs": outputs, "training": train,
+        "split_video_sweep": split}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--split-rank"]:
+        split_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                   sys.argv[5])
+    else:
+        main()

@@ -21,6 +21,15 @@ second render at ``resize_factor`` of the target's resolution), and
 ``camera_consistency_loss`` compares rgb and depth warped both ways between
 the target and a source view, which drives the camera-pose attack.
 
+Given a ``RaySplit`` (``parallel/mesh.py``) the step runs on every rank of
+a process group alike: each rank draws the same rays from the same
+generator, renders its contiguous share of each ray batch (whole patches of
+patch-structured batches), and gathers the shares back, so that every rank
+computes the losses of the whole batch; the gradients flow through each
+rank's own rays only, and their sum over the ranks (one all-reduce, per
+objective under PCGrad, before the surgery) is the one-process gradient.
+The update is then the same on every rank.
+
 The step is an eager function over a small state dict (``delta``, ``rot``,
 ``trans``, their Adam moments, the step count). The caller may pass the ray
 indices ``sel`` (``sel_patch``, the dedicated depth-smooth patch batch;
@@ -43,7 +52,8 @@ from nerfool_tpu_torch.attack import losses as L
 from nerfool_tpu_torch.attack.pcgrad import pcgrad_combine
 from nerfool_tpu_torch.attack.perturb import clamp, init_delta, project_delta
 from nerfool_tpu_torch.attack.warp import forward_warp
-from nerfool_tpu_torch.render.render_rays import RenderConfig, render_rays
+from nerfool_tpu_torch.render.render_rays import (RenderConfig,
+                                                  noise_draws, render_rays)
 from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
 
 
@@ -243,11 +253,13 @@ def _c2w(cam):
     return cam[18:34].reshape(4, 4)
 
 
-def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
+def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
+                     split=None):
     """Build the attack step for ``bundle``. Its parameters are frozen
     while a step runs (only ``delta`` and the camera parameters are
     differentiated) and get their ``requires_grad`` flags back when it
-    returns.
+    returns. ``split``: a ``parallel.mesh.RaySplit`` to share each ray
+    batch among the ranks of a group (None: one process).
 
     step(state, target, src, generator=None, sel=None, sel_patch=None,
          pc_order=None, depth_src_id=None, camera_src_id=None,
@@ -283,14 +295,39 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
     major_idx = (loss_names.index(cfg.major_loss)
                  if cfg.major_loss in loss_names else None)
 
+    # the rays of a patch-structured batch are split in whole patches
+    patch_unit = cfg.patch_size ** 2
+    main_unit = patch_unit if cfg.use_patch_sampling else 1
+
     def render_at(feats, cam, target, src, src_cams, sel, w, generator,
-                  rcfg=render_cfg):
-        rays_o, rays_d = get_rays_at(sel, w, cam[2:18].reshape(4, 4),
-                                     _c2w(cam))
-        batch = {"ray_o": rays_o, "ray_d": rays_d,
-                 "depth_range": target["depth_range"], "camera": cam[None]}
-        return render_rays(nets, batch, feats, rcfg, src["rgbs"], src_cams,
-                           generator=generator)
+                  rcfg=render_cfg, unit=1):
+        n = sel.shape[0]
+
+        def render(rows=None):
+            part = sel if rows is None else sel[rows]
+            rays_o, rays_d = get_rays_at(part, w, cam[2:18].reshape(4, 4),
+                                         _c2w(cam))
+            batch = {"ray_o": rays_o, "ray_d": rays_d,
+                     "depth_range": target["depth_range"],
+                     "camera": cam[None]}
+            noise = None
+            if rows is not None:
+                noise = noise_draws(generator, rcfg, n, torch.promote_types(
+                    feats[0].dtype, torch.float32), part.device)
+                if noise is not None:
+                    noise = tuple(None if x is None else x[rows]
+                                  for x in noise)
+            return render_rays(nets, batch, feats, rcfg, src["rgbs"],
+                               src_cams, generator=generator, noise=noise)
+
+        if split is None:
+            return render()
+        return split.render(render, n, unit)
+
+    def localize(x):
+        """A per-ray tensor every rank computes in full: its gradient on
+        this rank's rays only (identity without a split)."""
+        return x if split is None or x is None else split.localize(x)
 
     def both_levels(fn, ret, *others):
         """fn summed over the coarse and (when rendered) fine outputs."""
@@ -321,15 +358,15 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
                                   * scale).reshape(-1), tar_cam[18:34]])
             sel = draws["sel_half"]
             ret = render_at(feats, tar_cam, target, src, src_cams, sel, ww,
-                            generator)
+                            generator, unit=main_unit)
             # the first two rows scaled, [2, 2] stays 1
             k_src = k_src * rf + torch.diag(
                 k_src.new_tensor([0.0, 0.0, 1.0 - rf]))
         else:
             sel = draws["sel"]
-        depth_proj = forward_warp(sel, None, src["depths"][sid][0], k_src,
-                                  _c2w(src_cam), _k3(tar_cam),
-                                  _c2w(tar_cam))[3]
+        depth_proj = localize(forward_warp(
+            sel, None, src["depths"][sid][0], k_src, _c2w(src_cam),
+            _k3(tar_cam), _c2w(tar_cam))[3])
         return both_levels(lambda o: L.smooth_l1(o["depth"], depth_proj,
                                                  depth_proj > 0), ret)
 
@@ -343,10 +380,14 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
         rgb_src, depth_src = src["rgbs"][sid][0], src["depths"][sid][0]
         _, _, rgb_s2t, depth_s2t = forward_warp(
             sel, rgb_src, depth_src, k_sv, e_sv, k_tar, e_tar, src2tar=True)
+        # the target -> source warp z-buffers the selected rays among
+        # themselves: computed in full on every rank of a split
         _, _, rgb_t2s, depth_t2s, inds_src = forward_warp(
             sel, target["rgb"].reshape(cfg.h, cfg.w, 3),
             target["depth"].reshape(cfg.h, cfg.w), k_tar, e_tar, k_sv, e_sv,
             src2tar=False)
+        rgb_s2t, depth_s2t, rgb_t2s, depth_t2s = map(
+            localize, (rgb_s2t, depth_s2t, rgb_t2s, depth_t2s))
         top = ret["outputs_fine"] or ret["outputs_coarse"]
         rgb_tar = (top["rgb"] if cfg.perturb_camera_no_detach
                    else top["rgb"].detach())
@@ -366,13 +407,13 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
         # delta reaches the renderer only through the feature maps: the RGB
         # taps stay on the clean source pixels, as in the reference
         ret = render_at(feats, target["camera"], target, src, src_cams, sel,
-                        cfg.w, generator)
+                        cfg.w, generator, unit=main_unit)
 
         if cfg.use_pseudo_gt:
             with torch.no_grad():
                 ret_gt = render_at(src["featmaps_clean"], target["camera"],
                                    target, src, src_cams, sel, cfg.w, None,
-                                   gt_cfg)
+                                   gt_cfg, unit=main_unit)
             top_gt = ret_gt["outputs_fine"] or ret_gt["outputs_coarse"]
             gt_rgb, gt_depth = top_gt["rgb"], top_gt["depth"]
         else:
@@ -401,7 +442,7 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
             # the main batch is not patch-sampled
             ret_smooth = (ret if cfg.use_patch_sampling else render_at(
                 feats, target["camera"], target, src, src_cams,
-                draws["sel_patch"], cfg.w, generator))
+                draws["sel_patch"], cfg.w, generator, unit=patch_unit))
             terms["depth_smooth"] = cfg.depth_smooth_loss * both_levels(
                 lambda o: L.depth_smooth_loss(o["depth"], cfg.patch_size),
                 ret_smooth)
@@ -458,9 +499,14 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
             loss = sum(terms.values())
             if cfg.use_pcgrad:
                 # one backward per loss term over the shared graph: surgery
-                # on delta's gradients, the sum for the camera parameters
+                # on delta's gradients, the sum for the camera parameters;
+                # a split sums each term's gradients over the ranks first
                 per_loss = [grads_of(terms[n], retain=True)
                             for n in loss_names]
+                if split is not None:
+                    flat = split.all_reduce([g for gs in per_loss for g in gs])
+                    per_loss = [flat[i:i + len(params)]
+                                for i in range(0, len(flat), len(params))]
                 grads = [pcgrad_combine(
                     torch.stack([gs[0] for gs in per_loss]),
                     major_idx=major_idx, order=pc_order, generator=generator)]
@@ -468,6 +514,8 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig):
                           for i in range(1, len(params))]
             else:
                 grads = grads_of(loss)
+                if split is not None:
+                    grads = split.all_reduce(grads)
         if cfg.perturb_camera_no_opt:
             grads = grads[:1] + [torch.zeros_like(g) for g in grads[1:]]
 

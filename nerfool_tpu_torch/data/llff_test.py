@@ -14,7 +14,8 @@ import os
 import numpy as np
 
 from nerfool_tpu_torch.data.base import Dataset, make_camera
-from nerfool_tpu_torch.data.llff_utils import batch_parse_llff_poses, load_llff_data
+from nerfool_tpu_torch.data.llff_utils import (batch_parse_llff_poses, imread,
+                                                load_llff_data)
 from nerfool_tpu_torch.data.view_selection import (
     get_nearest_pose_ids,
     global_source_ids,
@@ -23,9 +24,7 @@ from nerfool_tpu_torch.data.view_selection import (
 
 
 def _imread(path):
-    import imageio.v2 as imageio
-
-    return imageio.imread(path).astype(np.float32) / 255.0
+    return imread(path).astype(np.float32) / 255.0
 
 
 class LLFFTestDataset(Dataset):

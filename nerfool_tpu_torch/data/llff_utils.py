@@ -14,9 +14,19 @@ import os
 import numpy as np
 
 
-def _imread(path):
-    import imageio.v2 as imageio
+def imread(path):
+    """An image file as a uint8 array, through imageio where it imports;
+    without it (the card's machine has no imaging package) a PNG of 8-bit
+    samples goes through the port's own reader (``utils/vis.read_png``)."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        if not str(path).lower().endswith(".png"):
+            raise
+        from nerfool_tpu_torch.utils.vis import read_png
 
+        img = read_png(path)
+        return img[..., 0] if img.shape[-1] == 1 else img
     return imageio.imread(path)
 
 
@@ -58,7 +68,7 @@ def _minify(basedir, factor):
     )
     os.makedirs(imgdir)
     for f in files:
-        img = _imread(os.path.join(src_dir, f))
+        img = imread(os.path.join(src_dir, f))
         h, w = img.shape[:2]
         out = cv2.resize(
             img, (int(round(w / factor)), int(round(h / factor))),
@@ -92,14 +102,14 @@ def _load_data(basedir, factor=None, load_imgs=True):
             f"{basedir}: {len(imgfiles)} images vs {poses.shape[-1]} poses"
         )
 
-    sh = _imread(imgfiles[0]).shape
+    sh = imread(imgfiles[0]).shape
     poses[:2, 4, :] = np.array(sh[:2]).reshape([2, 1])
     poses[2, 4, :] = poses[2, 4, :] * 1.0 / factor
 
     imgs = None
     if load_imgs:
         imgs = np.stack(
-            [_imread(f)[..., :3] / 255.0 for f in imgfiles], -1
+            [imread(f)[..., :3] / 255.0 for f in imgfiles], -1
         )
     return poses, bds, imgs, imgfiles
 

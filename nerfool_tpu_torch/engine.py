@@ -49,6 +49,18 @@ loader without ``target_cameras()``, a camera set no patch size covers, a
 frame of another size than the planned one, or the camera-pose attack
 (``--perturb_camera``), which moves the source cameras out of the planned
 set. The route is chosen before any launch.
+
+Launched as one process per card (``torchrun``: ``WORLD_SIZE`` > 1 in the
+environment), the evaluator joins the process group
+(``parallel/distributed.initialize``) and shares the rays of every attack
+step and the chunks of every whole-frame render among the ranks
+(``parallel/mesh.RaySplit``); every rank then holds the same losses,
+``delta`` and frames, and rank 0 alone writes the results, the dumps and
+the attack checkpoints. ``--shard_rays False`` keeps every rank on the
+whole work; a single process runs exactly as without a group. The
+purification steps are not split (each rank runs them whole, alike).
+``retarget`` points the evaluator at another scene, keeping the model and
+the random stream (``python -m nerfool_tpu_torch.sweep``).
 """
 from __future__ import annotations
 
@@ -80,6 +92,10 @@ from nerfool_tpu_torch.metrics.image import img2psnr, psnr, ssim, ssim_windowed
 from nerfool_tpu_torch.metrics.lpips import LPIPS, load_lpips_weights
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.resunet import feature_hw
+from nerfool_tpu_torch.parallel.distributed import (initialize,
+                                                    is_main_process,
+                                                    local_device)
+from nerfool_tpu_torch.parallel.mesh import ray_split
 from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
 from nerfool_tpu_torch.utils.cameras import get_rays, transform_src_cameras
@@ -108,6 +124,23 @@ def render_config_from_args(args) -> RenderConfig:
                         use_clean_color=bool(args.use_clean_color),
                         use_clean_density=bool(args.use_clean_density),
                         compute_dtype=args.compute_dtype)
+
+
+def frame_render_config(args, device) -> RenderConfig:
+    """Render config of whole-frame renders on ``device``, before any BSPG
+    plan: ``--gnt_fused_chain`` (auto = on a CUDA device), ``--gnt_fused_attn
+    on`` and ``--gnt_fused_vt`` (auto = on a CUDA device) for GNT. The
+    view-attention kernel has no backward, so the attack step's config
+    never carries it."""
+    gnt = args.backbone == "gnt"
+    cuda = torch.device(device).type == "cuda"
+    chain = getattr(args, "gnt_fused_chain", "auto")
+    vt = on_off_auto(getattr(args, "gnt_fused_vt", "auto"))
+    return dataclasses.replace(
+        render_config_from_args(args),
+        gnt_fused_chain=gnt and (chain == "on" or (chain == "auto" and cuda)),
+        gnt_fused_attn=gnt and getattr(args, "gnt_fused_attn", "auto") == "on",
+        gnt_fused_vt=gnt and (vt == "on" or (vt == "auto" and cuda)))
 
 
 def build_attack_config(args, h, w) -> AttackConfig:
@@ -161,7 +194,14 @@ class Evaluator:
                  seed=0):
         args.det = True  # the reference forces deterministic sampling
         self.args = args
-        self.device = resolve_device(device)
+        # one process per card: a launcher's WORLD_SIZE > 1 joins the group
+        self.split = None
+        if getattr(args, "shard_rays", True):
+            if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+                initialize(args, device=device)
+            self.split = ray_split()
+        self.device = resolve_device(
+            local_device(device) if self.split is not None else device)
         self.render_cfg = render_config_from_args(args)
         self.bundle = bundle if bundle is not None else create_model(
             args=args, seed=seed, device=self.device)
@@ -178,6 +218,20 @@ class Evaluator:
         self.last_attack = None
         self.last_purify = None  # and of the newest purification
         self.last_defenses = []  # the defenses run after the newest attack
+
+    def retarget(self, args):
+        """Point the evaluator at another scene or dataset (``args``),
+        keeping the model bundle, the generator and the dataset keywords.
+        The BSPG plans depend on the cameras, so they are dropped and made
+        again for the new scene on first use."""
+        args.det = True
+        self.args = args
+        self.render_cfg = render_config_from_args(args)
+        self.test_dataset = self._dataset("test")
+        self._bspg_specs = {}
+        self._bspg_hw = None
+        self._per_tap_said = set()
+        return self
 
     def _dataset(self, mode, **kwargs):
         args = self.args
@@ -218,34 +272,13 @@ class Evaluator:
                     src["rgbs"])
         return src
 
-    def _fused_chain(self):
-        """``--gnt_fused_chain`` for whole-frame renders: auto = on a CUDA
-        device."""
-        mode = getattr(self.args, "gnt_fused_chain", "auto")
-        return self.args.backbone == "gnt" and (
-            mode == "on" or (mode == "auto" and self.device.type == "cuda"))
-
-    def _fused_vt(self):
-        """``--gnt_fused_vt`` for whole-frame renders: auto = on a CUDA
-        device (the renders run without grad; the attack step's config never
-        carries it)."""
-        mode = on_off_auto(getattr(self.args, "gnt_fused_vt", "auto"))
-        return self.args.backbone == "gnt" and (
-            mode == "on" or (mode == "auto" and self.device.type == "cuda"))
-
     def view_render_cfg(self, n_src):
         """Render config for whole-frame renders with ``n_src`` source views;
         plans BSPG on first use (numpy, host), or takes the per-tap gather
-        where no plan can be made. ``--gnt_fused_vt`` is read here only: the
-        view-attention kernel has no backward, so the attack step's config
-        never carries it."""
+        where no plan can be made (``frame_render_config`` for the fused
+        routes)."""
         args = self.args
-        gnt = args.backbone == "gnt"
-        base = dataclasses.replace(
-            self.render_cfg, gnt_fused_chain=self._fused_chain(),
-            gnt_fused_attn=(gnt and getattr(
-                args, "gnt_fused_attn", "auto") == "on"),
-            gnt_fused_vt=self._fused_vt())
+        base = frame_render_config(args, self.device)
         if not getattr(args, "use_bspg", True):
             return base
         if getattr(args, "perturb_camera", False):
@@ -334,7 +367,8 @@ class Evaluator:
         args = self.args
         target, (h, w) = self._make_target(data)
         cfg = build_attack_config(args, h, w)
-        step = make_attack_step(self.bundle, self._grad_render_cfg(), cfg)
+        step = make_attack_step(self.bundle, self._grad_render_cfg(), cfg,
+                                split=self.split)
         src = self._make_src(data, clean_feats=cfg.use_pseudo_gt)
         state = init_attack_state(self.generator, cfg, src["rgbs"], delta)
         n_iters = args.adv_iters
@@ -402,7 +436,8 @@ class Evaluator:
         data = next(it)
         target, (h, w) = self._make_target(data)
         cfg = build_attack_config(args, h, w)
-        step = make_attack_step(self.bundle, self._grad_render_cfg(), cfg)
+        step = make_attack_step(self.bundle, self._grad_render_cfg(), cfg,
+                                split=self.split)
         src = self.global_src(clean_feats=cfg.use_pseudo_gt)
         if state is None:
             state = init_attack_state(self.generator, cfg, src["rgbs"])
@@ -433,8 +468,8 @@ class Evaluator:
                       f"loss={float(aux['loss']):.5f} "
                       f"({(time.perf_counter() - t0) / (done - start_iter) * 1e3:.0f}"
                       " ms/iter)", flush=True)
-            if ckpt_path and ckpt_every and (done % ckpt_every == 0
-                                             or done == n_iters):
+            if ckpt_path and ckpt_every and is_main_process() and (
+                    done % ckpt_every == 0 or done == n_iters):
                 save_attack_state(ckpt_path, state, {
                     "iters_done": done,
                     "generator": self.generator.get_state(),
@@ -528,7 +563,7 @@ class Evaluator:
             self.bundle.nets, batch, feats, rcfg, h, w, src["rgbs"],
             src_cameras, chunk_size=args.chunk_size,
             render_stride=args.render_stride, featmaps_clean=feats_clean,
-            generator=self.generator)
+            generator=self.generator, split=self.split)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -542,8 +577,8 @@ class Evaluator:
         if not path:
             print("WARNING: --lpips_weights not set; LPIPS is unmeasurable and "
                   "will be recorded as NaN / excluded from means (export "
-                  "weights with scripts/export_lpips_weights.py)",
-                  file=sys.stderr)
+                  "weights with python -m "
+                  "nerfool_tpu_torch.export_lpips_weights)", file=sys.stderr)
             return None
         model = LPIPS(normalize=self.args.backbone != "gnt")
         return model.load_params(load_lpips_weights(path)).to(
@@ -584,7 +619,8 @@ class Evaluator:
         ``render_seconds``, host time of the render ending in a device
         synchronize, and after a view-specific attack ``attack_seconds``
         (the universal attack's are under the scene's ``attack_seconds``).
-        With an ``out_dir`` the run's flags go to ``args.txt`` (and the
+        In a process group rank 0 alone writes files. With an ``out_dir``
+        the run's flags go to ``args.txt`` (and the
         config file to ``config.txt``) and, with ``save_images``, each
         view's dumps beside them: per level ``<id>_pred``, ``_err_map``,
         ``_depth`` (uint16, depth x 1000), ``_depth_vis`` and ``_acc_map``
@@ -598,9 +634,10 @@ class Evaluator:
         psnr_fn, ssim_fn = ((img2psnr, ssim_windowed)
                             if args.backbone == "gnt" else (psnr, ssim))
         lpips_fn = self._build_lpips()
-        if out_dir:
+        writes = bool(out_dir) and is_main_process()  # rank 0 alone writes
+        if writes:
             save_run_config(out_dir, args)
-        dump = bool(save_images and out_dir)
+        dump = bool(save_images and writes)
         results = {scene: {}}
         rows_acc = []
         n_views = len(self.test_dataset)
@@ -618,7 +655,7 @@ class Evaluator:
                 ckpt = (os.path.join(out_dir, "attack_state.pt")
                         if out_dir and getattr(args, "i_attack_ckpt", 0)
                         else None)
-                if ckpt:
+                if ckpt and writes:
                     os.makedirs(out_dir, exist_ok=True)
                 delta, src_glb, cams = self.attack_universal(
                     verbose=verbose, ckpt_path=ckpt)
@@ -700,7 +737,7 @@ class Evaluator:
                                  "coarse_mean_ssim", "fine_mean_ssim",
                                  "coarse_mean_lpips", "fine_mean_lpips")):
             results[scene][key] = float(means[j])
-        if out_dir:
+        if writes:
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, f"psnr_{scene}.txt"), "w") as f:
                 f.write(str(results))

@@ -8,6 +8,13 @@ whole blocks, and put back in raster order before the image reshape. A
 least one block), and that is said once per chunk size and block. Hybrid
 renders (``featmaps_clean`` with ``use_clean_color`` / ``use_clean_density``)
 take the per-tap gather, as in JAX.
+
+Given a ``RaySplit`` (``parallel/mesh.py``) each rank of the group renders
+a contiguous share of the chunk list (on the BSPG route whole ray blocks,
+since a chunk is) and the shares are gathered back in block-major order, so
+that every rank holds the whole frame. ``geo_noise`` draws are then taken
+for every chunk on every rank, in the order the one-process loop takes
+them, and each rank uses its chunks' draws.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from nerfool_tpu_torch.render.render_rays import (
     RenderConfig,
     make_bspg_tables,
+    noise_draws,
     render_rays,
 )
 
@@ -56,10 +64,13 @@ def block_major_order(hs, ws, bh, bw):
 
 def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                         src_rgbs, src_cameras, chunk_size=4096,
-                        render_stride=1, featmaps_clean=None, generator=None):
+                        render_stride=1, featmaps_clean=None, generator=None,
+                        split=None):
     """Render a full frame; outputs reshaped to (H', W', ...).
     ``featmaps_clean``: the clean branch of hybrid renders; ``generator``:
-    the source of the ``geo_noise`` draws.
+    the source of the ``geo_noise`` draws; ``split``: a
+    ``parallel.mesh.RaySplit`` sharing the chunks among the ranks of a group
+    (None: one process).
 
     IBRNet's coarse rgb is painted white where the ray mask is empty (the
     reference's contract); its fine rgb is not. GNT outputs carry no mask
@@ -82,24 +93,45 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
         tables = make_bspg_tables(src_rgbs, featmaps, cfg.bspg_specs,
                                   cfg.dtype)
 
-    chunks = []
-    for i in range(0, ray_o.shape[0], chunk_size):
-        batch = dict(ray_batch)
-        batch["ray_o"] = ray_o[i:i + chunk_size]
-        batch["ray_d"] = ray_d[i:i + chunk_size]
-        chunks.append(render_rays(nets, batch, featmaps, cfg, src_rgbs,
-                                  src_cameras, tables=tables,
-                                  featmaps_clean=featmaps_clean,
-                                  generator=generator))
+    n = ray_o.shape[0]
+    dtype = torch.promote_types(featmaps[0].dtype, torch.float32)
+
+    def render_rows(rows):
+        # a split draws every chunk's noise in the one-process order and
+        # keeps its own share's
+        noise = {}
+        for i in range(0, n, chunk_size) if split is not None else ():
+            c = noise_draws(generator, cfg, min(chunk_size, n - i), dtype,
+                            ray_o.device)
+            if c is not None and rows.start <= i < rows.stop:
+                noise[i] = c
+        chunks = []
+        for i in range(rows.start, rows.stop, chunk_size):
+            batch = dict(ray_batch)
+            batch["ray_o"] = ray_o[i:i + chunk_size]
+            batch["ray_d"] = ray_d[i:i + chunk_size]
+            chunks.append(render_rays(nets, batch, featmaps, cfg, src_rgbs,
+                                      src_cameras, tables=tables,
+                                      featmaps_clean=featmaps_clean,
+                                      generator=generator,
+                                      noise=noise.get(i)))
+        return {level: None if chunks[0][level] is None else {
+            k: torch.cat([c[level][k] for c in chunks], dim=0)
+            for k in chunks[0][level]}
+            for level in ("outputs_coarse", "outputs_fine")}
+
+    if split is None:
+        flat = render_rows(slice(0, n))
+    else:
+        flat = split.render(render_rows, n, chunk_size)
 
     ret = {}
-    for level in ("outputs_coarse", "outputs_fine"):
-        if chunks[0][level] is None:
+    for level, outs in flat.items():
+        if outs is None:
             ret[level] = None
             continue
         imgs = {}
-        for k in chunks[0][level]:
-            x = torch.cat([c[level][k] for c in chunks], dim=0)
+        for k, x in outs.items():
             if inv is not None:
                 x = x[inv]  # block-major -> raster
             imgs[k] = x.reshape((hs, ws) + x.shape[1:])

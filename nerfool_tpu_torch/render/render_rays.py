@@ -247,6 +247,20 @@ def _noise(cfg, noise, generator, li, raw):
                        device=raw.device)
 
 
+def noise_draws(generator, render_cfg: RenderConfig, n_rays, dtype, device):
+    """The standard normal ``geo_noise`` draws that ``render_rays`` takes
+    from ``generator`` for ``n_rays`` rays (coarse [R, S], then fine
+    [R, S + I]; IBRNet only), or None: drawn for the whole batch on every
+    rank of a split, so that each rank slices its share and the generators
+    stay in step."""
+    if render_cfg.backbone != "ibrnet" or not render_cfg.geo_noise > 0:
+        return None
+    s, i = render_cfg.n_samples, render_cfg.n_importance
+    draw = lambda k: torch.randn((n_rays, k), generator=generator,
+                                 dtype=dtype, device=device)
+    return (draw(s), draw(s + i) if i else None)
+
+
 def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,
                 u_fine):
     """The coarse level, then the fine one at importance-sampled depths

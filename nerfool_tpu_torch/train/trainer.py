@@ -13,6 +13,11 @@ without ``geo_noise`` and its loss has no depth-variance term (both apply
 to the outer step only, as in the reference); the perturbation is detached
 before the outer step. GNT's ``single_net`` renders both levels with
 ``net_coarse``. The models' parameters are updated in place.
+
+With a ``RaySplit`` over a process group (``--distributed``, one process per
+card) each rank takes the step on its own view and draws, and the
+parameters' gradients are averaged over the ranks by one all-reduce before
+Adam, as the reference's DDP does; rank 0 alone writes checkpoints.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ from nerfool_tpu_torch.attack import losses as L
 from nerfool_tpu_torch.attack.attack import (AttackConfig, _frozen,
                                              select_ray_indices)
 from nerfool_tpu_torch.attack.perturb import clamp
-from nerfool_tpu_torch.render.render_rays import RenderConfig, render_rays
+from nerfool_tpu_torch.parallel.distributed import is_main_process
+from nerfool_tpu_torch.render.render_rays import (RenderConfig,
+                                                  noise_draws, render_rays)
 from nerfool_tpu_torch.utils.cameras import get_rays, get_rays_at
 
 
@@ -55,6 +62,22 @@ def aggregator_lr(args):
     """The aggregators' learning rate: ``--lrate_gnt`` for GNT,
     ``--lrate_mlp`` for IBRNet, as in the reference's two stacks."""
     return args.lrate_gnt if args.backbone == "gnt" else args.lrate_mlp
+
+
+def train_config_from_args(args, h, w, n_src) -> TrainConfig:
+    """The flags' ``TrainConfig`` for ``h`` x ``w`` views with ``n_src``
+    source views: ``N_rand`` scaled by the source-view count, as the
+    reference does."""
+    return TrainConfig(
+        h=h, w=w,
+        n_rand=int(1.0 * args.N_rand * args.num_source_views / max(n_src, 1)),
+        sample_mode=args.sample_mode, center_ratio=args.center_ratio,
+        lrate_feature=args.lrate_feature, lrate_mlp=aggregator_lr(args),
+        lrate_decay_factor=args.lrate_decay_factor,
+        lrate_decay_steps=args.lrate_decay_steps,
+        depth_var_loss=args.depth_var_loss,
+        use_adv_train=args.use_adv_train, adv_iters=args.adv_iters,
+        epsilon=float(args.epsilon), adv_lr=args.adv_lr)
 
 
 def select_rays(generator, cfg: TrainConfig, device="cpu"):
@@ -98,19 +121,18 @@ def render_draws(generator, render_cfg: RenderConfig, n_rays, device,
     s, i = render_cfg.n_samples, render_cfg.n_importance
     rand = lambda *shape: torch.rand(shape, generator=generator,
                                      device=device, dtype=dtype)
-    randn = lambda *shape: torch.randn(shape, generator=generator,
-                                       device=device, dtype=dtype)
-    draws = {"samples": None, "noise": None}
+    samples = None
     if not render_cfg.det:
-        draws["samples"] = (rand(n_rays, s), rand(n_rays, i) if i else None)
-    if render_cfg.backbone == "ibrnet" and render_cfg.geo_noise > 0:
-        draws["noise"] = (randn(n_rays, s),
-                          randn(n_rays, s + i) if i else None)
-    return draws
+        samples = (rand(n_rays, s), rand(n_rays, i) if i else None)
+    return {"samples": samples, "noise": noise_draws(
+        generator, render_cfg, n_rays, dtype, device)}
 
 
-def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig):
-    """Build the train step for ``bundle``.
+def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig,
+                    split=None):
+    """Build the train step for ``bundle``. ``split``: a
+    ``parallel.mesh.RaySplit`` whose ranks average their gradients before
+    each update (None: one process).
 
     step(batch, generator=None, draws=None) -> aux
       batch: {'camera' [34], 'rgb' [H*W, 3], 'depth_range' [1, 2],
@@ -223,6 +245,10 @@ def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig):
         if draws is None:
             draws = draw(generator, batch)
         aux, grads = loss_and_grads(batch, draws)
+        if split is not None:  # DDP: the ranks' mean gradient
+            live = [i for i, g in enumerate(grads) if g is not None]
+            for i, g in zip(live, split.all_reduce([grads[i] for i in live])):
+                grads[i] = g / split.world
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
@@ -259,10 +285,13 @@ class Trainer:
     out_dir: str = "out/exp"
     start_step: int = 0
     chunk_size: int = 4096  # rays per render call of log_view's frames
+    split: object = None  # parallel.mesh.RaySplit of a process group
 
     def __post_init__(self):
         self.step_fn, self.optimizer, self.scheduler = make_train_step(
-            self.bundle, self.render_cfg, self.cfg)
+            self.bundle, self.render_cfg, self.cfg, split=self.split)
+        if self.split is not None:  # every rank starts from rank 0's weights
+            self.split.broadcast(self.step_fn.params)
         self.device = self.bundle.device
         # one record per printed step: step, loss, psnr, host clock
         self.history = []
@@ -354,7 +383,8 @@ class Trainer:
         """``n_iters`` steps from ``start_step`` on views of ``data_iter``,
         every draw from ``generator`` (seeded 0 when None): a line and a
         ``history`` record every ``i_print`` steps, a checkpoint every
-        ``i_weights``, ``log_view`` panels every ``i_img`` (0: none)."""
+        ``i_weights`` (rank 0 of a group alone), ``log_view`` panels every
+        ``i_img`` (0: none)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         t0 = time.perf_counter()
@@ -370,7 +400,7 @@ class Trainer:
                        f"({dt*1e3:.0f} ms/it)")
                 self.history.append({"step": i + 1, "loss": loss,
                                      "psnr": psnr, "time": now})
-            if (i + 1) % i_weights == 0:
+            if (i + 1) % i_weights == 0 and is_main_process():
                 self.save(i + 1)
             if i_img and logger is not None and val_iter is not None and (
                     (i + 1) % i_img == 0):

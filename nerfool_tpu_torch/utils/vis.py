@@ -105,3 +105,73 @@ def write_png(path, array):
         f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + _chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter(raw, h, row_bytes, bpp):
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth). Average and
+    Paeth predict each byte from the decoded one before it, so they run as
+    a loop over the row's bytes, on Python ints (faster than indexing numpy
+    arrays one element at a time)."""
+    out = np.zeros((h, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.int32)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 255
+        elif kind == 2:
+            cur = (line + prev) & 255
+        elif kind in (3, 4):
+            cur, up = line.tolist(), prev.tolist()
+            for x in range(row_bytes):
+                b = up[x]
+                a, c = (cur[x - bpp], up[x - bpp]) if x >= bpp else (0, 0)
+                if kind == 3:
+                    cur[x] = (cur[x] + ((a + b) >> 1)) & 255
+                    continue
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 255
+            cur = np.asarray(cur, np.int32)
+        else:
+            raise ValueError(f"PNG row filter {kind}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path):
+    """A PNG of 8-bit grey, grey + alpha, RGB or RGBA samples, not
+    interlaced, as uint8 [H, W, C] (C = 1, 2, 3 or 4): the PNG reader of
+    the port, which reads what ``write_png`` writes without an imaging
+    package (the card's machine has none).
+
+    :raises ValueError: on another PNG (16-bit, palette, interlaced)
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    w, h, depth, color_type, _, _, interlace = ihdr
+    c = _PNG_CHANNELS.get(color_type)
+    if depth != 8 or c is None or interlace:
+        raise ValueError(f"{path}: PNG of bit depth {depth}, colour type "
+                         f"{color_type}, interlace {interlace}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = _unfilter(raw.reshape(h, 1 + w * c), h, w * c, c)
+    return rows.reshape(h, w, c)

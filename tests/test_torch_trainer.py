@@ -547,7 +547,8 @@ def test_scalar_logger_records_match_jax(tmp_path):
 def test_train_cli_writes_run_files(tmp_path):
     """``python -m nerfool_tpu_torch.train --device cpu`` on the synthetic
     scene: the flags, the code snapshot, the scalars and a checkpoint that
-    ``create_model`` loads; ``--distributed`` is refused by name."""
+    ``create_model`` loads; with ``--distributed`` a world of one rank
+    (gloo on the CPU) trains to the same checkpoint."""
     argv = [sys.executable, "-m", "nerfool_tpu_torch.train", "--device",
             "cpu", "--train_dataset", "synthetic", "--ckpt_path", "",
             "--n_iters", "3", "--i_print", "1", "--N_samples", "8",
@@ -571,6 +572,13 @@ def test_train_cli_writes_run_files(tmp_path):
     assert not any(n.startswith("nerfool_tpu/") for n in names)
     assert "n_iters = 3" in (run / "args.txt").read_text()
     create_model(backbone="ibrnet", ckpt_path=str(run / "model_000003.pth"))
+    argv[argv.index("run")] = "run_dist"
     res = subprocess.run(argv + ["--distributed"], capture_output=True,
                          text=True, cwd=ROOT, env=env, timeout=300)
-    assert res.returncode != 0 and "parallel/" in res.stderr
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "process 0/1" in res.stdout
+    one, dist = (torch.load(tmp_path / d / "model_000003.pth",
+                            weights_only=True) for d in ("run", "run_dist"))
+    for net in ("feature_net", "net_coarse", "net_fine"):
+        for k, v in one[net].items():
+            assert torch.equal(v, dist[net][k]), (net, k)
