@@ -154,8 +154,14 @@ Phases, each printing a line; any failure raises and exits non-zero:
      carries CUDA tensors for all-reduce), each running this script with
      ``--split-rank``: the GNT attack evaluator of phase 11 finds the
      group; one view-specific attack step (f32, N_rand 800, through K3)
-     split over the ranks against the one-process step from the same delta
-     and rays (the limbs of phase 11's step check), the attacked
+     split over the ranks (the feature net on each rank's source views,
+     the rays by rank) against the one-process step with the feature net
+     in the same view batches, from the same delta and rays (the limbs of
+     phase 11's step check), the feature net's batch effect against
+     float64 (``feature_batches``), the views each rank's feature net
+     took, each rank's peak memory and the two-rank factor, the same for
+     IBRNet's attack step (N_rand 512), the feature maps' gathers timed
+     alone, the attacked
      whole-frame GNT render (K1, K3, K4 on the plan of phase 9) split by
      chunks against the one-process frame, one GNT train step through K3
      with dW (each rank its own view and draws) against the one-process
@@ -377,6 +383,15 @@ TOL_STEP_GRAD_REL = 1e-3
 TOL_STEP_GRAD_L2 = 1e-3
 TOL_STEP_SMALL_GRAD_L2 = 1e-2
 TOL_STEP_GRAD_COS = 0.9999
+# the split attack step runs the f32 feature net on each rank's share of the
+# source views; cuDNN may take another algorithm for a batch of 5 views
+# than for 10, so the split is held at the limbs above against one process
+# with the feature net in the same batches (the split's own arithmetic),
+# and the feature net's maps and input gradient in the ranks' batches may
+# sit at most this multiple of the whole batch's distance from float64
+# (measured on the card in the same run), each reading at least the floor
+TOL_FEATURE_BATCH = 2.0
+TOL_FEATURE_BATCH_FLOOR = 2 ** -23  # two roundings of an f32 output
 # a parameter tensor of the GNT training step whose gradient is zero in
 # exact arithmetic carries f32 rounding noise alone: 4e-14 to 2e-11 of the
 # step's largest gradient entry, measured on an H100 at the phase's size,
@@ -1294,7 +1309,7 @@ def step_limbs(loss_a, loss_b, g_a, g_b, upd_a, upd_b):
     small_l2 = float(norm((g_f - g_u)[small]) / norm(g_u[small]))
     diff = (upd_a - upd_b).abs()
     upd = float(diff.max())
-    upd_floor = float(diff[~small].max())
+    upd_floor = float(diff[~small].max()) if (~small).any() else 0.0
     share = float((diff <= TOL_STEP_DELTA_ABS).float().mean())
     text = (
         f"loss {loss_a:.6f} vs {loss_b:.6f} (rel "
@@ -2525,15 +2540,85 @@ def training(card):
     return out
 
 
+class ShareBatches:
+    """A model bundle whose feature net runs on each rank's share of the
+    source views apart (``RaySplit.rows``), the maps concatenated: the
+    split step's feature-net batches in one process. Everything else is
+    the wrapped bundle's."""
+
+    def __init__(self, bundle, world):
+        self.bundle, self.world = bundle, world
+
+    def __getattr__(self, name):
+        return getattr(self.bundle, name)
+
+    def extract_features(self, x):
+        import torch
+        from nerfool_tpu_torch.parallel.mesh import RaySplit
+
+        parts = [self.bundle.extract_features(
+            x[RaySplit(r, self.world).rows(x.shape[0])])
+            for r in range(self.world)]
+        coarse = torch.cat([p[0] for p in parts])
+        if parts[0][1] is parts[0][0]:
+            return coarse, coarse
+        return coarse, torch.cat([p[1] for p in parts])
+
+
+def feature_batches(bundle, x, world, seed=11):
+    """The feature net's batch effect on the card: its maps and its
+    input gradient (the VJP of a seeded normal cotangent) in f32 on all
+    views at once (one process) and on each rank's share apart (the
+    split), each against the same in float64. Returns, for 'maps' and
+    'vjp', each route's largest deviation from float64 as a share of
+    float64's largest entry and in relative L2, and the routes' from each
+    other."""
+    import copy
+    import torch
+
+    def route(b, xx, cots):
+        xx = xx.detach().requires_grad_(True)
+        with torch.enable_grad():
+            coarse, fine = b.extract_features(xx)
+            maps = (coarse,) if fine is coarse else (coarse, fine)
+            g, = torch.autograd.grad(maps, xx, cots[:len(maps)])
+        return torch.cat([m.reshape(-1) for m in maps]).double(), \
+            g.reshape(-1).double()
+
+    with torch.no_grad():
+        shapes = [m.shape for m in bundle.extract_features(x[:1])]
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    cots = [torch.randn((x.shape[0],) + tuple(sh[1:]), device=x.device,
+                        generator=gen) for sh in shapes]
+    net64 = copy.deepcopy(bundle.feature_net).double()
+    b64 = copy.copy(bundle)
+    b64.feature_net = net64
+    ref = route(b64, x.double(), [c.double() for c in cots])
+    del net64, b64
+    whole = route(bundle, x, cots)
+    shares = route(ShareBatches(bundle, world), x, cots)
+    norm = torch.linalg.norm
+    out = {}
+    for i, what in enumerate(("maps", "vjp")):
+        r = ref[i]
+        dev = lambda a, b: (float((a - b).abs().max() / b.abs().max()),
+                            float(norm(a - b) / norm(b)))
+        out[what] = {"whole_vs_f64": dev(whole[i], r),
+                     "shares_vs_f64": dev(shares[i], r),
+                     "shares_vs_whole": dev(shares[i], whole[i])}
+    return out
+
+
 def split_rank(rank, world, init, tmp):
     """Phase 19 (a), one rank of ``world`` on the card, run as ``python3
     chip_smoke.py --split-rank RANK WORLD INIT_URL DIR``: the GNT attack
     evaluator at the attack slice's widths finds the group and splits its
-    rays. Every rank draws the same delta and rays; it runs the split attack
-    step, the split attacked frame (the plan of phase 9, from DIR) and the
-    split train step (its own view and draws, the gradients averaged);
-    rank 0 alone then runs each one-process counterpart while the other
-    ranks wait. Results go to DIR/rankN.pt."""
+    source views and rays. Every rank draws the same delta and rays; it
+    runs the split attack step, the split attacked frame (the plan of phase
+    9, from DIR), the gathers of the feature maps alone, the split IBRNet
+    attack step and the split train step (its own view and draws, the
+    gradients averaged); rank 0 alone then runs each one-process
+    counterpart while the other ranks wait. Results go to DIR/rankN.pt."""
     sys.path.insert(0, ROOT)
     import dataclasses
     import pickle
@@ -2552,46 +2637,95 @@ def split_rank(rank, world, init, tmp):
     from nerfool_tpu_torch.parallel.mesh import ray_split
     from nerfool_tpu_torch.train.trainer import (make_batch, make_train_step,
                                                  train_config_from_args)
+    from nerfool_tpu_torch.utils.profiling import device_memory_stats
 
     pd.initialize(backend="gloo", device="cuda", init_method=init,
                   world_size=world, rank=rank)
     split = ray_split()
-    ev = Evaluator(eval_adv.parse_args(GNT_ATTACK_ARGV),
-                   dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
-    if ev.split != split or split is None:
-        raise AssertionError(f"rank {rank}: the evaluator's split "
-                             f"{ev.split}, the group's {split}")
-    with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
-        ev._bspg_specs, ev._bspg_hw = pickle.load(f)
-    data = ev.test_dataset[0]
-    target, (h, w) = ev._make_target(data)
-    src = ev._make_src(data)
-    cfg = build_attack_config(ev.args, h, w)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    delta0 = init_delta(gen, src["rgbs"], cfg.eps)
-    sels = [select_ray_indices(gen, cfg, "cuda")
-            for _ in range(SPLIT_ITERS + 1)]
     out = {"rank": rank}
 
-    def attack(sp):
-        """Warm-up step (the one compared), then SPLIT_ITERS timed."""
-        step = make_attack_step(ev.bundle, ev._grad_render_cfg(), cfg,
-                                split=sp)
-        state = init_attack_state(None, cfg, src["rgbs"], delta=delta0)
-        for i, sel in enumerate(sels):
+    def attack_setup(argv):
+        """The attack evaluator of ``argv`` (it must find the group), its
+        test view, and the delta and rays that every rank draws alike."""
+        e = Evaluator(eval_adv.parse_args(argv), dataset_kwargs=SLICE_DATA,
+                      device="cuda", seed=0)
+        if e.split != split or split is None:
+            raise AssertionError(f"rank {rank}: the evaluator's split "
+                                 f"{e.split}, the group's {split}")
+        d = e.test_dataset[0]
+        tgt, (hh, ww) = e._make_target(d)
+        s = e._make_src(d)
+        c = build_attack_config(e.args, hh, ww)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        d0 = init_delta(g, s["rgbs"], c.eps)
+        rays = [select_ray_indices(g, c, "cuda")
+                for _ in range(SPLIT_ITERS + 1)]
+        return e, d, tgt, s, c, d0, rays
+
+    def attack(e, tgt, s, c, d0, rays, sp, bundle=None):
+        """Warm-up step (the one compared), then SPLIT_ITERS timed; the
+        views the feature net took in each call, and this process's
+        allocated bytes before the steps and at their peak. ``bundle``:
+        the evaluator's by default."""
+        bundle = e.bundle if bundle is None else bundle
+        step = make_attack_step(bundle, e._grad_render_cfg(), c, split=sp)
+        state = init_attack_state(None, c, s["rgbs"], delta=d0)
+        views = []
+        hook = bundle.feature_net.register_forward_pre_hook(
+            lambda _, inputs: views.append(int(inputs[0].shape[0])))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = device_memory_stats()[f"cuda:{torch.cuda.current_device()}"]
+        for i, sel in enumerate(rays):
             if i == 1:
                 torch.cuda.synchronize()
                 zero_kernel_counts()
                 t0 = time.perf_counter()
-            state, aux = step(state, target, src, sel=sel)
+            state, aux = step(state, tgt, s, sel=sel)
             if i == 0:  # Adam's first moment after one step is -0.1 g
                 first = dict(loss=float(aux["loss"]),
-                             update=(state["delta"] - delta0).cpu(),
+                             update=(state["delta"] - d0).cpu(),
                              g=(state["m"] / -0.1).cpu())
         torch.cuda.synchronize()
-        return dict(first, ms_per_iter=(time.perf_counter() - t0)
-                    / SPLIT_ITERS * 1e3, launches=kernel_counts(),
+        ms = (time.perf_counter() - t0) / SPLIT_ITERS * 1e3
+        mem = device_memory_stats()[f"cuda:{torch.cuda.current_device()}"]
+        hook.remove()
+        return dict(first, ms_per_iter=ms, launches=kernel_counts(),
+                    views=views, base_bytes=base["bytes_in_use"],
+                    peak_bytes=mem["peak_bytes_in_use"],
                     delta=state["delta"])
+
+    def gathers(e, s, reps=5):
+        """The feature maps' gather alone, forward and backward (host
+        clock, each ending in a synchronize), at the maps this rank's
+        views give: ms of each, and the bytes of the whole maps."""
+        with torch.no_grad():
+            local = e.bundle.extract_features(
+                s["rgbs"][split.rows(s["rgbs"].shape[0])])
+        coarse = local[0].detach().requires_grad_(True)
+        fine = (coarse if local[1] is local[0]
+                else local[1].detach().requires_grad_(True))
+        leaves = [coarse] if fine is coarse else [coarse, fine]
+        fwd, bwd = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = split.view_features(lambda _: (coarse, fine), s["rgbs"])
+            full = full[:len(leaves)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(full, leaves,
+                                [torch.ones_like(m) for m in full])
+            torch.cuda.synchronize()
+            fwd.append((t1 - t0) * 1e3)
+            bwd.append((time.perf_counter() - t1) * 1e3)
+        return dict(fwd_ms=fwd[1:], bwd_ms=bwd[1:],
+                    bytes=sum(m.numel() * m.element_size() for m in full))
+
+    ev, data, target, src, cfg, delta0, sels = attack_setup(GNT_ATTACK_ARGV)
+    with open(os.path.join(tmp, "plan.pkl"), "rb") as f:
+        ev._bspg_specs, ev._bspg_hw = pickle.load(f)
+    h, w = cfg.h, cfg.w
 
     def render(delta):
         """One attacked whole-frame render (untimed warm-up: the attack)."""
@@ -2606,19 +2740,46 @@ def split_rank(rank, world, init, tmp):
                     frame={k: ret[k].float().cpu()
                            for k in ("rgb", "depth", "weights")})
 
-    out["attack"] = attack(split)
+    gnt_attack = (ev, target, src, cfg, delta0, sels)
+    out["attack"] = attack(*gnt_attack, split)
     delta = out["attack"].pop("delta")
     out["render"] = render(delta)
     dist.barrier()
     if rank == 0:
-        one = attack(None)
+        one = attack(*gnt_attack, None)
         one.pop("delta")
         out["attack_one"] = one
+        out["attack_one_shares"] = attack(*gnt_attack, None,
+                                          ShareBatches(ev.bundle, world))
+        out["attack_one_shares"].pop("delta")
+        out["features"] = {"gnt": feature_batches(
+            ev.bundle, src["rgbs"] + delta0, world)}
         ev.split = None
         out["render_one"] = render(delta)
         ev.split = split
     dist.barrier()
     del delta
+    out["gathers"] = {"gnt": gathers(ev, src)}
+
+    # the IBRNet attack step: the feature net is most of its iteration
+    iev, _, itarget, isrc, icfg, idelta0, isels = attack_setup(
+        IBR_ATTACK_ARGV)
+    ibr_attack = (iev, itarget, isrc, icfg, idelta0, isels)
+    out["ibr_attack"] = attack(*ibr_attack, split)
+    out["ibr_attack"].pop("delta")
+    dist.barrier()
+    if rank == 0:
+        one = attack(*ibr_attack, None)
+        one.pop("delta")
+        out["ibr_attack_one"] = one
+        out["ibr_attack_one_shares"] = attack(*ibr_attack, None,
+                                              ShareBatches(iev.bundle, world))
+        out["ibr_attack_one_shares"].pop("delta")
+        out["features"]["ibrnet"] = feature_batches(
+            iev.bundle, isrc["rgbs"] + idelta0, world)
+    dist.barrier()
+    out["gathers"]["ibrnet"] = gathers(iev, isrc)
+    del iev, ibr_attack, isrc
 
     # the train step: GNT at gnt_full.txt's widths through K3 with dW
     targs = port_parser().parse_args(GNT_TRAIN_ARGV)
@@ -2680,11 +2841,15 @@ def split_rank(rank, world, init, tmp):
 
 def split_paths(plan, depth, n_rays, chunk, card):
     """Phase 19 (a): two ranks on the one card (``split_rank``), each held
-    against the one-process run on rank 0: the attack step (``step_limbs``),
-    the attacked frame (TOL_FUSED_RENDER: the same chunks through the same
-    kernels), the train step's gradients (``train_step_limbs``); K1's, K3's
-    and K4's launches per rank. ``plan``: (specs, frame) of phase 9;
-    ``n_rays``: the frame's rays padded to whole blocks."""
+    against the one-process run on rank 0: the GNT and IBRNet attack steps
+    (``step_limbs`` against one process in the ranks' feature-net batches,
+    ``feature_batches`` against float64; the feature net's views per rank,
+    each its ``host_shard``; peak memory; the two-rank factor), the gathers
+    of the feature maps timed alone, the attacked frame (TOL_FUSED_RENDER:
+    the same chunks through the same kernels), the train step's gradients
+    (``train_step_limbs``); K1's, K3's and K4's launches per rank.
+    ``plan``: (specs, frame) of phase 9; ``n_rays``: the frame's rays
+    padded to whole blocks."""
     import pickle
     import torch
     from nerfool_tpu_torch.parallel.mesh import RaySplit
@@ -2727,34 +2892,86 @@ def split_paths(plan, depth, n_rays, chunk, card):
                             weights_only=False) for r in range(SPLIT_WORLD)]
     r0, r1 = ranks
     out = {}
-    # (1) the attack step
-    a, one = r0["attack"], r0["attack_one"]
-    res = step_limbs(a["loss"], one["loss"], a["g"], one["g"], a["update"],
-                     one["update"])
-    ok = res.pop("ok")
-    same = all(torch.equal(r0["attack"][k], r1["attack"][k])
-               for k in ("update", "g")) and r0["attack"]["loss"] == \
-        r1["attack"]["loss"]
+    # (1) the attack steps, GNT (through K3) and IBRNet: the split against
+    # one process in the ranks' feature-net batches (what the split alone
+    # changes), the feature net's batch effect against float64, and the
+    # split against the one-process step as a user runs it
     exp = SPLIT_ITERS * depth
-    launches = [r["attack"]["launches"] for r in ranks]
-    log("split", f"GNT attack step on {SPLIT_WORLD} ranks against one "
-        f"process from the same delta and rays: {res.pop('text')}; the ranks "
-        f"hold the same step bit for bit: {same}; ms/iteration "
-        f"{[r['attack']['ms_per_iter'] for r in ranks]} on the ranks, "
-        f"{one['ms_per_iter']:.2f} in one process; ray_attention launches "
-        f"per rank forward {[x['ray_attention_fwd'] for x in launches]}, "
-        f"backward {[x['ray_attention_bwd'] for x in launches]}; {card}")
-    if not ok or not same:
-        raise AssertionError("the split attack step disagrees with the "
-                             "one-process step")
-    for x in launches + [one["launches"]]:
-        if (x["ray_attention_fwd"], x["ray_attention_bwd"]) != (exp, exp):
-            raise AssertionError(f"split attack launches {x}, expected "
-                                 f"{exp} forward and backward")
-    out["attack"] = dict(res, ms_per_iter=[r["attack"]["ms_per_iter"]
-                                           for r in ranks],
-                         one_ms_per_iter=one["ms_per_iter"],
-                         launches=launches, one_launches=one["launches"])
+    mb = lambda b: b / 2 ** 20
+    for name, key in (("GNT", "attack"), ("IBRNet", "ibr_attack")):
+        a, one, alike = r0[key], r0[key + "_one"], r0[key + "_one_shares"]
+        res = step_limbs(a["loss"], alike["loss"], a["g"], alike["g"],
+                         a["update"], alike["update"])
+        ok = res.pop("ok")
+        whole = step_limbs(a["loss"], one["loss"], a["g"], one["g"],
+                           a["update"], one["update"])
+        whole.pop("ok")
+        feat = r0["features"][name.lower()]
+        feat_ok = all(f["shares_vs_f64"][i] <= TOL_FEATURE_BATCH * max(
+            f["whole_vs_f64"][i], TOL_FEATURE_BATCH_FLOOR)
+            for f in feat.values() for i in (0, 1))
+        same = all(torch.equal(r0[key][k], r1[key][k])
+                   for k in ("update", "g")) and r0[key]["loss"] == \
+            r1[key]["loss"]
+        views = [r[key]["views"] for r in ranks]
+        n_views = one["views"][0]
+        shares = []
+        for r in ranks:  # host_shard's whole views, one call a step
+            rows = RaySplit(r["rank"], SPLIT_WORLD).rows(n_views)
+            shares.append(rows.stop - rows.start)
+        ms = [r[key]["ms_per_iter"] for r in ranks]
+        factor = max(ms) / one["ms_per_iter"]
+        peak = [mb(r[key]["peak_bytes"] - r[key]["base_bytes"])
+                for r in ranks]
+        one_peak = mb(one["peak_bytes"] - one["base_bytes"])
+        launches = [r[key]["launches"] for r in ranks]
+        fmt = lambda d: ", ".join(f"{k} {v[0]:.3g} (L2 {v[1]:.3g})"
+                                  for k, v in d.items())
+        log("split", f"{name} attack step on {SPLIT_WORLD} ranks against one "
+            f"process with the feature net in the ranks' view batches, from "
+            f"the same delta and rays: {res.pop('text')}; the ranks hold "
+            f"the same step bit for bit: {same}; feature-net views per step "
+            f"on the ranks {[v[0] for v in views]} (one process {n_views}); "
+            f"ms/iteration {ms} on the ranks, {one['ms_per_iter']:.2f} in "
+            f"one process: the two-rank factor {factor:.3f}; peak MiB above "
+            f"the steps' start {peak} on the ranks, {one_peak:.1f} in one "
+            f"process; launches per rank {launches}; {card}")
+        log("split", f"{name} feature net's batch effect (f32, largest "
+            f"deviation as a share of float64's largest entry): maps "
+            f"{fmt(feat['maps'])}; input gradient {fmt(feat['vjp'])}; the "
+            f"shares may sit at most {TOL_FEATURE_BATCH:g}x the whole "
+            f"batch's distance from float64: {feat_ok}. The split against "
+            f"the one-process step on all views at once: "
+            f"{whole.pop('text')}; {card}")
+        if not ok or not same or not feat_ok:
+            raise AssertionError(f"the split {name} attack step disagrees "
+                                 "with the one-process step")
+        if (views != [[n] * (SPLIT_ITERS + 1) for n in shares]
+                or one["views"] != [n_views] * (SPLIT_ITERS + 1)
+                or alike["views"] != shares * (SPLIT_ITERS + 1)):
+            raise AssertionError(f"the {name} feature net took views "
+                                 f"{views} on the ranks, {one['views']} and "
+                                 f"{alike['views']} in one process; the "
+                                 f"shares are {shares}")
+        for x in (launches + [one["launches"]] if name == "GNT" else []):
+            if (x["ray_attention_fwd"], x["ray_attention_bwd"]) != (exp, exp):
+                raise AssertionError(f"split attack launches {x}, expected "
+                                     f"{exp} forward and backward")
+        out[key] = dict(res, ms_per_iter=ms,
+                        one_ms_per_iter=one["ms_per_iter"],
+                        two_rank_factor=factor, views=shares,
+                        one_views=n_views, peak_mib=peak,
+                        one_peak_mib=one_peak, launches=launches,
+                        one_launches=one["launches"], features=feat,
+                        against_whole_batch=whole)
+    for name, g in r0["gathers"].items():
+        both = [r["gathers"][name] for r in ranks]
+        log("split", f"{name} feature maps' gather ({mb(g['bytes']):.1f} MiB "
+            f"on every rank) forward ms {[x['fwd_ms'] for x in both]}, "
+            f"backward (the reduce-scatter) ms {[x['bwd_ms'] for x in both]} "
+            f"on the ranks; {card}")
+    out["gathers"] = {name: [r["gathers"][name] for r in ranks]
+                      for name in r0["gathers"]}
     # (2) the attacked frame
     one = r0["render_one"]
     errs = {k: max(float((r["render"]["frame"][k] - one["frame"][k]).abs()
@@ -3514,9 +3731,54 @@ def main():
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
+def split_alone(root):
+    """Phase 19 (a) alone, as the ``chip_smoke.py`` at ``root`` runs it
+    with its own package: the kernels built, the GNT slice's plan of phase
+    9 made, then that script's ``split_paths``; prints its readings as one
+    JSON line. Run as ``python3 chip_smoke.py --split-only [ROOT]`` (ROOT:
+    this checkout by default). To compare two trees on one card, unpack
+    the other into the gitignored ``ab_trees/`` and run both in turns
+    (``--split-only ab_trees/<tree>``, ``--split-only``, ...), each in its
+    own process."""
+    import importlib.util
+
+    root = os.path.abspath(root)
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    tree = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tree)
+    sys.path.insert(0, root)
+    import torch
+    from nerfool_tpu_torch.engine import Evaluator
+    from nerfool_tpu_torch.eval import parse_args
+    from nerfool_tpu_torch.ops import build
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: torch.cuda.is_available() is False")
+    card = tree.card_line()
+    build.build("bspg_select", "gnt_chain", "ray_attention", "view_attention")
+    gargs = parse_args(tree.GNT_ARGV)
+    gev = Evaluator(gargs, dataset_kwargs=tree.SLICE_DATA, device="cuda",
+                    seed=0)
+    gev.view_render_cfg(int(gev._make_src(gev.test_dataset[0])[
+        "cameras"].shape[0]))
+    hs = len(range(0, tree.SLICE_DATA["h"], gargs.render_stride))
+    ws = len(range(0, tree.SLICE_DATA["w"], gargs.render_stride))
+    blk = gargs.bspg_block
+    t0 = time.perf_counter()
+    out = tree.split_paths((gev._bspg_specs, gev._bspg_hw),
+                           gargs.trans_depth,
+                           -(-hs // blk) * blk * -(-ws // blk) * blk,
+                           gargs.chunk_size, card)
+    log("split alone", f"{root}: {time.perf_counter() - t0:.1f} s; {card}")
+    print(json.dumps({"root": root, "split": out}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--split-rank"]:
         split_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                    sys.argv[5])
+    elif sys.argv[1:2] == ["--split-only"]:
+        split_alone(sys.argv[2] if len(sys.argv) > 2 else ROOT)
     else:
         main()

@@ -22,13 +22,18 @@ second render at ``resize_factor`` of the target's resolution), and
 the target and a source view, which drives the camera-pose attack.
 
 Given a ``RaySplit`` (``parallel/mesh.py``) the step runs on every rank of
-a process group alike: each rank draws the same rays from the same
-generator, renders its contiguous share of each ray batch (whole patches of
-patch-structured batches), and gathers the shares back, so that every rank
-computes the losses of the whole batch; the gradients flow through each
-rank's own rays only, and their sum over the ranks (one all-reduce, per
-objective under PCGrad, before the surgery) is the one-process gradient.
-The update is then the same on every rank.
+a process group alike: each rank runs the feature net on its own share of
+the source views (whole views) and gathers the maps, draws the same rays
+from the same generator, renders its contiguous share of each ray batch
+(whole patches of patch-structured batches), and gathers the shares back,
+so that every rank computes the losses of the whole batch. The gradients
+flow through each rank's own rays only; the gather's backward sums the
+maps' gradients over the ranks and hands each rank its own views' rows, so
+``delta``'s gradient on a rank covers its own views, the camera parameters'
+its own rays (``delta`` reaches the losses through the features alone).
+Their sum over the ranks (one all-reduce, per objective under PCGrad,
+before the surgery) is the one-process gradient. The update is then the
+same on every rank.
 
 The step is an eager function over a small state dict (``delta``, ``rot``,
 ``trans``, their Adam moments, the step count). The caller may pass the ray
@@ -258,8 +263,9 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
     """Build the attack step for ``bundle``. Its parameters are frozen
     while a step runs (only ``delta`` and the camera parameters are
     differentiated) and get their ``requires_grad`` flags back when it
-    returns. ``split``: a ``parallel.mesh.RaySplit`` to share each ray
-    batch among the ranks of a group (None: one process).
+    returns. ``split``: a ``parallel.mesh.RaySplit`` to share the source
+    views' feature net and each ray batch among the ranks of a group
+    (None: one process).
 
     step(state, target, src, generator=None, sel=None, sel_patch=None,
          pc_order=None, depth_src_id=None, camera_src_id=None,
@@ -402,7 +408,10 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
     def compute_losses(delta, rot, trans, target, src, draws, generator):
         src_cams = (transform_src_cameras(src["cameras"], rot, trans)
                     if cfg.perturb_camera else src["cameras"])
-        feats = bundle.extract_features(src["rgbs"] + delta)
+        perturbed = src["rgbs"] + delta
+        # a split runs the feature net on each rank's own views only
+        feats = (bundle.extract_features(perturbed) if split is None
+                 else split.view_features(bundle.extract_features, perturbed))
         sel = draws["sel"]
         # delta reaches the renderer only through the feature maps: the RGB
         # taps stay on the clean source pixels, as in the reference

@@ -7,7 +7,11 @@ sharding and the replicated sharding become one small description:
 ``RaySplit``, this process's rank and the world size of the default group.
 Each rank renders its contiguous share of a ray batch or of a frame's chunk
 list (``render``); ``gather`` puts the shares back together in rank order,
-and ``all_reduce`` sums the gradients. A group of one rank is no split:
+and ``all_reduce`` sums the gradients. The attack step also splits the
+feature net over the source views (``view_features``), as the JAX package
+constrains the perturbed views to the same mesh axis: the net is per view
+(InstanceNorm normalises each view alone), so each rank runs it on its own
+views and the maps are gathered back. A group of one rank is no split:
 ``ray_split`` returns None and the callers run the one-process program
 unchanged.
 """
@@ -61,6 +65,25 @@ class RaySplit:
             k: self.gather(v[:keep], n, unit) for k, v in outs.items()}
             for level, outs in ret.items()}
 
+    def view_features(self, extract, x):
+        """``extract(x)`` of a ``[V, ...]`` batch of source views, each rank
+        running ``extract`` on its own share of the views only (whole
+        views, by ``host_shard``: a rank may own none) and the maps
+        gathered back to every rank in view order. ``extract`` returns
+        ``(coarse, fine)``, ``[V_r, Hf, Wf, C]`` each; one tensor returned
+        as both (a single head) is gathered once, so that its gradient is
+        not counted twice. In the backward each map's gradient is summed
+        over the ranks and each rank keeps its own views' rows: ``x`` then
+        has a gradient on this rank's views only, and the sum over the
+        ranks of its gradient is the one-process gradient."""
+        n = x.shape[0]
+        rows = self.rows(n)
+        coarse, fine = extract(x[rows])
+        if fine is coarse:
+            full, = _GatherViews.apply(rows, n, coarse)
+            return full, full
+        return _GatherViews.apply(rows, n, coarse, fine)
+
     def localize(self, full, unit=1):
         """A per-ray tensor that every rank computed in full (a z-buffered
         warp, which reads the whole frame), with its gradient kept on this
@@ -86,6 +109,30 @@ class RaySplit:
         """Rank ``src``'s values of ``tensors``, in place, on every rank."""
         for t in tensors:
             dist.broadcast(t.data, src)
+
+
+class _GatherViews(torch.autograd.Function):
+    """Every rank's ``[V_r, ...]`` rows of length-``n`` view-axis maps, in
+    rank order: the maps travel as one buffer through ``make_global``
+    (gloo carries CUDA tensors for all-reduce, not for all-gather). The
+    backward sums the whole maps' gradients over the ranks (one
+    all-reduce) and returns this rank's rows of them: the reduce-scatter
+    that GSPMD inserts in the JAX package's sharded step. Every rank must
+    differentiate through the gather alike, or the all-reduce waits."""
+
+    @staticmethod
+    def forward(ctx, rows, n, *local):
+        ctx.rows = rows
+        ctx.widths = [m.shape[-1] for m in local]
+        full = make_global(torch.cat(local, -1), n, rows)
+        return tuple(m.contiguous() for m in full.split(ctx.widths, -1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = torch.cat(grads, -1)
+        dist.all_reduce(g)
+        return (None, None, *(m.contiguous()
+                              for m in g[ctx.rows].split(ctx.widths, -1)))
 
 
 def ray_split():

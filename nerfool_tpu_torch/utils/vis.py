@@ -1,10 +1,13 @@
 """Image dumps without an imaging package: ``to8b``, ``colorize_np`` with
 matplotlib's ``jet`` written in numpy, and a PNG writer on ``zlib``
-(port of ``nerfool_tpu/utils/vis.py``; the colorbar helpers are not
-ported: nothing calls them).
+(port of ``nerfool_tpu/utils/vis.py``). Other colormaps and the colorbar
+(``get_vertical_colorbar``, ``colorize_np(append_cbar=True)``) draw with
+matplotlib and resize with cv2, as the JAX package does, and import them
+inside the call: where they are missing, they raise ``ImportError``.
 """
 from __future__ import annotations
 
+import importlib
 import struct
 import zlib
 
@@ -56,11 +59,63 @@ def to8b(x):
     return (255 * np.clip(x, 0, 1)).astype(np.uint8)
 
 
-def colorize_np(x, mask=None, range=None):
-    """Grayscale [H, W] -> jet-coloured [H, W, 3] float in [0, 1], over
+def _require(name, what):
+    """The module ``name``, or an ImportError that says ``what`` needs it."""
+    try:
+        return importlib.import_module(name)
+    except ImportError as e:
+        raise ImportError(f"{what} needs the {name.split('.')[0]!r} package, "
+                          "which does not import here (only jet without a "
+                          "colorbar is built in)") from e
+
+
+def get_vertical_colorbar(h, vmin, vmax, cmap_name="jet", label=None,
+                          cbar_precision=2):
+    """A vertical colorbar of ``cmap_name`` over [vmin, vmax] with six tick
+    labels, drawn by matplotlib and resized by cv2 to height ``h``:
+    [h, w, 3] float32 in [0, 1]."""
+    what = "get_vertical_colorbar"
+    mpl = _require("matplotlib", what)
+    cv2 = _require("cv2", what)
+    agg = _require("matplotlib.backends.backend_agg", what)
+    figure = _require("matplotlib.figure", what)  # imports .colorbar
+
+    fig = figure.Figure(figsize=(2, 8), dpi=100)
+    fig.subplots_adjust(right=1.5)
+    canvas = agg.FigureCanvasAgg(fig)
+    ax = fig.add_subplot(111)
+    cmap = mpl.colormaps[cmap_name]
+    norm = mpl.colors.Normalize(vmin=vmin, vmax=vmax)
+    tick_loc = np.linspace(vmin, vmax, 6)
+    cb = mpl.colorbar.ColorbarBase(ax, cmap=cmap, norm=norm, ticks=tick_loc,
+                                   orientation="vertical")
+    labels = [str(np.round(x, cbar_precision)) for x in tick_loc]
+    if cbar_precision == 0:
+        labels = [x[:-2] for x in labels]
+    cb.set_ticklabels(labels)
+    cb.ax.tick_params(labelsize=18, rotation=0)
+    if label is not None:
+        cb.set_label(label)
+    fig.tight_layout()
+    canvas.draw()
+    s, (width, height) = canvas.print_to_buffer()
+    im = np.frombuffer(s, np.uint8).reshape((height, width, 4))
+    im = im[:, :, :3].astype(np.float32) / 255.0
+    if h != im.shape[0]:
+        w = int(im.shape[1] / im.shape[0] * h)
+        im = cv2.resize(im, (w, h), interpolation=cv2.INTER_AREA)
+    return im
+
+
+def colorize_np(x, cmap_name="jet", mask=None, range=None, append_cbar=False,
+                cbar_in_image=False, cbar_precision=2):
+    """Grayscale [H, W] -> coloured [H, W, 3] float in [0, 1], over
     ``range`` (vmin, vmax), else over the masked pixels' nonzero minimum and
     maximum (pixels outside ``mask`` white), else over the 1st to 100th
-    percentile."""
+    percentile. ``jet`` is the built-in table; another ``cmap_name`` is
+    matplotlib's. ``append_cbar``: a colorbar (``get_vertical_colorbar``)
+    over the image's right edge with ``cbar_in_image``, else beside it
+    after 5 black columns."""
     x = np.asarray(x, dtype=np.float64).copy()
     if range is not None:
         vmin, vmax = range
@@ -73,10 +128,23 @@ def colorize_np(x, mask=None, range=None):
         vmin, vmax = np.percentile(x, (1, 100))
         vmax += TINY
     x = np.clip(x, vmin, vmax)
-    out = jet((x - vmin) / (vmax - vmin + TINY))
+    x = (x - vmin) / (vmax - vmin + TINY)
+    if cmap_name == "jet":
+        out = jet(x)
+    else:
+        mpl = _require("matplotlib", f"colorize_np(cmap_name={cmap_name!r})")
+        out = mpl.colormaps[cmap_name](x)[:, :, :3]
     if mask is not None:
         m = np.float32(mask[:, :, None])
         out = out * m + np.ones_like(out) * (1.0 - m)
+    if append_cbar:
+        cbar = get_vertical_colorbar(x.shape[0], vmin, vmax, cmap_name,
+                                     cbar_precision=cbar_precision)
+        if cbar_in_image:
+            out[:, -cbar.shape[1]:, :] = cbar
+        else:
+            out = np.concatenate((out, np.zeros_like(out[:, :5, :]), cbar),
+                                 axis=1)
     return out
 
 

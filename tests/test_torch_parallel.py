@@ -11,17 +11,24 @@ rays, and saves its results; the one-process results come from the same
 functions in the test process.
 
 What the two ranks must reproduce, per rank: one view-specific attack step
-per backbone (GNT through the ray-attention kernel's plain version), the
-PCGrad step (rgb, depth variance and depth smoothness on a dedicated batch
-of whole 4x4 patches), a step under IBRNet's ``geo_noise`` (its draws taken
-for the whole batch in the one-process order), the camera-pose attack with both consistency terms
-(its camera gradient flows through the z-buffered warps, which every rank
-computes in full and differentiates on its own rays only), one attacked
-whole-frame render on the BSPG route under ``geo_noise`` (each rank renders
-whole chunks of ray blocks with those chunks' draws), and one train step (each rank its own view and draws, the
-gradients averaged over the ranks before Adam). The attack and train
-steps run in float64: a split changes only the order in which the rays'
-contributions to a gradient are summed (each rank's own, then the
+per backbone (GNT through the ray-attention kernel's plain version; GNT's
+config default is ``single_net``, one feature head, and a case with two
+heads beside it), the universal step (the global source set, pseudo ground
+truth), the PCGrad step (rgb, depth variance and depth smoothness on a
+dedicated batch of whole 4x4 patches), a step under IBRNet's ``geo_noise``
+(its draws taken for the whole batch in the one-process order), the
+camera-pose attack with both consistency terms (its camera gradient flows
+through the z-buffered warps, which every rank computes in full and
+differentiates on its own rays only), one attacked whole-frame render on
+the BSPG route under ``geo_noise`` (each rank renders whole chunks of ray
+blocks with those chunks' draws), and one train step (each rank its own
+view and draws, the gradients averaged over the ranks before Adam). Every
+attack step runs the feature net on the rank's own source views (3 views on
+two ranks: 2 | 1; one case with a single view, which leaves rank 1 none)
+and gathers the maps; a forward hook counts the views the feature net
+takes, and ``--shard_rays False`` turns both splits off. The attack and
+train steps run in float64: a split changes only the order in which the
+rays' contributions to a gradient are summed (each rank's own, then the
 all-reduce), ~1e-16 relative in float64, so losses, deltas, Adam's moments
 and parameters are held to 1e-6 relative (1e-12 of scale absolute, for
 entries near zero). The render runs in float32 on chunks equal to the
@@ -68,15 +75,26 @@ ATTACK_CASES = {
         "--perturb_camera", "--depth_consistency_loss", "0.5",
         "--camera_consistency_loss", "0.5", "--cam_src2tar", "1",
         "--cam_tar2src", "1", "--cam_depth", "0.1"]),
+    # no --view_specific: one delta on the global source set
+    "universal": ("ibrnet", ["--use_pseudo_gt", "--use_center_view",
+                             "--N_importance", "4"]),
+    "gnt_two_nets": ("gnt", ["--gnt_fused_attack", "True", "--single_net",
+                             "False"]),
+    # one source view: rank 1 owns none
+    "one_view": ("gnt", ["--gnt_fused_attack", "True",
+                         "--num_source_views", "1"]),
 }
+UNIVERSAL = ("universal",)
 
 
-def _args(backbone, *extra, kw=SMALL):
+def _args(backbone, *extra, kw=SMALL, view_specific=True):
     flags = ["--eval_dataset", "synthetic", "--device", "cpu",
              "--ckpt_path", "", "--N_samples", "10", "--num_source_views",
-             "3", "--N_rand", "32", "--view_specific", "--use_adam",
-             "--adam_lr", "1e-3", "--adv_iters", "1", "--workers", "0",
+             "3", "--N_rand", "32", "--use_adam", "--adam_lr", "1e-3",
+             "--adv_iters", "1", "--workers", "0",
              "--dataset_kwargs", json.dumps(kw)]
+    if view_specific:
+        flags.append("--view_specific")
     if backbone == "gnt":
         flags += ["--backbone", "gnt", "--trans_depth", "2", "--ret_alpha"]
     return eval_adv.parse_args(flags + list(extra))
@@ -87,25 +105,40 @@ def _f64(d):
             else v for k, v in d.items()}
 
 
-def _attack(name):
-    """One attack step in float64 on test view 0, from a drawn delta."""
+def _attack(name, *more):
+    """One attack step in float64 on test view 0 (the universal case: from
+    the global source set), from a drawn delta; ``views``: the batch sizes
+    the feature net took inside the step."""
     backbone, flags = ATTACK_CASES[name]
-    ev = Evaluator(_args(backbone, *flags), dataset_kwargs=SMALL,
-                   device="cpu", seed=0)
-    for m in (ev.bundle.feature_net, ev.bundle.net_coarse,
-              ev.bundle.net_fine):
+    universal = name in UNIVERSAL
+    ev = Evaluator(_args(backbone, *flags, *more,
+                         view_specific=not universal),
+                   dataset_kwargs=SMALL, device="cpu", seed=0)
+    net = ev.bundle.feature_net
+    for m in (net, ev.bundle.net_coarse, ev.bundle.net_fine):
         if m is not None:
             m.double()
     data = ev.test_dataset[0]
     target, (h, w) = ev._make_target(data)
     cfg = build_attack_config(ev.args, h, w)
-    target, src = _f64(target), _f64(ev._make_src(data))
+    target = _f64(target)
+    src = _f64(ev.global_src() if universal else ev._make_src(data))
+    if cfg.use_pseudo_gt:
+        with torch.no_grad():
+            src["featmaps_clean"] = ev.bundle.extract_features(src["rgbs"])
     step = make_attack_step(ev.bundle, ev._grad_render_cfg(), cfg,
                             split=ev.split)
     gen = torch.Generator().manual_seed(3)
     state = init_attack_state(gen, cfg, src["rgbs"])
-    state, aux = step(state, target, src, generator=gen)
-    return {"split": ev.split is not None, "aux": aux,
+    views = []
+    hook = net.register_forward_pre_hook(
+        lambda _, inputs: views.append(inputs[0].shape[0]))
+    try:
+        state, aux = step(state, target, src, generator=gen)
+    finally:
+        hook.remove()
+    return {"split": ev.split is not None, "aux": aux, "views": views,
+            "n_views": src["rgbs"].shape[0], "single_net": net.single_net,
             **{k: state[k] for k in ("delta", "m", "rot", "trans", "m_rot")}}
 
 
@@ -190,6 +223,7 @@ def _worker(rank, world, init, out_dir):
     split = ray_split()
     assert split == RaySplit(rank=rank, world=world)
     res = {"attack": {n: _attack(n) for n in ATTACK_CASES},
+           "unsplit": _attack("ibrnet", "--shard_rays", "False"),
            "render": _render(os.path.join(out_dir, f"eval_rank{rank}")),
            "train": _train(rank, split),
            "main": t_dist.is_main_process(),
@@ -331,6 +365,31 @@ def test_two_ranks_attack_step_matches_one_process(world, case):
     for k in ("delta", "rot", "trans"):
         assert torch.equal(ranks[0]["attack"][case][k],
                            ranks[1]["attack"][case][k]), k
+
+
+def test_feature_net_takes_the_ranks_views(world):
+    """Each rank's feature net takes its ``host_shard`` of the source views
+    (2 | 1 of 3; 1 | 0 of one view), one process all of them, and so does
+    every rank under ``--shard_rays False``."""
+    ranks, one, _ = world
+    for case in ATTACK_CASES:
+        n = one["attack"][case]["n_views"]
+        assert one["attack"][case]["views"] == [n], case
+        for r, res in enumerate(ranks):
+            share = t_dist.host_shard(n, r, WORLD)
+            assert res["attack"][case]["views"] == [share.stop - share.start]
+    assert [r["attack"]["ibrnet"]["views"] for r in ranks] == [[2], [1]]
+    assert [r["attack"]["one_view"]["views"] for r in ranks] == [[1], [0]]
+    # one feature head (one map gathered) and two
+    assert one["attack"]["gnt"]["single_net"]
+    assert not one["attack"]["gnt_two_nets"]["single_net"]
+    ref = one["attack"]["ibrnet"]
+    for r, res in enumerate(ranks):
+        got = res["unsplit"]
+        assert not got["split"] and got["views"] == [3]
+        for k in ("delta", "m"):
+            _close(got[k], ref[k], f"rank {r} unsplit {k}")
+        _close(got["aux"]["loss"], ref["aux"]["loss"], f"rank {r} loss")
 
 
 def test_two_ranks_render_match_one_process(world):

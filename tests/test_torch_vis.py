@@ -14,6 +14,7 @@ colour-mapped maps within one step of jet's table, where such a flip moves
 the table index by one.
 """
 import os
+import sys
 
 import imageio.v2 as imageio
 import jax
@@ -57,6 +58,51 @@ def test_colorize_equals_jax_bit_for_bit(case):
     np.testing.assert_array_equal(got, ref)
     if case == "nan":  # matplotlib's "bad" colour
         assert (got[4, 5] == 0).all()
+
+
+@pytest.mark.parametrize("cmap_name,append_cbar,cbar_in_image,precision", [
+    ("viridis", False, False, 2), ("jet", True, False, 2),
+    ("jet", True, True, 0), ("magma", True, False, 3)])
+def test_colormaps_and_colorbar_equal_jax(cmap_name, append_cbar,
+                                          cbar_in_image, precision):
+    """Other colormaps and the colorbar are matplotlib's and cv2's in
+    both packages: equal where both import."""
+    pytest.importorskip("matplotlib")
+    pytest.importorskip("cv2")
+    x = _image("range")
+    kw = dict(cmap_name=cmap_name, append_cbar=append_cbar,
+              cbar_in_image=cbar_in_image, cbar_precision=precision)
+    got = vis.colorize_np(x, range=(0.0, 2.0), **kw)
+    ref = j_vis.colorize_np(x, range=(0.0, 2.0), **kw)
+    np.testing.assert_array_equal(got, ref)
+    if append_cbar and not cbar_in_image:  # 5 black columns, then the bar
+        assert got.shape[0] == x.shape[0] and got.shape[1] > x.shape[1] + 5
+        assert not got[:, x.shape[1]:x.shape[1] + 5].any()
+    else:
+        assert got.shape == x.shape + (3,)
+    got = vis.get_vertical_colorbar(48, -1.0, 3.0, cmap_name, label="depth",
+                                    cbar_precision=precision)
+    ref = j_vis.get_vertical_colorbar(48, -1.0, 3.0, cmap_name,
+                                      label="depth", cbar_precision=precision)
+    assert got.dtype == np.float32 and got.shape[0] == 48
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_colorbar_without_its_packages_names_them(monkeypatch):
+    """Where matplotlib or cv2 does not import (the card's machine), jet
+    without a colorbar still runs on the built-in table; other colormaps
+    and the colorbar raise an ImportError naming the package."""
+    x = _image("range")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="'cv2'"):
+        vis.get_vertical_colorbar(30, 0.0, 1.0)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    for kw in (dict(cmap_name="viridis"), dict(append_cbar=True)):
+        with pytest.raises(ImportError, match="'matplotlib'"):
+            vis.colorize_np(x, range=(0.0, 2.0), **kw)
+    np.testing.assert_array_equal(
+        vis.colorize_np(x, range=(0.0, 2.0)), vis.jet(np.clip(x, 0, 2) / (
+            2.0 + vis.TINY)))
 
 
 @pytest.mark.parametrize("dtype,shape", [(np.uint8, (7, 9, 3)),
