@@ -60,6 +60,7 @@ from nerfool_tpu_torch.attack.warp import forward_warp
 from nerfool_tpu_torch.render.render_rays import (RenderConfig,
                                                   noise_draws, render_rays)
 from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
+from nerfool_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,8 +364,9 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
                                  (tar_cam[2:18].reshape(4, 4)
                                   * scale).reshape(-1), tar_cam[18:34]])
             sel = draws["sel_half"]
-            ret = render_at(feats, tar_cam, target, src, src_cams, sel, ww,
-                            generator, unit=main_unit)
+            with span("attack.render"):
+                ret = render_at(feats, tar_cam, target, src, src_cams, sel,
+                                ww, generator, unit=main_unit)
             # the first two rows scaled, [2, 2] stays 1
             k_src = k_src * rf + torch.diag(
                 k_src.new_tensor([0.0, 0.0, 1.0 - rf]))
@@ -406,27 +408,41 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
                           depth_t2s > 0))
 
     def compute_losses(delta, rot, trans, target, src, draws, generator):
+        """(the enabled loss terms, their sum) at the perturbed sources."""
         src_cams = (transform_src_cameras(src["cameras"], rot, trans)
                     if cfg.perturb_camera else src["cameras"])
-        perturbed = src["rgbs"] + delta
-        # a split runs the feature net on each rank's own views only
-        feats = (bundle.extract_features(perturbed) if split is None
-                 else split.view_features(bundle.extract_features, perturbed))
+        with span("attack.features"):
+            perturbed = src["rgbs"] + delta
+            # a split runs the feature net on each rank's own views only
+            feats = (bundle.extract_features(perturbed) if split is None
+                     else split.view_features(bundle.extract_features,
+                                              perturbed))
         sel = draws["sel"]
-        # delta reaches the renderer only through the feature maps: the RGB
-        # taps stay on the clean source pixels, as in the reference
-        ret = render_at(feats, target["camera"], target, src, src_cams, sel,
-                        cfg.w, generator, unit=main_unit)
+        ret_gt = None
+        with span("attack.render"):
+            # delta reaches the renderer only through the feature maps: the
+            # RGB taps stay on the clean source pixels, as in the reference
+            ret = render_at(feats, target["camera"], target, src, src_cams,
+                            sel, cfg.w, generator, unit=main_unit)
+            if cfg.use_pseudo_gt:
+                with torch.no_grad():
+                    ret_gt = render_at(src["featmaps_clean"],
+                                       target["camera"], target, src,
+                                       src_cams, sel, cfg.w, None, gt_cfg,
+                                       unit=main_unit)
+        with span("attack.loss"):
+            return loss_terms(feats, ret, ret_gt, target, src, src_cams,
+                              draws, generator)
 
-        if cfg.use_pseudo_gt:
-            with torch.no_grad():
-                ret_gt = render_at(src["featmaps_clean"], target["camera"],
-                                   target, src, src_cams, sel, cfg.w, None,
-                                   gt_cfg, unit=main_unit)
+    def loss_terms(feats, ret, ret_gt, target, src, src_cams, draws,
+                   generator):
+        """(the enabled loss terms, their sum) of the renders ``ret`` (and
+        the pseudo-GT ``ret_gt``, or None)."""
+        sel = draws["sel"]
+        if ret_gt is not None:
             top_gt = ret_gt["outputs_fine"] or ret_gt["outputs_coarse"]
             gt_rgb, gt_depth = top_gt["rgb"], top_gt["depth"]
         else:
-            ret_gt = None
             gt_rgb = target["rgb"][sel]
             gt_depth = (target["depth"][sel]
                         if target.get("depth") is not None else None)
@@ -449,16 +465,21 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         if cfg.depth_smooth_loss > 0:
             # a dedicated patch batch with the same perturbed features when
             # the main batch is not patch-sampled
-            ret_smooth = (ret if cfg.use_patch_sampling else render_at(
-                feats, target["camera"], target, src, src_cams,
-                draws["sel_patch"], cfg.w, generator, unit=patch_unit))
+            if cfg.use_patch_sampling:
+                ret_smooth = ret
+            else:
+                with span("attack.render"):
+                    ret_smooth = render_at(
+                        feats, target["camera"], target, src, src_cams,
+                        draws["sel_patch"], cfg.w, generator,
+                        unit=patch_unit)
             terms["depth_smooth"] = cfg.depth_smooth_loss * both_levels(
                 lambda o: L.depth_smooth_loss(o["depth"], cfg.patch_size),
                 ret_smooth)
         if cfg.camera_consistency_loss > 0:
             terms["camera_cons"] = cfg.camera_consistency_loss * \
                 camera_consistency(ret, target, src, src_cams, draws)
-        return terms
+        return terms, sum(terms.values())
 
     def draw(generator, device, n_src, sel, sel_patch, depth_src_id,
              camera_src_id, sel_half):
@@ -489,12 +510,34 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
     def step(state, target, src, generator=None, sel=None, sel_patch=None,
              pc_order=None, depth_src_id=None, camera_src_id=None,
              sel_half=None):
-        device = src["rgbs"].device
-        draws = draw(generator, device, src["rgbs"].shape[0], sel, sel_patch,
-                     depth_src_id, camera_src_id, sel_half)
+        with span("attack.step", counters=True):
+            with span("attack.draw"):
+                draws = draw(generator, src["rgbs"].device,
+                             src["rgbs"].shape[0], sel, sel_patch,
+                             depth_src_id, camera_src_id, sel_half)
+            return step_on(state, target, src, generator, draws, pc_order)
+
+    def step_on(state, target, src, generator, draws, pc_order):
         names = ("delta", "rot", "trans") if cfg.perturb_camera else ("delta",)
         params = [state[n].detach().requires_grad_(True) for n in names]
         live = dict(state, **dict(zip(names, params)))
+        with _frozen(modules), torch.enable_grad():
+            terms, loss = compute_losses(live["delta"], live["rot"],
+                                         live["trans"], target, src, draws,
+                                         generator)
+            with span("attack.backward"):
+                grads = gradients(terms, loss, params, pc_order, generator)
+        if cfg.perturb_camera_no_opt:
+            grads = grads[:1] + [torch.zeros_like(g) for g in grads[1:]]
+        with span("attack.update"):
+            new = update(state, names, params, grads, src)
+        aux = {"loss": loss.detach(),
+               **{k: t.detach() for k, t in terms.items()}}
+        return new, aux
+
+    def gradients(terms, loss, params, pc_order, generator):
+        """The ascent gradients of ``params``: of the summed loss, or
+        through PCGrad's surgery; summed over a split's ranks."""
         def grads_of(out, retain=False):
             """d out / d params, zeros where a parameter is unused."""
             gs = torch.autograd.grad(out, params, retain_graph=retain,
@@ -502,32 +545,29 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
             return [torch.zeros_like(p) if g is None else g
                     for g, p in zip(gs, params)]
 
-        with _frozen(modules), torch.enable_grad():
-            terms = compute_losses(live["delta"], live["rot"], live["trans"],
-                                   target, src, draws, generator)
-            loss = sum(terms.values())
-            if cfg.use_pcgrad:
-                # one backward per loss term over the shared graph: surgery
-                # on delta's gradients, the sum for the camera parameters;
-                # a split sums each term's gradients over the ranks first
-                per_loss = [grads_of(terms[n], retain=True)
-                            for n in loss_names]
-                if split is not None:
-                    flat = split.all_reduce([g for gs in per_loss for g in gs])
-                    per_loss = [flat[i:i + len(params)]
-                                for i in range(0, len(flat), len(params))]
-                grads = [pcgrad_combine(
-                    torch.stack([gs[0] for gs in per_loss]),
-                    major_idx=major_idx, order=pc_order, generator=generator)]
-                grads += [sum(gs[i] for gs in per_loss)
-                          for i in range(1, len(params))]
-            else:
-                grads = grads_of(loss)
-                if split is not None:
-                    grads = split.all_reduce(grads)
-        if cfg.perturb_camera_no_opt:
-            grads = grads[:1] + [torch.zeros_like(g) for g in grads[1:]]
+        if cfg.use_pcgrad:
+            # one backward per loss term over the shared graph: surgery
+            # on delta's gradients, the sum for the camera parameters;
+            # a split sums each term's gradients over the ranks first
+            per_loss = [grads_of(terms[n], retain=True)
+                        for n in loss_names]
+            if split is not None:
+                flat = split.all_reduce([g for gs in per_loss for g in gs])
+                per_loss = [flat[i:i + len(params)]
+                            for i in range(0, len(flat), len(params))]
+            grads = [pcgrad_combine(
+                torch.stack([gs[0] for gs in per_loss]),
+                major_idx=major_idx, order=pc_order, generator=generator)]
+            grads += [sum(gs[i] for gs in per_loss)
+                      for i in range(1, len(params))]
+        else:
+            grads = grads_of(loss)
+            if split is not None:
+                grads = split.all_reduce(grads)
+        return grads
 
+    def update(state, names, params, grads, src):
+        """Adam or the sign step, the projection, the camera clamps."""
         new = dict(state, step=state["step"] + 1)
         for name, p, g in zip(names, params, grads):
             p = p.detach()
@@ -545,8 +585,6 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
             new["rot"] = clamp(new["rot"], -cfg.rot_eps_rad, cfg.rot_eps_rad)
             new["trans"] = clamp(new["trans"], -cfg.trans_epsilon,
                                  cfg.trans_epsilon)
-        aux = {"loss": loss.detach(),
-               **{k: t.detach() for k, t in terms.items()}}
-        return new, aux
+        return new
 
     return step

@@ -100,6 +100,7 @@ from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
 from nerfool_tpu_torch.utils.cameras import get_rays, transform_src_cameras
 from nerfool_tpu_torch.utils.logging import save_run_config
+from nerfool_tpu_torch.utils.profiling import span
 from nerfool_tpu_torch.utils.vis import colorize_np, to8b, write_png
 
 
@@ -536,6 +537,10 @@ class Evaluator:
         """Whole-frame render of one test view from its source views, whose
         features come from ``src + delta`` when a perturbation is given (the
         RGB taps stay clean, as in the attack step)."""
+        with span("eval.render_view", counters=True):
+            return self._render_view(data, src, delta, src_cameras)
+
+    def _render_view(self, data, src, delta, src_cameras):
         args = self.args
         if src_cameras is None:
             src_cameras = src["cameras"]
@@ -550,10 +555,11 @@ class Evaluator:
             "depth_range": self._tensor(data["depth_range"]).reshape(1, 2),
             "camera": cam_t[None],
         }
-        feats = self.bundle.extract_features(
-            src["rgbs"] if delta is None else src["rgbs"] + delta)
-        feats_clean = (self.bundle.extract_features(src["rgbs"])
-                       if self.render_cfg.hybrid else None)
+        with span("eval.features"):
+            feats = self.bundle.extract_features(
+                src["rgbs"] if delta is None else src["rgbs"] + delta)
+            feats_clean = (self.bundle.extract_features(src["rgbs"])
+                           if self.render_cfg.hybrid else None)
         rcfg = self.view_render_cfg(int(src_cameras.shape[0]))
         if rcfg.bspg_specs is not None and self._bspg_hw != (h, w):
             rcfg = self._per_tap(rcfg, f"the BSPG plan covers "

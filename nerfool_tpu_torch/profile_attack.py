@@ -15,7 +15,11 @@ iterations of the route the flags name run under ``torch.profiler`` (CPU and
 CUDA activities). Printed: the card's name and power limit, the unprofiled ms
 per iteration and peak device memory of every timed run, and the profiled
 window's device time by kernel and by PyTorch operator, with the share of the
-window's wall time the device was busy. Last, the whole-frame render of the
+window's wall time the device was busy (the union of the kernels' intervals),
+then the port's spans (``utils/profiling.py``): for each span name its
+count, host ms, stream ms, allocator and kernel-launch changes, and the
+device-idle ms whose gap began while that span was the innermost one open on
+the host. Last, the whole-frame render of the
 first test view from the attacked sources, on the route the flags name
 (``--gnt_fused_attn``, ``--gnt_fused_vt``, ``--use_bspg``: per tap by
 default, ``--use_bspg True`` plans BSPG on the host first):
@@ -30,6 +34,7 @@ import time
 import torch
 
 from nerfool_tpu_torch.config import port_parser
+from nerfool_tpu_torch.utils import profiling
 
 WARMUP_ITERS, TIMED_ITERS, PROFILE_ITERS, TOP = 2, 10, 3, 25
 
@@ -59,12 +64,42 @@ def _timed(ev, data):
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def print_spans(records, busy, per):
+    """The span table of ``records`` against the merged device intervals
+    ``busy``, per ``per`` units of work."""
+    idle = profiling.idle_by_span(busy, records)
+    rows = {}
+    for r in records:
+        row = rows.setdefault(r.name, {"count": 0, "host": 0.0,
+                                       "stream": 0.0, "counters": {}})
+        row["count"] += 1
+        row["host"] += r.host_ms
+        row["stream"] += r.stream_ms or 0.0
+        for k, v in (r.counters or {}).items():
+            row["counters"][k] = row["counters"].get(k, 0) + v
+    print(f"-- spans, per {'iteration' if per > 1 else 'frame'} (idle: "
+          f"device-idle ms whose gap began in the span, innermost)")
+    print(f"{'count':>8} {'host ms':>10} {'stream ms':>10} {'allocs':>8} "
+          f"{'frees':>8} {'retries':>7} {'launches':>8} {'idle ms':>9}  span")
+    for name, row in sorted(rows.items(), key=lambda kv: -kv[1]["host"]):
+        c = row["counters"]
+        cell = lambda k: f"{c[k] / per:.1f}" if k in c else "-"
+        print(f"{row['count'] / per:8.1f} {row['host'] / per:10.3f} "
+              f"{row['stream'] / per:10.3f} {cell('num_device_alloc'):>8} "
+              f"{cell('num_device_free'):>8} "
+              f"{cell('num_alloc_retries'):>7} {cell('launches'):>8} "
+              f"{idle.get(name, 0) / 1e6 / per:9.3f}  {name}")
+    print(f"{'':>66}{idle.get(None, 0) / 1e6 / per:9.3f}  (no span open)")
+
+
 def profile_device(fn, label, per):
     """Run ``fn`` under the profiler and print its device time by kernel and
-    by operator, per ``per`` units of work. Returns (fn's result, tables)."""
+    by operator, and the spans it recorded, per ``per`` units of work.
+    Returns (fn's result, tables)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    profiling.take_spans()  # spans of earlier profiled work
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         out = fn()
@@ -78,9 +113,13 @@ def profile_device(fn, label, per):
                        if (e.device_type == on_device) == want_kernels),
                       reverse=True)
         tables[title] = [r for r in rows if r[0] > 0]
-    busy = sum(r[0] for r in tables["kernel"])
+    summed = sum(r[0] for r in tables["kernel"])
+    busy = profiling.merged(
+        (s, e) for _, s, e in profiling.device_intervals(prof))
+    busy_ms = sum(e - s for s, e in busy) / 1e6
     print(f"profiled window, {label}: wall {wall_ms:.1f} ms, device kernel "
-          f"time {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of wall)")
+          f"time {summed:.1f} ms summed, busy {busy_ms:.1f} ms as their "
+          f"union ({100 * busy_ms / wall_ms:.1f}% of wall)")
     # kernels: every device kernel once; operators: the same device time
     # attributed to the PyTorch operator that launched it (hand-written
     # kernels launched through ctypes appear under kernels only)
@@ -89,8 +128,9 @@ def profile_device(fn, label, per):
         print(f"{'ms':>10} {'share':>7} {'calls':>10}  {title}, per "
               f"{'iteration' if per > 1 else 'frame'}")
         for dev_ms, count, key in rows[:TOP]:
-            print(f"{dev_ms / per:10.3f} {100 * dev_ms / busy:6.1f}% "
+            print(f"{dev_ms / per:10.3f} {100 * dev_ms / summed:6.1f}% "
                   f"{count / per:10.1f}  {key[:90]}")
+    print_spans(profiling.take_spans(), busy, per)
     return out, tables
 
 

@@ -29,6 +29,7 @@ from nerfool_tpu_torch.render.render_rays import (
     noise_draws,
     render_rays,
 )
+from nerfool_tpu_torch.utils.profiling import span
 
 _said_chunks = set()  # (chunk_size, bh, bw) already rounded down aloud
 
@@ -110,33 +111,44 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
             batch = dict(ray_batch)
             batch["ray_o"] = ray_o[i:i + chunk_size]
             batch["ray_d"] = ray_d[i:i + chunk_size]
-            chunks.append(render_rays(nets, batch, featmaps, cfg, src_rgbs,
-                                      src_cameras, tables=tables,
-                                      featmaps_clean=featmaps_clean,
-                                      generator=generator,
-                                      noise=noise.get(i)))
-        return {level: None if chunks[0][level] is None else {
-            k: torch.cat([c[level][k] for c in chunks], dim=0)
-            for k in chunks[0][level]}
-            for level in ("outputs_coarse", "outputs_fine")}
+            with span("render.chunk"):
+                chunks.append(render_rays(nets, batch, featmaps, cfg,
+                                          src_rgbs, src_cameras,
+                                          tables=tables,
+                                          featmaps_clean=featmaps_clean,
+                                          generator=generator,
+                                          noise=noise.get(i)))
+        return chunks
 
+    # a split concatenates each rank's chunks before the gather
     if split is None:
-        flat = render_rows(slice(0, n))
+        chunks = render_rows(slice(0, n))
     else:
-        flat = split.render(render_rows, n, chunk_size)
-
-    ret = {}
-    for level, outs in flat.items():
-        if outs is None:
-            ret[level] = None
-            continue
-        imgs = {}
-        for k, x in outs.items():
-            if inv is not None:
-                x = x[inv]  # block-major -> raster
-            imgs[k] = x.reshape((hs, ws) + x.shape[1:])
-        if cfg.backbone == "ibrnet" and level == "outputs_coarse":
-            imgs["rgb"] = torch.where(imgs["mask"][..., None], imgs["rgb"],
-                                      torch.ones_like(imgs["rgb"]))
-        ret[level] = imgs
+        chunks = [split.render(lambda rows: _cat(render_rows(rows)), n,
+                               chunk_size)]
+    with span("render.assemble"):
+        flat = chunks[0] if len(chunks) == 1 else _cat(chunks)
+        ret = {}
+        for level, outs in flat.items():
+            if outs is None:
+                ret[level] = None
+                continue
+            imgs = {}
+            for k, x in outs.items():
+                if inv is not None:
+                    x = x[inv]  # block-major -> raster
+                imgs[k] = x.reshape((hs, ws) + x.shape[1:])
+            if cfg.backbone == "ibrnet" and level == "outputs_coarse":
+                imgs["rgb"] = torch.where(imgs["mask"][..., None],
+                                          imgs["rgb"],
+                                          torch.ones_like(imgs["rgb"]))
+            ret[level] = imgs
     return ret
+
+
+def _cat(chunks):
+    """``render_rays`` outputs of consecutive chunks, concatenated."""
+    return {level: None if chunks[0][level] is None else {
+        k: torch.cat([c[level][k] for c in chunks], dim=0)
+        for k in chunks[0][level]}
+        for level in ("outputs_coarse", "outputs_fine")}

@@ -45,6 +45,12 @@ from nerfool_tpu_torch.render.sampling import (
     sample_along_camera_ray,
     sample_fine_zvals,
 )
+from nerfool_tpu_torch.utils.profiling import span
+
+# span names by level (0 coarse, 1 fine)
+GATHER = ("render.gather.coarse", "render.gather.fine")
+AGGREGATE = ("render.aggregate.coarse", "render.aggregate.fine")
+COMPOSITE = ("render.composite.coarse", "render.composite.fine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +133,13 @@ def _shade(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
     stays f64).
     ``merged``: the chain's ``[V, R, S, 3 + c + 5]`` input already written
     by the caller (BSPG), ``rgb_feat`` a view of it."""
+    with span(AGGREGATE[level]):
+        return _aggregate(cfg, nets, level, rgb_feat, ray_diff, mask, pts,
+                          ray_d, merged)
+
+
+def _aggregate(cfg, nets, level, rgb_feat, ray_diff, mask, pts, ray_d,
+               merged):
     dt = cfg.dtype
     if dt != torch.float32:
         rgb_feat, ray_diff, mask = (rgb_feat.to(dt), ray_diff.to(dt),
@@ -206,10 +219,12 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
     cams = src_cameras.detach() if cfg.stop_camera_grad else src_cameras
 
     def shade(pts_l, li, feats):
-        rgb, feat, ray_diff, mask = epipolar_gather_components(
-            pts_l, cam, src_rgbs, cams, feats[li])
-        raw = _shade(cfg, nets, li, torch.cat([rgb, feat], dim=-1), ray_diff,
-                     mask, pts_l, ray_batch["ray_d"])
+        with span(GATHER[li]):
+            rgb, feat, ray_diff, mask = epipolar_gather_components(
+                pts_l, cam, src_rgbs, cams, feats[li])
+            rgb_feat = torch.cat([rgb, feat], dim=-1)
+        raw = _shade(cfg, nets, li, rgb_feat, ray_diff, mask, pts_l,
+                     ray_batch["ray_d"])
         return raw, torch.sum(mask[..., 0], dim=0) > 1
 
     def run_level(pts_l, z_l, li):
@@ -222,15 +237,17 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
                     (raw_clean if cfg.use_clean_density else raw)[..., 3:4]],
                     dim=-1)
             else:  # the attacked depth either way
-                out = _finalize(cfg, raw, z_l, pixel_mask)
-                clean = _finalize(cfg, raw_clean, z_l, pixel_mask)
+                with span(COMPOSITE[li]):
+                    out = _finalize(cfg, raw, z_l, pixel_mask)
+                    clean = _finalize(cfg, raw_clean, z_l, pixel_mask)
                 if cfg.use_clean_color:
                     out["rgb"] = clean["rgb"]
                 if cfg.use_clean_density:
                     out["weights"] = clean["weights"]
                 return out
-        return _finalize(cfg, raw, z_l, pixel_mask,
-                         _noise(cfg, noise, generator, li, raw))
+        with span(COMPOSITE[li]):
+            return _finalize(cfg, raw, z_l, pixel_mask,
+                             _noise(cfg, noise, generator, li, raw))
 
     return _two_levels(cfg, run_level, pts, z_vals, ray_batch["ray_o"],
                        ray_batch["ray_d"], generator, samples[1])
@@ -269,11 +286,14 @@ def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,
     coarse = run_level(pts, z_vals, 0)
     ret = {"outputs_coarse": coarse, "outputs_fine": None}
     if cfg.n_importance > 0:
-        z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
-                                  cfg.n_importance,
-                                  inv_uniform=cfg.inv_uniform, det=cfg.det,
-                                  generator=generator, u=u_fine)
-        pts_fine = z_all[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
+        with span("render.fine_sampler"):
+            z_all = sample_fine_zvals(z_vals, coarse["weights"].detach(),
+                                      cfg.n_importance,
+                                      inv_uniform=cfg.inv_uniform,
+                                      det=cfg.det, generator=generator,
+                                      u=u_fine)
+            pts_fine = (z_all[..., None] * ray_d[:, None, :]
+                        + ray_o[:, None, :])
         ret["outputs_fine"] = run_level(pts_fine, z_all, 1)
     return ret
 
@@ -330,16 +350,18 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals,
     slots_f = build_block_slots(pa, pb, spec_f)
     slots_r = build_block_slots(pa, pb, spec_r)
     c_feat = tables["feat"][0].shape[-1] // (spec_f.p + 1) ** 2
+    ci = 3 + c_feat
+    chain = _chain_route(cfg, tables["rgb"].dtype)
 
-    def run_level(pts_l, z_l, li):
+    def select(pts_l, li):
+        """(the aggregator's [V, R, S, 3 + c (+ 5 for the chain)] input,
+        ray differences, mask) of the level's points."""
         s = pts_l.shape[1]
         flat = pts_l.reshape(-1, 3)
         px, py, front = project_points_planes(flat, src_cameras)
         gxb = (2.0 * px / (w - 1.0) - 1.0).reshape(v, b, npb, s)
         gyb = (2.0 * py / (h - 1.0) - 1.0).reshape(v, b, npb, s)
         dt = tables["rgb"].dtype
-        chain = _chain_route(cfg, dt)
-        ci = 3 + c_feat
         buf = torch.empty((v, r, s, ci + (5 if chain else 0)), dtype=dt,
                           device=flat.device)
         select_block_samples(tables["rgb"], slots_r, gxb, gyb, spec_r, 3,
@@ -353,11 +375,17 @@ def _render_rays_bspg(nets, ray_batch, cfg, src_cameras, tables, pts, z_vals,
         if chain:
             buf[..., ci:ci + 4] = ray_diff
             buf[..., ci + 4:] = mask
+        return buf, ray_diff, mask
+
+    def run_level(pts_l, z_l, li):
+        with span(GATHER[li]):
+            buf, ray_diff, mask = select(pts_l, li)
         raw = _shade(cfg, nets, li, buf[..., :ci], ray_diff, mask, pts_l,
                      ray_d, buf if chain else None)
         pixel_mask = torch.sum(mask[..., 0], dim=0) > 1
-        return _finalize(cfg, raw, z_l, pixel_mask,
-                         _noise(cfg, noise, generator, li, raw))
+        with span(COMPOSITE[li]):
+            return _finalize(cfg, raw, z_l, pixel_mask,
+                             _noise(cfg, noise, generator, li, raw))
 
     return _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,
                        u_fine)

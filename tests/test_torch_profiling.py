@@ -1,9 +1,8 @@
 """The port's ``utils/profiling.py`` against the JAX package's: the
-throughput meter on the same steps under one patched clock, the memory
-statistics' keys on a stand-in card for each package, and the trace file.
+memory statistics' keys on a stand-in card for each package, and the trace
+file (the spans: ``test_torch_spans.py``).
 """
 import json
-import time
 import types
 
 import jax
@@ -15,36 +14,6 @@ from nerfool_tpu.utils import profiling as j_prof
 from nerfool_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
-
-
-def _clock(monkeypatch):
-    """``time.perf_counter`` advancing 0.25 s from 100 s at every read."""
-    ticks = iter(100.0 + 0.25 * i for i in range(1000))
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-
-
-@pytest.mark.parametrize("warmup", [0, 1, 3])
-def test_throughput_meter_matches_jax(monkeypatch, warmup):
-    """The same steps give the same rates: each meter reads the clock at
-    its warm-up step and at every ``rate``, so one patched clock read in
-    the same order by both gives both the same times."""
-    items = [7, 100, 3, 0, 64, 5]
-    for cls in (j_prof.ThroughputMeter, profiling.ThroughputMeter):
-        _clock(monkeypatch)
-        m = cls(warmup=warmup)
-        rates = [m.rate]
-        for n in items:
-            m.step(n)
-            rates.append(m.rate)
-        if cls is j_prof.ThroughputMeter:
-            ref = (rates, m.count, m.items, m.t0)
-        else:
-            assert (rates, m.count, m.items, m.t0) == ref
-    if warmup:  # the warm-up step's items are not counted
-        assert ref[2] == sum(items[warmup:])
-        assert ref[0][-1] > 0
-    else:  # a meter without a warm-up step never starts its clock
-        assert ref[0] == [0.0] * (len(items) + 1)
 
 
 def test_device_memory_stats_keys_match_jax(monkeypatch):
