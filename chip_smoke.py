@@ -177,11 +177,25 @@ Phases, each printing a line; any failure raises and exits non-zero:
      of ``images_4``'s size (756x1008 RGB, rows in all five filters); (d) ``python -m nerfool_tpu_torch.sweep`` over
      the synthetic scene (IBRNet, 2 attack iterations on 2 views): the
      report's keys, finite rows, s/scene
+ 20. K5 (``csrc/conv2d.cu``, the feature net's convolutions) at the
+     attack's shapes, 10 views at 756x1008: every distinct convolution's
+     forward and input gradient against float64 beside the library's (cuDNN,
+     f32, TF32 off), their ms in turns with the library's and the plain
+     version's, summed beside the bound; the whole feature net (IBRNet's and
+     GNT's heads) against float64 through both routes, its 35 + 35 launches
+     and its ms through both routes in turns. Alone: ``python3
+     chip_smoke.py --conv-only`` (~2 min)
+K5's launches are held on the main paths' own runs above, where each is
+counted: 35 forward and 35 input-gradient launches an attack iteration or
+purification step, 35 forward a whole frame, 35 forward and 34 input
+gradient a training step (the images want no gradient), none with bf16
+features.
 Then the card line, a JSON line of kernel results (for each kernel its
 launches on the main paths, its error and time against its plain version,
 and the least time the card could take for the same work), and as the last
 line ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import os
@@ -1122,16 +1136,18 @@ def run_attack(name, ev, data, card):
     src_rgbs = ev._make_src(data)["rgbs"]
     delta0 = init_delta(ev.generator, src_rgbs, eps)
     torch.cuda.reset_peak_memory_stats()
-    ra.ray_attention_fwd.launches = ra.ray_attention_bwd.launches = 0
+    zero_kernel_counts()
     ev.args.adv_iters = ATTACK_ITERS
     delta, src, _ = ev.attack_view_specific(data, delta=delta0)
     run = ev.last_attack
+    k5 = expect_k5(name, kernel_counts(), K5_CONVS * ATTACK_ITERS,
+                   K5_CONVS * ATTACK_ITERS)
     stats = dict(
         ms_per_iter=run["seconds"] / ATTACK_ITERS * 1e3,
         warmup_ms_per_iter=warm["seconds"] / ATTACK_WARMUP * 1e3,
         losses=[float(x) for x in run["losses"]],
         fwd_launches=ra.ray_attention_fwd.launches,
-        bwd_launches=ra.ray_attention_bwd.launches,
+        bwd_launches=ra.ray_attention_bwd.launches, k5_launches=k5,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         **check_delta(name, delta, delta0, src["rgbs"], eps))
     if not all(map(math.isfinite, stats["losses"])) or len(
@@ -1146,8 +1162,8 @@ def run_attack(name, ev, data, card):
         f"src + delta in [{stats['min_image']:.4f}, "
         f"{stats['max_image']:.4f}], moved {stats['moved']:.3g}; "
         f"ray_attention launches forward {stats['fwd_launches']}, backward "
-        f"{stats['bwd_launches']}; peak device memory "
-        f"{stats['peak_gib']:.2f} GiB; {card}")
+        f"{stats['bwd_launches']}; K5 launches forward, input gradient {k5}; "
+        f"peak device memory {stats['peak_gib']:.2f} GiB; {card}")
     return delta, src, stats
 
 
@@ -1190,7 +1206,9 @@ def attacked_render(name, ev, data, src, delta, card):
                  k1_launches=bspg_select.select_taps.launches,
                  k3_fwd_launches=ra.ray_attention_fwd.launches,
                  k3_bwd_launches=ra.ray_attention_bwd.launches,
-                 k4_launches=va.view_attention.launches)
+                 k4_launches=va.view_attention.launches,
+                 k5_launches=expect_k5(f"{name} attacked render",
+                                       kernel_counts(), K5_CONVS, 0))
     if getattr(ev.args, "gnt_fused_attn", "auto") == "on":
         # the same render through the unfused module path (launches read
         # above: this one must add none of the ray attention's)
@@ -1218,7 +1236,8 @@ def attacked_render(name, ev, data, src, delta, card):
         f"clean {clean:.4f} dB, attacked {stats['attacked_psnr']:.4f} dB; "
         f"launches bspg_select {stats['k1_launches']}, ray_attention forward "
         f"{stats['k3_fwd_launches']}, backward {stats['k3_bwd_launches']}, "
-        f"view_attention {stats['k4_launches']}; {card}")
+        f"view_attention {stats['k4_launches']}, conv2d forward, input "
+        f"gradient {stats['k5_launches']}; {card}")
     return stats
 
 
@@ -1488,7 +1507,7 @@ def check_view_attention(card, views, samples, render_rays, attack_rays):
 
 def kernel_counts():
     """The launch counts of every wrapper, by kernel name."""
-    from nerfool_tpu_torch.ops import (bspg_select, chain,
+    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d,
                                        ray_attention as ra,
                                        view_attention as va)
 
@@ -1497,19 +1516,41 @@ def kernel_counts():
             "ray_attention_fwd": ra.ray_attention_fwd.launches,
             "ray_attention_bwd": ra.ray_attention_bwd.launches,
             "ray_attention_bwd_dw": ra.ray_attention_bwd.dw_launches,
-            "view_attention": va.view_attention.launches}
+            "view_attention": va.view_attention.launches,
+            "conv2d_forward": conv2d.conv2d_forward.launches,
+            "conv2d_input_grad": conv2d.conv2d_input_grad.launches}
 
 
 def zero_kernel_counts():
-    from nerfool_tpu_torch.ops import (bspg_select, chain,
+    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d,
                                        ray_attention as ra,
                                        view_attention as va)
 
     for fn in (bspg_select.select_taps, chain.gnt_chain,
                ra.ray_attention_fwd, ra.ray_attention_bwd,
-               va.view_attention):
+               va.view_attention, conv2d.conv2d_forward,
+               conv2d.conv2d_input_grad):
         fn.launches = 0
     ra.ray_attention_bwd.dw_launches = 0
+
+
+# K5's launches in one pass of the ResUNet: one per convolution, forward and
+# input gradient. A training step asks no input gradient of the stem, whose
+# input (the images) needs none: K5_CONVS - 1 there
+K5_CONVS = 35
+
+
+def expect_k5(path, counts, forward, input_grad):
+    """K5's [forward, input-gradient] launches in ``counts`` (a
+    ``kernel_counts`` dict) on ``path``; raises unless they are ``forward``
+    and ``input_grad`` (None: at least one)."""
+    got = [counts["conv2d_forward"], counts["conv2d_input_grad"]]
+    if not all(g > 0 if w is None else g == w
+               for g, w in zip(got, (forward, input_grad))):
+        raise AssertionError(f"{path}: K5 launches forward {got[0]}, input "
+                             f"gradient {got[1]}; expected {forward} and "
+                             f"{input_grad} (None: at least one)")
+    return got
 
 
 def timed_render(ev, data, src, delta, cams):
@@ -1623,15 +1664,20 @@ def universal_slice(uev, card, depth, chunks, n_tables):
         f"rays/s) with the view-attention kernel, outputs finite, coarse "
         f"PSNR {stats['attacked_psnr']:.4f} dB; launches in the render "
         f"{render}; {card}")
-    # the attack freezes the weights: no backward with the weight gradients
+    # the attack freezes the weights: no backward with the weight gradients.
+    # K5: the clean source views' features once (the pseudo ground truth),
+    # then one forward and input gradient an iteration
     want_attack = dict(bspg_select=0, gnt_chain=0, view_attention=0,
                        ray_attention_fwd=2 * ATTACK_ITERS * depth,
                        ray_attention_bwd=ATTACK_ITERS * depth,
-                       ray_attention_bwd_dw=0)
+                       ray_attention_bwd_dw=0,
+                       conv2d_forward=K5_CONVS * (ATTACK_ITERS + 1),
+                       conv2d_input_grad=K5_CONVS * ATTACK_ITERS)
     want_render = dict(bspg_select=n_tables * chunks, gnt_chain=0,
                        view_attention=chunks * depth,
                        ray_attention_fwd=chunks * depth, ray_attention_bwd=0,
-                       ray_attention_bwd_dw=0)
+                       ray_attention_bwd_dw=0, conv2d_forward=K5_CONVS,
+                       conv2d_input_grad=0)
     if attack != want_attack or render != want_render:
         raise AssertionError(f"universal launches: attack {attack} (expected "
                              f"{want_attack}), render {render} (expected "
@@ -1865,6 +1911,9 @@ def defended_attack(ibr_bundle, gnt_bundle, card):
         f"{counts['ray_attention_fwd']}, backward "
         f"{counts['ray_attention_bwd']} (expected {exp} each: "
         f"{depth} per iteration and per purification step); {card}")
+    expect_k5("defended GNT attack", counts,
+              K5_CONVS * (DEF_ITERS + PURIF_ITERS),
+              K5_CONVS * (DEF_ITERS + PURIF_ITERS))
     if (counts["ray_attention_fwd"], counts["ray_attention_bwd"]) != (
             exp, exp) or dev.last_defenses != ["purification",
                                                "random_noise"] or not (
@@ -1881,6 +1930,7 @@ def defended_attack(ibr_bundle, gnt_bundle, card):
         zero_kernel_counts()
         ret, seconds = timed_render(hev, data, src, delta, cams)
         counts = kernel_counts()
+        expect_k5(f"hybrid frame --{mode}", counts, None, 0)
         finite = all(bool(torch.isfinite(ret[k]).all())
                      for k in ("rgb", "depth", "weights"))
         exp = chunks * depth * 2  # the coarse level's two branches
@@ -2038,11 +2088,16 @@ def feature_dtype_turns(name, evs, data, card):
         counts = kernel_counts()
         turns.setdefault(key, []).append(
             ev.last_attack["seconds"] / DEF_ITERS * 1e3)
-        for k in ("ray_attention_fwd", "ray_attention_bwd"):
+        for k in ("ray_attention_fwd", "ray_attention_bwd",
+                  "conv2d_forward", "conv2d_input_grad"):
             launches.setdefault(key, {}).setdefault(k, 0)
             launches[key][k] += counts[k]
         if not bool(torch.isfinite(ev.last_attack["losses"]).all()):
             raise AssertionError(f"{name} {key}: non-finite losses")
+    # bf16 features keep the library's convolutions
+    for key, want in (("f32", 2 * DEF_ITERS * K5_CONVS), ("bf16", 0)):
+        expect_k5(f"{name} attack, {key} features", launches[key], want,
+                  want)
     bf = evs["bf16"]
     delta = bf.last_attack["state"]["delta"]
     src = bf._make_src(data)
@@ -2052,7 +2107,8 @@ def feature_dtype_turns(name, evs, data, card):
     log("evaluator outputs", f"{name} attack, ms/iteration in turns: f32 "
         "features " + ", ".join(f"{x:.2f}" for x in turns["f32"])
         + "; bf16 features " + ", ".join(f"{x:.2f}" for x in turns["bf16"])
-        + f"; K3 launches {launches}; bf16 delta inside its bounds {bounds}"
+        + f"; K3 and K5 launches {launches}; bf16 delta inside its bounds "
+        f"{bounds}"
         f"; {card}")
     return dict(ms_per_iter=turns, launches=launches, delta=bounds)
 
@@ -2332,6 +2388,8 @@ def gnt_train_step_check(trainer, card):
         aux, grads = step.loss_and_grads(batch, draws)
         torch.cuda.synchronize()
         launches[fused] = kernel_counts()
+        expect_k5(f"GNT training step, fused {fused}", launches[fused],
+                  K5_CONVS, K5_CONVS - 1)
         by_id = dict(zip(map(id, step.params), grads))
         outs[fused] = (float(aux["loss"]), [by_id[id(p)] for _, p in named],
                        [lr[id(p)] for _, p in named])
@@ -2424,8 +2482,15 @@ def training(card):
         args = parse_args(argv)
         start = create_model(args=args, seed=args.seed)
         trainer, stats = run_training("IBRNet training", argv, card)
-        if any(stats["launches"].values()):
-            raise AssertionError("IBRNet training launched a kernel")
+        if any(v for k, v in stats["launches"].items()
+               if not k.startswith("conv2d")):
+            raise AssertionError("IBRNet training launched a kernel other "
+                                 "than K5")
+        # a forward a step, and one more for the panels' render
+        stats["k5_launches"] = expect_k5("IBRNet training",
+                                         stats["launches"],
+                                         K5_CONVS * (n + 1),
+                                         (K5_CONVS - 1) * n)
         stats.update(params_moved(trainer, start))
         path = os.path.join(tmp, "ibrnet", f"model_{n:06d}.pth")
         loaded = create_model(args=args, ckpt_path=path, device="cuda")
@@ -2467,8 +2532,15 @@ def training(card):
                                  "--adv_iters", "3"]
         trainer, stats = run_training("IBRNet adversarial training", argv,
                                       card)
-        if any(stats["launches"].values()):
-            raise AssertionError("IBRNet training launched a kernel")
+        if any(v for k, v in stats["launches"].items()
+               if not k.startswith("conv2d")):
+            raise AssertionError("IBRNet training launched a kernel other "
+                                 "than K5")
+        # each step: the inner attack's iterations, then the step itself
+        inner = trainer.cfg.adv_iters
+        stats["k5_launches"] = expect_k5(
+            "IBRNet adversarial training", stats["launches"],
+            K5_CONVS * (inner + 1) * n, (K5_CONVS * inner + K5_CONVS - 1) * n)
         eps = trainer.cfg.epsilon / 255.0
         delta = trainer.last_aux["delta"]
         src = trainer.last_batch["src_rgbs"]
@@ -2503,6 +2575,8 @@ def training(card):
             raise AssertionError(f"GNT training launches {got}, expected K3 "
                                  f"forward, backward and backward with the "
                                  f"weight gradients {exp} each, no other")
+        stats["k5_launches"] = expect_k5("GNT training", got, K5_CONVS * n,
+                                         (K5_CONVS - 1) * n)
         stats["step_check"] = gnt_train_step_check(trainer, card)
         # the two routes in turns, on the same stream of train views
         stream = iter(Loader(create_training_dataset(
@@ -2957,6 +3031,10 @@ def split_paths(plan, depth, n_rays, chunk, card):
             if (x["ray_attention_fwd"], x["ray_attention_bwd"]) != (exp, exp):
                 raise AssertionError(f"split attack launches {x}, expected "
                                      f"{exp} forward and backward")
+        # every rank holds views: one pass of the feature net a step each
+        for x in launches + [one["launches"]]:
+            expect_k5(f"split {name} attack", x, K5_CONVS * SPLIT_ITERS,
+                      K5_CONVS * SPLIT_ITERS)
         out[key] = dict(res, ms_per_iter=ms,
                         one_ms_per_iter=one["ms_per_iter"],
                         two_rank_factor=factor, views=shares,
@@ -2988,6 +3066,7 @@ def split_paths(plan, depth, n_rays, chunk, card):
             raise AssertionError(f"rank {r['rank']} attacked-frame launches "
                                  f"{got}, expected K3 and K4 {k}, K1 "
                                  f"{groups * k // depth}")
+        expect_k5(f"rank {r['rank']} attacked frame", got, K5_CONVS, 0)
     log("split", f"attacked GNT frame on {SPLIT_WORLD} ranks against one "
         "process: max abs diff " + ", ".join(
             f"{k} {errs[k]:.3g} (tol {TOL_FUSED_RENDER[k]:g})" for k in errs)
@@ -3041,6 +3120,7 @@ def split_paths(plan, depth, n_rays, chunk, card):
         if (x["ray_attention_fwd"], x["ray_attention_bwd"],
                 x["ray_attention_bwd_dw"]) != (exp, exp, exp):
             raise AssertionError(f"split train launches {x}, expected {exp}")
+        expect_k5("split train step", x, K5_CONVS, K5_CONVS - 1)
     out["train"] = dict(loss_rel=res["loss_rel"], worst=worst,
                         share=res["share"], small_l2=res["small_l2"],
                         ms_per_step=[r["train"]["ms_per_step"]
@@ -3228,7 +3308,8 @@ def main():
 
     # 2. build the four kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    build.build("bspg_select", "gnt_chain", "ray_attention", "view_attention")
+    build.build("bspg_select", "gnt_chain", "ray_attention", "view_attention",
+                "conv2d")
     bspg_select.build()
     chain.build()
     ra.build()
@@ -3578,6 +3659,9 @@ def main():
         split["sweep"] = sweep_run(tmp, card)
     split["seconds"] = time.perf_counter() - t19
     log("split, video, sweep", f"phase took {split['seconds']:.1f} s; {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    conv = check_conv2d(card)
     s_att, s_ren, s_tr = (split["attack"]["launches"],
                           split["render"]["launches"],
                           split["train"]["launches"])
@@ -3640,6 +3724,28 @@ def main():
                 "universal_attacked_render": uni_render["view_attention"],
                 "hybrid_renders": sum(h["view_attention"] for h in hybrids),
                 "split_attacked_render": rank_sum(s_ren, "view_attention")}
+    # K5's [forward, input gradient] launches on the main paths' own runs
+    # (phase 20's separate run of the feature net is under "feature_net")
+    k5_of = lambda d: [d["conv2d_forward"], d["conv2d_input_grad"]]
+    k5_sum = lambda ds: [sum(x) for x in zip(*map(k5_of, ds))]
+    dtype_runs = {f"{n}_attack_{dt}_features": k5_of(outputs[f"{n}_attack"][
+        "launches"][dt]) for n in ("ibrnet", "gnt") for dt in ("f32", "bf16")}
+    k5_paths = {"gnt_attack": gnt_attack["k5_launches"],
+                "ibrnet_attack": ibr_attack["k5_launches"],
+                "gnt_attacked_render": gnt_adv["k5_launches"],
+                "ibrnet_attacked_render": ibr_adv["k5_launches"],
+                "universal_attack": k5_of(uni_attack),
+                "universal_attacked_render": k5_of(uni_render),
+                "defended_attack": k5_of(purif),
+                "hybrid_renders": k5_sum(hybrids), **dtype_runs,
+                "ibrnet_train": train["ibrnet"]["k5_launches"],
+                "ibrnet_adv_train": train["ibrnet_adv"]["k5_launches"],
+                "gnt_train": k5_of(gnt_train),
+                "split_attack": k5_sum(s_att),
+                "split_attacked_render": k5_sum(s_ren),
+                "split_train": k5_sum(s_tr),
+                "video": k5_sum(split["video"][n]["launches"]
+                                for n in ("gnt", "ibrnet"))}
     ra_f32 = ra_times["f32"]
     ra_errs = next(r["errs"] for r in ra_rows if r["shape"] == "slice"
                    and r["dtype"] == "f32" and r["cotangent"] == "out+attn0")
@@ -3720,7 +3826,17 @@ def main():
         "ms": va_head["ms"], "plain_ms": va_head["plain_ms"],
         "bound_ms": va_head["bound_ms"], "bound_by": va_head["bound_by"],
         "bound_fma_ms": va_head["bound_fma_ms"],
-        "library_ms": None, "shapes": va_rows}],
+        "library_ms": None, "shapes": va_rows}, {
+        "name": "conv2d", "route": "cuda",
+        "source": "nerfool_tpu_torch/csrc/conv2d.cu", "replaces": None,
+        "launches": sum(map(sum, k5_paths.values())),
+        "launches_by_path": k5_paths,
+        "max_rel_err": max(conv["sums"]["worst_fwd_err"],
+                           conv["sums"]["worst_bwd_err"]),
+        "ms": conv["sums"]["k5_ms"], "plain_ms": conv["sums"]["plain_ms"],
+        "bound_ms": conv["sums"]["bound_both_ms"], "bound_by": "operations",
+        "library_ms": conv["sums"]["library_ms"], "shapes": conv["rows"],
+        "feature_net": conv["feature_net"]}],
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
                    "universal": universal, "small_modes": small_modes,
@@ -3729,6 +3845,278 @@ def main():
         "split_video_sweep": split}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+# ---- phase 20: K5, the feature net's convolutions ----
+
+# the attack's feature net input: ten source views at LLFF's 756x1008
+CONV_VIEWS, CONV_HW = 10, (756, 1008)
+CONV_REPS = 5
+
+
+def conv_images(v, h, w, seed):
+    """Image-like inputs in [0, 1]: smooth colour fields (bicubic from a
+    24x32 draw) with a little pixel noise. :return: [V, H, W, 3]"""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    low = torch.rand(v, 3, 24, 32, device="cuda", generator=gen)
+    x = F.interpolate(low, size=(h, w), mode="bicubic", align_corners=False)
+    x = x + 0.02 * torch.randn(x.shape, device="cuda", generator=gen)
+    return x.clamp(0, 1).permute(0, 2, 3, 1).contiguous()
+
+
+def resunet_convs(net, x):
+    """The distinct convolutions of ``net``'s forward on ``x``: (c_in,
+    c_out, k, stride, pad, bias, h_in, w_in) -> count, the input size before
+    the pad."""
+    import torch
+    from nerfool_tpu_torch.models.layers import Conv2d
+
+    seen = {}
+
+    def hook(mod, inp, _out):
+        _, c, h, w = inp[0].shape
+        key = (c, mod.out_channels, mod.kernel_size[0], mod.stride[0],
+               mod.padding[0], mod.bias is not None, h, w)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for hk in hooks:
+        hk.remove()
+    return seen
+
+
+def conv_flops(v, c, n, k, ho, wo):
+    return 2 * v * ho * wo * n * c * k * k
+
+
+@contextlib.contextmanager
+def library_convs():
+    """The feature net's convolutions through the library's ``F.conv2d``
+    (cuDNN, TF32 off), as before K5, while the block runs."""
+    from nerfool_tpu_torch.ops import conv2d
+
+    takes = conv2d.takes
+    conv2d.takes = lambda x: False
+    try:
+        yield
+    finally:
+        conv2d.takes = takes
+
+
+def feature_net_distances(name, net, x, seed):
+    """The feature net's maps and input gradient (the VJP of a seeded
+    normal cotangent) through K5 and through the library's route, each
+    against the same in float64: the largest deviation as a share of
+    float64's largest entry, and the relative L2. Also the K5 launches of
+    one forward and backward."""
+    import copy
+    import torch
+    from nerfool_tpu_torch.ops import conv2d
+
+    def route(m, xx, cot):
+        xx = xx.detach().requires_grad_(True)
+        coarse, fine = m(xx)
+        maps = coarse if fine is None or fine is coarse else torch.cat(
+            [coarse, fine], dim=-1)
+        g, = torch.autograd.grad(maps, xx, cot)
+        return maps.detach().double().reshape(-1), g.double().reshape(-1)
+
+    with torch.no_grad():
+        c0, f0 = net(x[:1])
+    width = c0.shape[-1] + (0 if f0 is None or f0 is c0 else f0.shape[-1])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn((x.shape[0],) + tuple(c0.shape[1:-1]) + (width,),
+                      device="cuda", generator=gen)
+    net64 = copy.deepcopy(net).double()
+    ref = route(net64, x.double(), cot.double())
+    del net64
+    torch.cuda.empty_cache()
+    before = (conv2d.conv2d_forward.launches,
+              conv2d.conv2d_input_grad.launches)
+    kern = route(net, x, cot)
+    launches = (conv2d.conv2d_forward.launches - before[0],
+                conv2d.conv2d_input_grad.launches - before[1])
+    with library_convs():
+        lib = route(net, x, cot)
+    norm = torch.linalg.norm
+    out = {"launches_forward": launches[0],
+           "launches_input_grad": launches[1]}
+    for i, what in enumerate(("maps", "vjp")):
+        r = ref[i]
+        dev = lambda a: (float((a - r).abs().max() / r.abs().max()),
+                         float(norm(a - r) / norm(r)))
+        out[what] = {"k5_vs_f64": dev(kern[i]), "library_vs_f64": dev(lib[i])}
+    log("K5 feature net", f"{name}: {json.dumps(out)}")
+    return out
+
+
+def feature_net_turns(net, x, seed, reps=3):
+    """ms of the feature net's forward and input gradient (no parameter
+    gradients, as in the attack) through K5 and through the library's
+    route, in turns (K5, library, library, K5)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        c0, f0 = net(x[:1])
+    width = c0.shape[-1] + (0 if f0 is None or f0 is c0 else f0.shape[-1])
+    cot = torch.randn((x.shape[0],) + tuple(c0.shape[1:-1]) + (width,),
+                      device="cuda", generator=gen)
+
+    def step():
+        xx = x.detach().requires_grad_(True)
+        coarse, fine = net(xx)
+        maps = coarse if fine is None or fine is coarse else torch.cat(
+            [coarse, fine], dim=-1)
+        torch.autograd.grad(maps, xx, cot)
+
+    times = {"k5": [], "library": []}
+    for which in ("k5", "library", "library", "k5"):
+        if which == "library":
+            with library_convs():
+                times[which].append(time_ms(step, reps))
+        else:
+            times[which].append(time_ms(step, reps))
+    return times
+
+
+def check_conv2d(card):
+    """Phase 20: K5 (``ops/conv2d.py``) at the attack's shapes, ten views
+    at 756x1008 through IBRNet's ResUNet (coarse and fine heads, 64
+    channels out; GNT's single head differs only in the last two
+    convolutions' width, measured too). Every distinct convolution: the
+    kernel's forward and input gradient against float64, beside the plain
+    version (cuDNN's f32, TF32 off) and the library's own input gradient
+    (``aten::convolution_backward``, what autograd ran before K5); their ms
+    by CUDA events, the kernel's in turns with the library's, summed over
+    the convolutions with their counts, beside the bound (operations as
+    three TF32 products at 495 TFLOP/s). Then the whole feature net's
+    maps and input gradient against float64 through both routes, with the
+    launches of one forward and backward (35 and 35), and its ms through
+    both routes in turns."""
+    import torch
+    from nerfool_tpu_torch.models.bundle import _seeded_init_
+    from nerfool_tpu_torch.models.resunet import ResUNet
+    from nerfool_tpu_torch.ops import conv2d
+
+    t0 = time.perf_counter()
+    conv2d.build()
+    log("K5 build", f"csrc/conv2d.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    v, (h, w) = CONV_VIEWS, CONV_HW
+    x = conv_images(v, h, w, seed=5)
+    nets = {}
+    for name, kw in (("ibrnet", {}), ("gnt", {"single_net": True})):
+        gen = torch.Generator().manual_seed(3)
+        net = ResUNet(32, 32, **kw)
+        _seeded_init_(net, gen)
+        nets[name] = net.cuda()
+    shapes = resunet_convs(nets["ibrnet"], x)
+    for key, count in resunet_convs(nets["gnt"], x).items():
+        if key not in shapes:
+            shapes[key] = 0  # GNT's head only: checked, not in the sums
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    aten_bwd = torch.ops.aten.convolution_backward
+    for (c, n, k, s, pad, has_b, hi, wi), count in sorted(shapes.items()):
+        hp, wp = hi + 2 * pad, wi + 2 * pad
+        ho, wo = (hp - k) // s + 1, (wp - k) // s + 1
+        xp = torch.randn(v, c, hp, wp, device="cuda", generator=gen)
+        bound = 1 / math.sqrt(c * k * k)
+        wt = (torch.rand(n, c, k, k, device="cuda", generator=gen) * 2 - 1) \
+            * bound
+        b = ((torch.rand(n, device="cuda", generator=gen) * 2 - 1) * bound
+             if has_b else None)
+        dy = torch.randn(v, n, ho, wo, device="cuda", generator=gen)
+        fwd = lambda: conv2d.conv2d_forward(xp, wt, b, s)
+        bwd = lambda: conv2d.conv2d_input_grad(dy, wt, hp, wp, s)
+        lib_fwd = lambda: conv2d.conv2d_plain(xp, wt, b, s)
+        lib_bwd = lambda: aten_bwd(dy, xp, wt, None, [s, s], [0, 0], [1, 1],
+                                   False, [0, 0], 1, [True, False, False])[0]
+        plain_bwd = lambda: conv2d.conv2d_input_grad_plain(dy, wt, hp, wp, s)
+        y, gx = fwd(), bwd()
+        torch.cuda.synchronize()
+        y64 = conv2d.conv2d_plain(xp.double(), wt.double(),
+                                  None if b is None else b.double(), s)
+        g64 = conv2d.conv2d_input_grad_plain(dy.double(), wt.double(), hp, wp,
+                                             s)
+        rel = lambda a, r: float((a.double() - r).abs().max()
+                                 / r.abs().max())
+        row = {"c_in": c, "c_out": n, "k": k, "stride": s, "pad": pad,
+               "bias": has_b, "in_hw": [hi, wi], "count": count,
+               "fwd_err": rel(y, y64), "lib_fwd_err": rel(lib_fwd(), y64),
+               "bwd_err": rel(gx, g64), "lib_bwd_err": rel(lib_bwd(), g64),
+               "plain_bwd_err": rel(plain_bwd(), g64)}
+        del y64, g64, y, gx
+        ms = {"fwd": [], "bwd": [], "lib_fwd": [], "lib_bwd": []}
+        for turn in ("k5", "lib", "lib", "k5"):
+            if turn == "k5":
+                ms["fwd"].append(time_ms(fwd, CONV_REPS))
+                ms["bwd"].append(time_ms(bwd, CONV_REPS))
+            else:
+                ms["lib_fwd"].append(time_ms(lib_fwd, CONV_REPS))
+                ms["lib_bwd"].append(time_ms(lib_bwd, CONV_REPS))
+        row.update({f"{k2}_ms": sum(t) / len(t) for k2, t in ms.items()})
+        row["plain_bwd_ms"] = time_ms(plain_bwd, CONV_REPS)
+        flops = conv_flops(v, c, n, k, ho, wo)
+        row["bound_ms"] = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+        rows.append(row)
+        log("K5 conv", json.dumps(row))
+        del xp, wt, b, dy
+        torch.cuda.empty_cache()
+    tot = lambda key: sum(r[key] * r["count"] for r in rows)
+    sums = {key: tot(key) for key in ("fwd_ms", "bwd_ms", "lib_fwd_ms",
+                                       "lib_bwd_ms", "plain_bwd_ms",
+                                       "bound_ms")}
+    sums["convolutions"] = sum(r["count"] for r in rows)
+    sums["bound_both_ms"] = 2 * sums["bound_ms"]
+    sums["k5_ms"] = sums["fwd_ms"] + sums["bwd_ms"]
+    sums["library_ms"] = sums["lib_fwd_ms"] + sums["lib_bwd_ms"]
+    sums["plain_ms"] = sums["lib_fwd_ms"] + sums["plain_bwd_ms"]
+    sums["k5_share_of_bound"] = sums["bound_both_ms"] / sums["k5_ms"]
+    sums["worst_fwd_err"] = max(r["fwd_err"] for r in rows)
+    sums["worst_bwd_err"] = max(r["bwd_err"] for r in rows)
+    sums["worst_lib_fwd_err"] = max(r["lib_fwd_err"] for r in rows)
+    sums["worst_lib_bwd_err"] = max(r["lib_bwd_err"] for r in rows)
+    log("K5 sums", f"{json.dumps(sums)}; {card}")
+    nets_out = {}
+    for name, net in nets.items():
+        d = feature_net_distances(name, net, x, seed=11)
+        d["ms_turns"] = feature_net_turns(net, x, seed=13)
+        log("K5 feature net ms", f"{name}: {json.dumps(d['ms_turns'])}; "
+            f"{card}")
+        nets_out[name] = d
+        torch.cuda.empty_cache()
+    bad = [n for n, d in nets_out.items()
+           if (d["launches_forward"], d["launches_input_grad"]) != (35, 35)]
+    if bad:
+        raise AssertionError(f"K5 launches of one forward and backward are "
+                             f"not 35 and 35: {bad}")
+    if sums["worst_fwd_err"] > 1e-5 or sums["worst_bwd_err"] > 1e-5:
+        raise AssertionError(f"K5 lies farther from float64 than 1e-5 of "
+                             f"the output's scale: {sums}")
+    return {"rows": rows, "sums": sums, "feature_net": nets_out}
+
+
+def conv_alone():
+    """Phase 20 alone: ``python3 chip_smoke.py --conv-only``; prints its
+    readings as one JSON line."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: torch.cuda.is_available() is False")
+    card = card_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}; {card}")
+    out = check_conv2d(card)
+    print(json.dumps({"card": card, "conv2d": out}))
 
 
 def split_alone(root):
@@ -3778,6 +4166,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--split-rank"]:
         split_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                    sys.argv[5])
+    elif sys.argv[1:2] == ["--conv-only"]:
+        conv_alone()
     elif sys.argv[1:2] == ["--split-only"]:
         split_alone(sys.argv[2] if len(sys.argv) > 2 else ROOT)
     else:

@@ -14,17 +14,32 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nerfool_tpu_torch.ops import conv2d
 from nerfool_tpu_torch.utils import numerics
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` applied in its input's dtype: the float32 weight and
     bias are cast to it explicitly (a bf16 input runs a bf16 convolution,
-    as flax's ``nn.Conv(dtype=...)`` does; the parameters stay float32)."""
+    as flax's ``nn.Conv(dtype=...)`` does; the parameters stay float32).
+    The padding is an ``F.pad`` of the input, then the convolution is valid:
+    K5 (``ops/conv2d.py``) for float32 on a card, its plain version on the
+    CPU, the library's for other dtypes (``conv2d.takes``)."""
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        w = self.weight.to(x.dtype)
+        if not conv2d.takes(x):
+            return self._conv_forward(x, w, b)
+        if self.dilation != (1, 1) or self.groups != 1 or (
+                self.stride[0] != self.stride[1]):
+            raise ValueError(f"conv2d takes dilation 1, one group and a "
+                             f"square stride, not {self}")
+        if any(self.padding):
+            mode = ("constant" if self.padding_mode == "zeros"
+                    else self.padding_mode)
+            x = F.pad(x, self._reversed_padding_repeated_twice, mode=mode)
+        return conv2d.convolution(x, w, b, self.stride[0])
 
 
 def conv_reflect(cin, cout, kernel_size, stride=1, padding=None, bias=False):
