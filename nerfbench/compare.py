@@ -9,7 +9,12 @@ between the program's norm and the reference's, over the larger of the
 reference's norm of that leaf and of the median leaf (and, as steadier
 readings, by the median leaf). Leaves whose
 reference gradient is under a thousandth of the median leaf's are left
-out of the change (they move by round-off alone).
+out of the change (they move by round-off alone). Where both sides kept
+the coarse aggregator's output of the first step (``coarse_net``), the
+median and the mean of its absolute differences, sample by sample: the
+same inputs on both sides, ahead of the fine level's resampling, whose
+jumps set the floor of the other numbers. Outputs of different shapes
+read infinite.
 
 Render cells: the absolute differences of rgb and depth at the compared
 pixels, per level, summarised by their median, mean, 99.9th percentile
@@ -42,7 +47,7 @@ def attack_numbers(prog, ref, floor=1e-3):
     grad = _leaf_gaps(prog["grad"], ref["grad"])
     change = _leaf_gaps(prog["delta"] - prog["delta0"],
                         ref["delta"] - ref["delta0"], keep)
-    return {
+    out = {
         **{f"loss_step{i + 1}": float(x) for i, x in enumerate(loss_gap)},
         "loss": float(torch.max(loss_gap)),
         "grad_norm": float(torch.max(grad)),
@@ -51,6 +56,15 @@ def attack_numbers(prog, ref, floor=1e-3):
         "change_norm_median": (float(torch.median(change))
                                if change.numel() else 0.0),
     }
+    net_p, net_r = prog.get("coarse_net"), ref.get("coarse_net")
+    if net_p is not None and net_r is not None:
+        if net_p.shape == net_r.shape:
+            d = torch.abs(net_p.double() - net_r.double()).flatten()
+            out["coarse_net_median"] = _quantile(d, 0.5)
+            out["coarse_net_mean"] = float(torch.mean(d))
+        else:
+            out["coarse_net_median"] = out["coarse_net_mean"] = float("inf")
+    return out
 
 
 def _quantile(x, q):

@@ -8,9 +8,15 @@ the step, so that the reference gets the same.
 
 Set-up drives the step through its first ``steps_checked`` iterations (the
 warm-up of every shape the window uses); the reference follows those
-steps. The window then goes on from that state.
+steps. The window then goes on from that state. The first of them also
+keeps the output of the program's coarse aggregator (``net_coarse``, read
+by a forward hook that is gone before the window), and the reference its
+own: the first step's inputs are the same on both sides, so the two are
+compared sample by sample, below the fine level's resampling.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,6 +24,27 @@ from nerfbench import compare, program
 from nerfbench.reference import attack as ref_attack
 from nerfbench.reference import precision
 from nerfbench.session import Session
+
+
+@contextlib.contextmanager
+def first_output(module):
+    """Inside the block, the list holds ``module``'s first output (a
+    tensor, detached and copied) once it has been called; with no module,
+    nothing."""
+    seen = []
+    if module is None:
+        yield seen
+        return
+
+    def keep(mod, args, out):
+        if not seen and torch.is_tensor(out):
+            seen.append(out.detach().clone())
+
+    handle = module.register_forward_hook(keep)
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 class AttackSession(Session):
@@ -47,7 +74,12 @@ class AttackSession(Session):
                                        self.delta0)
         self.sels, self.losses = [], []
         for i in range(int(t["steps_checked"])):
-            self.unit_of_work(i)
+            if i == 0:
+                with first_output(ev.bundle.net_coarse) as seen:
+                    self.unit_of_work(i)
+                self.coarse_net = seen[0] if seen else None
+            else:
+                self.unit_of_work(i)
             self.losses.append(self.aux["loss"])
             if i == 0:
                 # Adam's first moment after one step is (1 - b1) times the
@@ -81,10 +113,12 @@ class AttackSession(Session):
 
     def program_readings(self):
         return {"loss": torch.stack(self.losses), "grad": self.grad1,
-                "delta0": self.delta0, "delta": self.delta_end}
+                "delta0": self.delta0, "delta": self.delta_end,
+                "coarse_net": self.coarse_net}
 
     def drop(self):
         self.step = self.state = self.aux = self.src = self.target = None
+        self.coarse_net = None
 
     def reference_readings(self, tf32=False, feature_batches=1):
         """The reference's steps; ``tf32``: on the TF32 tensor cores (the
@@ -93,13 +127,14 @@ class AttackSession(Session):
         feature_net, model = program.reference_model(
             self.cell.config, self.cell.traffic, self.state_dicts)
         view = self.view_tensors(self.view)
-        with precision(tf32):
+        with precision(tf32), first_output(model.get("net_coarse")) as seen:
             out = ref_attack.attack_steps(
                 model, self.in_batches(feature_net, feature_batches), view,
                 self.delta0, self.sels,
                 lr=float(self.cfg.adam_lr), eps=self.cfg.eps)
         return {"loss": out["loss"], "grad": out["grad"],
-                "delta0": self.delta0, "delta": out["delta"][-1]}
+                "delta0": self.delta0, "delta": out["delta"][-1],
+                "coarse_net": seen[0] if seen else None}
 
     numbers = staticmethod(compare.attack_numbers)
 

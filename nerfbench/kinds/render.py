@@ -14,7 +14,7 @@ import torch
 
 from nerfbench import compare, program
 from nerfbench.reference import precision
-from nerfbench.reference.render import rays_at, render_rays
+from nerfbench.reference.render import rays_at
 from nerfbench.session import Session
 
 
@@ -109,12 +109,14 @@ class RenderSession(Session):
     def reference_readings(self, tf32=False, given=None, feature_batches=1):
         """The reference at the compared pixels of every kept frame, in the
         layout of ``program_readings``; ``tf32``: on the TF32 tensor cores
-        (the control); ``given``: readings in that layout whose coarse
-        weights the level ``fine_given_coarse`` is drawn from (the judged
-        side's); ``feature_batches``: its feature net in that many batches
+        (the control); ``given``: the judged side's readings in that layout,
+        handed to the backbone's render chunk by chunk (a fine level
+        ``fine_given_coarse`` is drawn from their coarse weights);
+        ``feature_batches``: its feature net in that many batches
         of views (a second f32 rounding of the reference itself)."""
         feature_net, model = program.reference_model(
             self.cell.config, self.cell.traffic, self.state_dicts)
+        backbone = model["backbone"]
         feature_net = self.in_batches(feature_net, feature_batches)
         feats, rows = {}, []
         with precision(tf32), torch.no_grad():
@@ -127,19 +129,17 @@ class RenderSession(Session):
                         + (pick % self.ws) * self.stride)
                 parts, base = [], j * len(pick)
                 for i in range(0, len(pick), self.chunk):
-                    rays_o, rays_d = rays_at(full[i:i + self.chunk],
-                                             view["camera"])
-                    cw = (None if given is None or "fine" not in given else
-                          given["coarse"]["weights"][base + i:
-                                                     base + i + self.chunk])
-                    ret = render_rays(model, rays_o, rays_d, view["camera"],
-                                      view["depth_range"], feats[k],
-                                      view["src_rgbs"], view["src_cameras"],
-                                      given_weights=cw)
-                    if model["backbone"] == "ibrnet":
-                        c = ret["coarse"]  # the evaluator paints empty rays
-                        c["rgb"] = torch.where(c["mask"][:, None], c["rgb"],
-                                               torch.ones_like(c["rgb"]))
+                    rays = full[i:i + self.chunk]
+                    rays_o, rays_d = rays_at(rays, view["camera"])
+                    at = slice(base + i, base + i + len(rays))
+                    part = None if given is None else {
+                        lv: {q: x[at] for q, x in o.items()}
+                        for lv, o in given.items()}
+                    ret = backbone.render_rays(
+                        model, rays_o, rays_d, view["camera"],
+                        view["depth_range"], feats[k], view["src_rgbs"],
+                        view["src_cameras"], given=part)
+                    ret["coarse"]["rgb"] = backbone.frame_rgb(ret["coarse"])
                     # the coarse weights too where a fine level is drawn
                     keep = {"coarse": ("rgb", "depth") + ("weights",) * (
                         ret["fine"] is not None)}

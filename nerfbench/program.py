@@ -9,9 +9,7 @@ import json
 
 import torch
 
-from nerfbench.reference.gnt import GNT
-from nerfbench.reference.ibrnet import IBRNet
-from nerfbench.reference.resunet import ResUNet
+from nerfbench import backbones
 from nerfbench.weights import seeded_state_dicts
 
 
@@ -45,21 +43,10 @@ def port_args(config, traffic):
 
 def reference_modules(config, traffic, device="meta"):
     """{'feature_net', 'net_coarse'[, 'net_fine']}: the reference modules
-    of the configuration, with the port's parameter names."""
+    of the configuration's backbone, with the port's parameter names."""
     f = flags_of(config, traffic)
-    gnt = f["backbone"] == "gnt"
-    single = gnt and str(f.get("single_net", True)) == "True"
-    cdim, fdim = int(f.get("coarse_feat_dim", 32)), int(f.get("fine_feat_dim", 32))
     with torch.device(device):
-        mods = {"feature_net": ResUNet(cdim, fdim, single_net=single)}
-        if gnt:
-            make = lambda c: GNT(c, int(f["netwidth"]), int(f["trans_depth"]))
-        else:
-            make = IBRNet
-        mods["net_coarse"] = make(cdim)
-        if not single:
-            mods["net_fine"] = make(fdim)
-    return mods
+        return backbones.of(f).modules(f)
 
 
 def weights(config, traffic, seed, device):
@@ -83,15 +70,13 @@ def build_evaluator(config, traffic, state_dicts, seed, device):
 
 def reference_model(config, traffic, state_dicts):
     """(feature net, render model dict) of the reference, its parameters
-    the tensors of ``state_dicts``."""
+    and buffers the tensors of ``state_dicts``; the dict's ``'backbone'`` is
+    the backbone's module, whose ``render_rays`` takes it."""
     f = flags_of(config, traffic)
+    backbone = backbones.of(f)
     mods = reference_modules(config, traffic)
     for name, module in mods.items():
         module.load_state_dict(state_dicts[name], assign=True)
         module.eval().requires_grad_(False)
-    model = {"backbone": f["backbone"], "n_samples": int(f["N_samples"]),
-             "n_importance": int(f.get("N_importance", 64)),
-             "inv_uniform": bool(f.get("inv_uniform", False)),
-             "net_coarse": mods["net_coarse"],
-             "net_fine": mods.get("net_fine", mods["net_coarse"])}
-    return mods["feature_net"], model
+    return mods["feature_net"], {**backbone.model(f, mods),
+                                 "backbone": backbone}

@@ -3,7 +3,8 @@ operators or kernels per unit of work, the idle share, and the model's
 operations per unit counted from the cell's shapes."""
 from __future__ import annotations
 
-from nerfbench.counts import PEAK_FLOPS, gnt, ibrnet, resunet
+from nerfbench import backbones
+from nerfbench.counts import PEAK_FLOPS
 
 
 def device_ms_per_unit(traced, match):
@@ -33,28 +34,16 @@ def idle_pct(traced):
 def feature_flops(traced):
     """The feature net's forward over the sources."""
     f = traced.flags
-    out = int(f.get("coarse_feat_dim", 32))
-    if not (f["backbone"] == "gnt" and str(f.get("single_net")) == "True"):
-        out += int(f.get("fine_feat_dim", 32))
-    return resunet.forward_flops(traced.n_views, *traced.feature_hw, out)
+    return backbones.of(f).feature_flops(f, traced.n_views,
+                                         *traced.feature_hw)
 
 
 def aggregator_flops(traced, rays, backward):
     """The aggregator's forward (and with ``backward`` its gradient to the
     inputs) over ``rays`` rays."""
     f = traced.flags
-    v, s = traced.n_views, int(f["N_samples"])
-    if f["backbone"] == "gnt":
-        d, depth = int(f["netwidth"]), int(f["trans_depth"])
-        per = gnt.per_ray(v, s, d, depth)
-        if backward:
-            per += gnt.backward_per_ray(v, s, d, depth)
-    else:
-        i = int(f.get("N_importance", 64))
-        per = ibrnet.per_ray(v, s, i)
-        if backward:
-            per += ibrnet.backward_per_ray(v, s, i)
-    return rays * per
+    return backbones.of(f).aggregator_flops(f, traced.n_views, rays,
+                                            backward)
 
 
 def mfu_pct(traced, flops_per_unit):

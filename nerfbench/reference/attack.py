@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from nerfbench.reference.render import rays_at, render_rays
+from nerfbench.reference.render import rays_at
 
 
 def colour_loss(out, gt):
@@ -38,9 +38,9 @@ def attack_steps(model, feature_net, view, delta, sels, lr, eps,
         d = delta.detach().requires_grad_(True)
         feats = feature_net(src + d)
         rays_o, rays_d = rays_at(sel, view["camera"])
-        ret = render_rays(model, rays_o, rays_d, view["camera"],
-                          view["depth_range"], feats, src,
-                          view["src_cameras"])
+        ret = model["backbone"].render_rays(
+            model, rays_o, rays_d, view["camera"], view["depth_range"],
+            feats, src, view["src_cameras"])
         gt = view["rgb"][sel]
         loss = colour_loss(ret["coarse"], gt)
         if ret["fine"] is not None:

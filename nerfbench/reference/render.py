@@ -1,11 +1,11 @@
-"""Plain ray rendering, frozen here as the benchmark's reference: depths
+"""Plain ray rendering, frozen here as the benchmark's reference: what
+the backbones (``nerfbench/backbones/``) build their renders from. Depths
 spaced evenly in 1/z (or z), projection of every sample into every source
 view, bilinear taps of colours and features (``grid_sample``,
-align_corners, zeros outside), the aggregator, then for IBRNet alpha
-compositing and a fine level at depths drawn from the coarse weights by
-inverse-CDF sampling at evenly spaced quantiles (and, given another's
-coarse weights, a second fine level drawn from those); for GNT the aggregator's
-rgb and its attention row as compositing weights.
+align_corners, zeros outside), alpha compositing, and a fine level at
+depths drawn from coarse weights by inverse-CDF sampling at evenly spaced
+quantiles (and, given another's coarse weights, a second fine level drawn
+from those).
 """
 from __future__ import annotations
 
@@ -118,34 +118,21 @@ def composite(raw, z, pixel_mask):
             "mask": torch.sum(pixel_mask.to(raw.dtype), dim=1) > 8}
 
 
-def render_rays(model, rays_o, rays_d, camera, depth_range, feats, src_rgbs,
-                src_cameras, given_weights=None):
-    """Both levels of a batch of rays.
+def two_levels(model, rays_d, depth_range, level, given_weights=None):
+    """The coarse level at depths evenly spaced in 1/z (or z); where the
+    model draws importance samples, the fine level at the coarse depths and
+    as many more drawn from the coarse weights, and with ``given_weights``
+    (another's coarse weights [R, S]) a second one drawn from those.
 
-    :param model: {'backbone', 'n_samples', 'n_importance', 'inv_uniform',
-        'net_coarse', 'net_fine'}
-    :param feats: (coarse, fine) feature maps [V, Hf, Wf, C]
-    :param given_weights: [R, S] coarse compositing weights, another's:
-        the fine level is also drawn from them, as ``fine_given_coarse``
+    :param model: {'n_samples', 'n_importance', 'inv_uniform', ...}
+    :param level: ``level(z, i)``, the level at depths ``z`` [R, S'] through
+        the coarse (``i`` 0) or the fine (1) net: a dict with 'weights'
     :return: {'coarse': {...}, 'fine': {...} or None[,
         'fine_given_coarse': {...}]}
     """
     near, far = depth_range.reshape(-1)[0], depth_range.reshape(-1)[1]
     z = coarse_depths(rays_d.shape[0], near, far, model["n_samples"],
                       model["inv_uniform"], rays_d)
-
-    def level(z_l, li):
-        pts = z_l[..., None] * rays_d[:, None] + rays_o[:, None]
-        rgb_feat, diff, mask = gather(pts, camera, src_rgbs,
-                                      src_cameras.detach(), feats[li])
-        net = model["net_fine" if li else "net_coarse"]
-        if model["backbone"] == "ibrnet":
-            raw = net(rgb_feat, diff, mask)
-            return composite(raw, z_l, torch.sum(mask[..., 0], dim=0) > 1)
-        out = net(rgb_feat, diff, mask, pts, rays_d)
-        wts = out[:, 3:]
-        return {"rgb": out[:, :3], "weights": wts,
-                "depth": torch.sum(wts * z_l, dim=-1)}
 
     def fine(wts):
         return level(fine_depths(z, wts.detach(), model["n_importance"],

@@ -4,7 +4,9 @@
         --trace <0|1>
 
 Run from the root of a checkout that holds ``BENCHMARK.json``. The cell
-names a configuration (``nerfbench/configs/<config>.json``) and a traffic
+names a configuration (``nerfbench/configs/<config>.json``, whose
+``backbone`` flag names the module ``nerfbench/backbones/<backbone>.py``
+that holds what the harness needs of that network) and a traffic
 mix (``nerfbench/traffic/<traffic>.json``, whose ``kind`` names the driver
 in ``nerfbench/kinds/`` and whose ``scene`` names a file in
 ``nerfbench/scenes/``); its limits are ``nerfbench/limits/<cell>.json`` and

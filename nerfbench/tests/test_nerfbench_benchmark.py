@@ -18,7 +18,8 @@ BENCH = run.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 ATTACK_NUMBERS = {"loss_step1", "loss_step2", "loss_step3", "loss",
                   "grad_norm", "grad_norm_median", "change_norm",
-                  "change_norm_median"}
+                  "change_norm_median", "coarse_net_median",
+                  "coarse_net_mean"}
 RENDER_NUMBERS = {f"{q}_{s}.{lv}" for q in ("rgb", "depth")
                   for s in ("median", "mean", "p999", "max")
                   for lv in ("coarse", "fine", "fine_given_coarse")}

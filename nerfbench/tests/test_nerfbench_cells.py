@@ -17,7 +17,8 @@ from nerfbench.tests.tiny import tiny_cell
 torch.set_num_threads(2)
 
 SEED = 2 ** 31 + 11  # past 32 signed bits, as the driver's seeds are
-ATTACK = {"loss_step1": 1e-3, "grad_norm": 0.05, "change_norm": 0.5}
+ATTACK = {"loss_step1": 1e-3, "grad_norm": 0.05, "change_norm": 0.5,
+          "coarse_net_median": 1e-4}
 RENDER = {"rgb_mean.coarse": 1e-3, "rgb_p999.coarse": 1e-2}
 LIMITS = {"ibrnet_llff_attack": ATTACK, "gnt_full_attack": ATTACK,
           "ibrnet_llff_render": dict(RENDER, **{
@@ -91,11 +92,26 @@ def _altered_answer(monkeypatch, level="outputs_coarse", rows=64):
     monkeypatch.setattr(Evaluator, "render_view", render_view)
 
 
+def _altered_aggregate(monkeypatch, rows=8):
+    from nerfool_tpu_torch.models.gnt import GNTAggregator
+    from nerfool_tpu_torch.models.ibrnet import IBRNetAggregator
+
+    for cls in (IBRNetAggregator, GNTAggregator):
+        def forward(self, *args, _real=cls.forward, **kwargs):
+            out = _real(self, *args, **kwargs)
+            # the first rays' answers replaced by the next rays'
+            return torch.cat([out[rows:2 * rows], out[rows:]])
+
+        monkeypatch.setattr(cls, "forward", forward)
+
+
 @pytest.mark.parametrize("name, fault", [
     ("ibrnet_llff_attack", "state_unchanged"),
     ("ibrnet_llff_attack", "half_batch"),
+    ("ibrnet_llff_attack", "aggregate_altered"),
     ("gnt_full_attack", "state_unchanged"),
     ("gnt_full_attack", "half_batch"),
+    ("gnt_full_attack", "aggregate_altered"),
     ("ibrnet_llff_render", "answer_altered"),
     ("gnt_full_render", "answer_altered"),
     ("ibrnet_llff_render", "fine_answer_altered"),
@@ -103,9 +119,30 @@ def _altered_answer(monkeypatch, level="outputs_coarse", rows=64):
 def test_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     if fault == "answer_altered":
         _altered_answer(monkeypatch)
+    elif fault == "aggregate_altered":
+        _altered_aggregate(monkeypatch)
     elif fault == "fine_answer_altered":  # a twelfth of the fine level
         _altered_answer(monkeypatch, "outputs_fine", 48 * 64 // 12)
     else:
         _broken_step(monkeypatch, fault)
     result, _ = run_tiny(name)
     assert not result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("shift, want", [(0.0, 0.0), (1e-3, 1e-3),
+                                         (None, float("inf"))])
+def test_coarse_aggregate_compared_sample_by_sample(shift, want):
+    from nerfbench.compare import attack_numbers
+
+    g = torch.Generator().manual_seed(SEED)
+    ref = {"loss": torch.ones(3), "grad": torch.rand(4, 6, generator=g),
+           "delta0": torch.zeros(4, 6), "delta": torch.rand(4, 6, generator=g),
+           "coarse_net": torch.rand(8, 5, 4, generator=g,
+                                    dtype=torch.float64)}
+    prog = dict(ref, coarse_net=(ref["coarse_net"][:4] if shift is None
+                                 else ref["coarse_net"] + shift))
+    got = attack_numbers(prog, ref)
+    assert got["coarse_net_median"] == pytest.approx(want, rel=1e-9)
+    assert got["coarse_net_mean"] == pytest.approx(want, rel=1e-9)
+    assert "coarse_net_median" not in attack_numbers(
+        dict(prog, coarse_net=None), ref)

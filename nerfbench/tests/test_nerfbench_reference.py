@@ -52,10 +52,10 @@ def test_ray_render_matches_port(name):
         ro2, rd2 = ref_render.rays_at(sel, cam)
         given = (None if port["outputs_fine"] is None
                  else port["outputs_coarse"]["weights"])
-        ref = ref_render.render_rays(model, ro2, rd2, cam,
-                                     t(view["depth_range"]),
-                                     feature_net(src), src, cams,
-                                     given_weights=given)
+        ref = model["backbone"].render_rays(
+            model, ro2, rd2, cam, t(view["depth_range"]), feature_net(src),
+            src, cams, given=None if given is None else {
+                "coarse": {"weights": given}})
     torch.testing.assert_close(ro, ro2)
     torch.testing.assert_close(rd, rd2)
     for level, ours in (("outputs_coarse", "coarse"), ("outputs_fine", "fine")):

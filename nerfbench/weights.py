@@ -3,9 +3,10 @@
 PyTorch's default initialisation of a ``Linear`` or ``Conv2d``: weights and
 biases uniform in +-1/sqrt(fan_in). Every other parameter keeps the value
 its module gives it (norm scales 1 and shifts 0, IBRNet's anti-alias ``s``
-0.2). The shapes come from the reference modules, whose parameter names
-are the port's (the published checkpoints' layout), so one state dict
-loads into both.
+0.2), and so does every persistent buffer (a BatchNorm's running mean 0,
+variance 1 and batch count 0), for which nothing is drawn. The shapes come
+from the reference modules, whose parameter names are the port's (the
+published checkpoints' layout), so one state dict loads into both.
 """
 from __future__ import annotations
 
@@ -44,12 +45,20 @@ def seeded_state_dicts(modules, seed, device):
             value = ((2.0 * u[at:at + n] - 1.0) * bound).reshape(shape)
             at += n
         out[mname][pname] = value
+    for mname, module in modules.items():
+        params = dict(module.named_parameters())
+        for bname, b in module.state_dict(keep_vars=True).items():
+            if bname not in params:
+                out[mname][bname] = (
+                    b.detach().to(device) if b.device.type != "meta"
+                    else _default(bname, tuple(b.shape), device, b.dtype))
     return out
 
 
-def _default(pname, shape, device):
-    """The module default of a parameter created on the ``meta`` device."""
-    if pname == "s":
-        return torch.full(shape, 0.2, device=device)
-    fill = 1.0 if pname.endswith("weight") else 0.0
-    return torch.full(shape, fill, device=device)
+def _default(name, shape, device, dtype=torch.float32):
+    """The module default of a parameter or persistent buffer created on the
+    ``meta`` device."""
+    if name == "s":
+        return torch.full(shape, 0.2, device=device, dtype=dtype)
+    fill = 1 if name.endswith(("weight", "running_var")) else 0
+    return torch.full(shape, fill, device=device, dtype=dtype)
