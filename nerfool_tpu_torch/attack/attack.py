@@ -58,7 +58,8 @@ from nerfool_tpu_torch.attack.pcgrad import pcgrad_combine
 from nerfool_tpu_torch.attack.perturb import clamp, init_delta, project_delta
 from nerfool_tpu_torch.attack.warp import forward_warp
 from nerfool_tpu_torch.render.render_rays import (RenderConfig,
-                                                  noise_draws, render_rays)
+                                                  noise_draws, render_rays,
+                                                  sample_draws)
 from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
 from nerfool_tpu_torch.utils.profiling import span
 
@@ -270,7 +271,7 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
 
     step(state, target, src, generator=None, sel=None, sel_patch=None,
          pc_order=None, depth_src_id=None, camera_src_id=None,
-         sel_half=None) -> (state, aux)
+         sel_half=None, samples=None) -> (state, aux)
       target: {'camera' [34], 'rgb' [H*W, 3] or None, 'depth' [H*W] or None,
                'depth_range' [1, 2]}
       src:    {'rgbs' [V, Hs, Ws, 3], 'cameras' [V, 34],
@@ -281,6 +282,10 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         drawn from ``generator`` when None
       depth_src_id, camera_src_id: the source view each consistency term
         warps; drawn from ``generator`` when None
+      samples: pixelNeRF's sampling draws of the main batch (and of its
+        pseudo-GT render), as ``render_rays.sample_draws`` gives them; drawn
+        from ``generator`` when None (other renders of the step draw their
+        own)
       pc_order: with ``use_pcgrad`` and no major loss, the order in which
         each loss's gradient is projected against the others; drawn from
         ``generator`` when None
@@ -307,8 +312,10 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
     main_unit = patch_unit if cfg.use_patch_sampling else 1
 
     def render_at(feats, cam, target, src, src_cams, sel, w, generator,
-                  rcfg=render_cfg, unit=1):
+                  rcfg=render_cfg, unit=1, samples=None):
         n = sel.shape[0]
+        rows_of = lambda draws, rows: None if draws is None else tuple(
+            None if x is None else x[rows] for x in draws)
 
         def render(rows=None):
             part = sel if rows is None else sel[rows]
@@ -317,15 +324,18 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
             batch = {"ray_o": rays_o, "ray_d": rays_d,
                      "depth_range": target["depth_range"],
                      "camera": cam[None]}
-            noise = None
+            noise, smp = None, samples
             if rows is not None:
-                noise = noise_draws(generator, rcfg, n, torch.promote_types(
-                    feats[0].dtype, torch.float32), part.device)
-                if noise is not None:
-                    noise = tuple(None if x is None else x[rows]
-                                  for x in noise)
+                dtype = torch.promote_types(feats[0].dtype, torch.float32)
+                noise = rows_of(noise_draws(generator, rcfg, n, dtype,
+                                            part.device), rows)
+                if smp is None:
+                    smp = sample_draws(generator, rcfg, n, dtype,
+                                       part.device)
+                smp = rows_of(smp, rows)
             return render_rays(nets, batch, feats, rcfg, src["rgbs"],
-                               src_cams, generator=generator, noise=noise)
+                               src_cams, generator=generator, noise=noise,
+                               samples=smp)
 
         if split is None:
             return render()
@@ -423,13 +433,15 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
             # delta reaches the renderer only through the feature maps: the
             # RGB taps stay on the clean source pixels, as in the reference
             ret = render_at(feats, target["camera"], target, src, src_cams,
-                            sel, cfg.w, generator, unit=main_unit)
+                            sel, cfg.w, generator, unit=main_unit,
+                            samples=draws["samples"])
             if cfg.use_pseudo_gt:
                 with torch.no_grad():
                     ret_gt = render_at(src["featmaps_clean"],
                                        target["camera"], target, src,
                                        src_cams, sel, cfg.w, None, gt_cfg,
-                                       unit=main_unit)
+                                       unit=main_unit,
+                                       samples=draws["samples"])
         with span("attack.loss"):
             return loss_terms(feats, ret, ret_gt, target, src, src_cams,
                               draws, generator)
@@ -482,17 +494,20 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         return terms, sum(terms.values())
 
     def draw(generator, device, n_src, sel, sel_patch, depth_src_id,
-             camera_src_id, sel_half):
+             camera_src_id, sel_half, samples):
         """The step's random draws, each taken from ``generator`` unless the
         caller gave it."""
         if sel is None:
             sel = select_ray_indices(generator, cfg, device)
+        if samples is None:
+            samples = sample_draws(generator, render_cfg, sel.shape[0],
+                                   torch.float32, device)
         if (sel_patch is None and cfg.depth_smooth_loss > 0
                 and not cfg.use_patch_sampling):
             sel_patch = select_ray_indices(
                 generator, dataclasses.replace(cfg, use_patch_sampling=True),
                 device)
-        draws = {"sel": sel, "sel_patch": sel_patch}
+        draws = {"sel": sel, "sel_patch": sel_patch, "samples": samples}
         if cfg.depth_consistency_loss > 0:
             draws["depth_src_id"] = draw_view(generator, n_src, device,
                                               depth_src_id)
@@ -509,12 +524,12 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
 
     def step(state, target, src, generator=None, sel=None, sel_patch=None,
              pc_order=None, depth_src_id=None, camera_src_id=None,
-             sel_half=None):
+             sel_half=None, samples=None):
         with span("attack.step", counters=True):
             with span("attack.draw"):
                 draws = draw(generator, src["rgbs"].device,
                              src["rgbs"].shape[0], sel, sel_patch,
-                             depth_src_id, camera_src_id, sel_half)
+                             depth_src_id, camera_src_id, sel_half, samples)
             return step_on(state, target, src, generator, draws, pc_order)
 
     def step_on(state, target, src, generator, draws, pc_order):

@@ -101,7 +101,8 @@ def config_parser():
                         help="project root (datasets under <rootdir>/data)")
     parser.add_argument("--expname", type=str, default="exp", help="experiment name")
     parser.add_argument("--backbone", type=str, default="ibrnet",
-                        choices=["ibrnet", "gnt"], help="aggregation backbone")
+                        choices=["ibrnet", "gnt", "pixelnerf"],
+                        help="aggregation backbone")
     parser.add_argument("--distributed", action="store_true")
     parser.add_argument("--local_rank", type=int, default=0)
     parser.add_argument("-j", "--workers", default=8, type=int)
@@ -324,6 +325,12 @@ def port_parser():
     # as fast, and needs no host plan (timed in turns by chip_smoke.py;
     # PERF.md)
     parser.set_defaults(use_bspg=False)
+    # pixelNeRF (--backbone pixelnerf; models/pixelnerf.py), defaults from
+    # its conf/default_mv.conf: ResnetFC's hidden width and the depth-guided
+    # fine samples (its n_fine_depth; the samples drawn from the coarse
+    # weights are --N_importance). Its other widths are constants there
+    parser.add_argument("--pixelnerf_d_hidden", type=int, default=512)
+    parser.add_argument("--pixelnerf_n_depth", type=int, default=16)
     parser.add_argument("--dataset_kwargs", type=json.loads, default={},
                         help="JSON object of dataset constructor keywords")
     return parser

@@ -17,11 +17,15 @@ optimized over streamed train views, then added to ``delta``), then
 and the clean sources' features; ``--geo_noise`` adds noise to IBRNet's
 sigma in the attack's renders and the evaluator's, drawn from the
 evaluator's generator. Renders are measured with PSNR and SSIM in the
-backbone's protocol (TF's for IBRNet, ``img2psnr`` and windowed SSIM for
-GNT), and with LPIPS when ``--lpips_weights`` names a weights file (IBRNet's
-convention scales [0, 1] images to [-1, 1], GNT's feeds them raw; without
-weights LPIPS reads NaN, as in the JAX evaluator). With an ``out_dir`` the
-evaluator writes the JAX evaluator's image dumps (``utils/vis.py``).
+backbone's protocol (TF's for IBRNet and pixelNeRF, ``img2psnr`` and
+windowed SSIM for GNT), and with LPIPS when ``--lpips_weights`` names a
+weights file (IBRNet's and pixelNeRF's convention scales [0, 1] images to
+[-1, 1], GNT's feeds them raw; without weights LPIPS reads NaN, as in the
+JAX evaluator). pixelNeRF (``--backbone pixelnerf``, no JAX counterpart)
+runs the same attack and frames in float32 on the per-tap gather; its
+sampler draws at every render, from the evaluator's generator. With an
+``out_dir`` the evaluator writes the JAX evaluator's image dumps
+(``utils/vis.py``).
 
 The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
 routes the differentiated GNT step through the ray-attention kernel
@@ -105,12 +109,16 @@ from nerfool_tpu_torch.utils.vis import colorize_np, to8b, write_png
 
 
 def render_config_from_args(args) -> RenderConfig:
-    if args.backbone not in ("ibrnet", "gnt"):
+    if args.backbone not in ("ibrnet", "gnt", "pixelnerf"):
         raise ValueError(f"unknown backbone {args.backbone!r}")
     if args.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--compute_dtype {args.compute_dtype} (float32 or "
                          "bfloat16)")
     gnt = args.backbone == "gnt"
+    if args.backbone == "pixelnerf" and (
+            args.compute_dtype != "float32" or args.use_clean_color
+            or args.use_clean_density):
+        raise ValueError("pixelNeRF renders in float32, without hybrids")
     return RenderConfig(n_samples=args.N_samples,
                         n_importance=args.N_importance,
                         inv_uniform=bool(args.inv_uniform),
@@ -124,7 +132,8 @@ def render_config_from_args(args) -> RenderConfig:
                         geo_noise=float(args.geo_noise or 0.0),
                         use_clean_color=bool(args.use_clean_color),
                         use_clean_density=bool(args.use_clean_density),
-                        compute_dtype=args.compute_dtype)
+                        compute_dtype=args.compute_dtype,
+                        n_depth=getattr(args, "pixelnerf_n_depth", 16))
 
 
 def frame_render_config(args, device) -> RenderConfig:
@@ -282,6 +291,9 @@ class Evaluator:
         base = frame_render_config(args, self.device)
         if not getattr(args, "use_bspg", True):
             return base
+        if args.backbone == "pixelnerf":
+            return self._per_tap(base, "pixelNeRF gathers its latent map "
+                                 "per tap")
         if getattr(args, "perturb_camera", False):
             return self._per_tap(base, "--perturb_camera moves the source "
                                  "cameras out of the BSPG plan")

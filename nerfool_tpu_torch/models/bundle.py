@@ -1,6 +1,9 @@
-"""Model bundle (port of ``nerfool_tpu/models/bundle.py``): builds the IBRNet
-or GNT modules, random-initializes them from a seeded ``torch.Generator`` or
-loads reference-layout state_dicts, and runs the feature extraction.
+"""Model bundle (port of ``nerfool_tpu/models/bundle.py``): builds the IBRNet,
+GNT or pixelNeRF modules, random-initializes them from a seeded
+``torch.Generator`` or loads reference-layout state_dicts, and runs the
+feature extraction. pixelNeRF (``models/pixelnerf.py``; no JAX counterpart)
+holds its encoder as the feature net and ``mlp_coarse`` / ``mlp_fine`` as
+the aggregators; its flat checkpoint is split by module on loading.
 """
 from __future__ import annotations
 
@@ -14,12 +17,13 @@ import torch.nn as nn
 
 from nerfool_tpu_torch.models.gnt import GNTAggregator
 from nerfool_tpu_torch.models.ibrnet import IBRNetAggregator
+from nerfool_tpu_torch.models import pixelnerf
 from nerfool_tpu_torch.models.resunet import ResUNet
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    feature_net: ResUNet
+    feature_net: nn.Module
     net_coarse: nn.Module
     net_fine: Optional[nn.Module]
     device: torch.device
@@ -58,8 +62,9 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
                  fine_feat_dim=32, anti_alias_pooling=True, coarse_only=False,
                  netwidth=64, trans_depth=8, single_net=False, ret_alpha=True,
                  ckpt_path=None, state_dicts=None, seed=0, device="cpu",
-                 feature_dtype="float32") -> ModelBundle:
-    """Build the IBRNet or GNT modules on ``device``.
+                 feature_dtype="float32", pixelnerf_d_hidden=512
+                 ) -> ModelBundle:
+    """Build the IBRNet, GNT or pixelNeRF modules on ``device``.
 
     Weights come from, in order of precedence: ``state_dicts``
     ({'feature_net', 'net_coarse'[, 'net_fine']} in the reference key
@@ -69,7 +74,8 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
     on every device. ``feature_dtype`` ('float32' or 'bfloat16') is the
     feature net's compute dtype (its outputs are float32 either way).
     ``args`` (a parsed CLI namespace) supplies the same fields by their flag
-    names.
+    names. ``pixelnerf_d_hidden``: ``ResnetFC``'s hidden width
+    (``default_mv.conf``'s 512).
     """
     if args is not None:
         backbone = getattr(args, "backbone", backbone)
@@ -84,8 +90,13 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
             trans_depth = args.trans_depth
             single_net = bool(args.single_net)
             ret_alpha = bool(args.ret_alpha)
-    if backbone not in ("ibrnet", "gnt"):
+        if backbone == "pixelnerf":
+            pixelnerf_d_hidden = getattr(args, "pixelnerf_d_hidden",
+                                         pixelnerf_d_hidden)
+    if backbone not in ("ibrnet", "gnt", "pixelnerf"):
         raise ValueError(f"unknown backbone {backbone!r}")
+    if backbone == "pixelnerf" and feature_dtype not in (None, "", "float32"):
+        raise ValueError("pixelNeRF runs in float32")
     single_net = single_net and backbone == "gnt"
     if feature_dtype not in (None, "", "float32", "bfloat16"):
         raise ValueError(f"feature_dtype {feature_dtype!r} (float32 or "
@@ -93,14 +104,20 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
     feat_dt = torch.bfloat16 if feature_dtype == "bfloat16" else None
 
     with torch.random.fork_rng(devices=[]):  # module defaults draw globally
-        feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only,
-                              single_net, compute_dtype=feat_dt)
+        if backbone == "pixelnerf":
+            feature_net = pixelnerf.SpatialEncoder()
+            mlp = lambda: pixelnerf.ResnetFC(pixelnerf_d_hidden)
+            net_coarse = mlp()
+            net_fine = None if coarse_only else mlp()
+        else:
+            feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only,
+                                  single_net, compute_dtype=feat_dt)
         if backbone == "ibrnet":
             net_coarse = IBRNetAggregator(coarse_feat_dim, anti_alias_pooling)
             net_fine = (None if coarse_only
                         else IBRNetAggregator(fine_feat_dim,
                                               anti_alias_pooling))
-        else:
+        elif backbone == "gnt":
             net_coarse = GNTAggregator(coarse_feat_dim, netwidth, trans_depth,
                                        ret_alpha=ret_alpha)
             net_fine = (None if single_net
@@ -116,6 +133,8 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
                 "for a seeded random init")
         state_dicts = torch.load(ckpt_path, map_location="cpu",
                                  weights_only=True)
+        if backbone == "pixelnerf" and "feature_net" not in state_dicts:
+            state_dicts = pixelnerf.split_checkpoint(state_dicts)
     if state_dicts is not None:
         for name, module in nets.items():
             if module is not None:

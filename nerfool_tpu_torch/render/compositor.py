@@ -4,6 +4,10 @@
 needs more than 8 samples seen by at least two source views. ``geo_noise``
 (a defense ablation) adds Gaussian noise of that standard deviation to sigma;
 the caller passes the standard normal draw.
+
+pixelNeRF composites with the gaps between depths instead
+(``composite_deltas``, its ``NeRFRenderer.composite``): ``alpha = 1 -
+exp(-delta relu(sigma))``, the last gap running to the far bound.
 """
 from __future__ import annotations
 
@@ -44,3 +48,24 @@ def raw2outputs(raw, z_vals, pixel_mask, white_bkgd=False, geo_noise=0.0,
         "alpha": alpha,
         "z_vals": z_vals,
     }
+
+
+def composite_deltas(rgb, sigma, z_vals, far, white_bkgd=False):
+    """pixelNeRF's compositing.
+
+    :param rgb: [N, S, 3]; sigma: [N, S]
+    :param z_vals: [N, S] sample depths (ascending); far: the far bound
+    :return: dict with rgb [N, 3], depth [N], weights [N, S], alpha [N, S],
+        z_vals [N, S] (no validity mask)
+    """
+    deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], far - z_vals[:, -1:]],
+                       dim=-1)
+    alpha = 1.0 - torch.exp(-deltas * torch.relu(sigma))
+    t = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]),
+                                 1.0 - alpha + 1e-10], dim=-1), dim=-1)
+    weights = alpha * t[:, :-1]
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    if white_bkgd:
+        rgb_map = rgb_map + 1.0 - torch.sum(weights, dim=1, keepdim=True)
+    return {"rgb": rgb_map, "depth": torch.sum(weights * z_vals, dim=-1),
+            "weights": weights, "alpha": alpha, "z_vals": z_vals}

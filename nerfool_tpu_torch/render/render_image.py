@@ -27,6 +27,7 @@ from nerfool_tpu_torch.render.render_rays import (
     RenderConfig,
     make_bspg_tables,
     noise_draws,
+    sample_draws,
     render_rays,
 )
 from nerfool_tpu_torch.utils.profiling import span
@@ -69,13 +70,14 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                         split=None):
     """Render a full frame; outputs reshaped to (H', W', ...).
     ``featmaps_clean``: the clean branch of hybrid renders; ``generator``:
-    the source of the ``geo_noise`` draws; ``split``: a
+    the source of the ``geo_noise`` draws (and of pixelNeRF's samples);
+    ``split``: a
     ``parallel.mesh.RaySplit`` sharing the chunks among the ranks of a group
     (None: one process).
 
     IBRNet's coarse rgb is painted white where the ray mask is empty (the
-    reference's contract); its fine rgb is not. GNT outputs carry no mask
-    and are not painted.
+    reference's contract); its fine rgb is not. GNT and pixelNeRF outputs
+    carry no mask and are not painted.
     """
     hs = len(range(0, h, render_stride))
     ws = len(range(0, w, render_stride))
@@ -98,14 +100,15 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
     dtype = torch.promote_types(featmaps[0].dtype, torch.float32)
 
     def render_rows(rows):
-        # a split draws every chunk's noise in the one-process order and
-        # keeps its own share's
-        noise = {}
+        # a split draws every chunk's noise (pixelNeRF: its samples) in the
+        # one-process order and keeps its own share's
+        noise, samples = {}, {}
         for i in range(0, n, chunk_size) if split is not None else ():
-            c = noise_draws(generator, cfg, min(chunk_size, n - i), dtype,
-                            ray_o.device)
-            if c is not None and rows.start <= i < rows.stop:
-                noise[i] = c
+            m = min(chunk_size, n - i)
+            c = noise_draws(generator, cfg, m, dtype, ray_o.device)
+            d = sample_draws(generator, cfg, m, dtype, ray_o.device)
+            if rows.start <= i < rows.stop:
+                noise[i], samples[i] = c, d
         chunks = []
         for i in range(rows.start, rows.stop, chunk_size):
             batch = dict(ray_batch)
@@ -117,7 +120,8 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                                           tables=tables,
                                           featmaps_clean=featmaps_clean,
                                           generator=generator,
-                                          noise=noise.get(i)))
+                                          noise=noise.get(i),
+                                          samples=samples.get(i)))
         return chunks
 
     # a split concatenates each rank's chunks before the gather

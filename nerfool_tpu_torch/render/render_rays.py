@@ -18,6 +18,15 @@ compositing, drawn from the caller's generator or handed in. Training
 samples stochastically (``det=False``): the coarse depths' jitter and the
 fine level's quantiles come from the same generator, or are handed in.
 
+pixelNeRF (``backbone 'pixelnerf'``, ``_render_rays_pixelnerf``) samples
+as its own renderer does, at every call: jittered coarse strata, a fine
+level at the coarse depths, depths drawn from the coarse weights and depths
+drawn around the coarse depth (not detached), all sorted; its four draws
+(``sample_draws``) come from the generator or are handed in. It gathers the
+latent map alone (no colour taps, no ray differences, no mask), encodes
+each sample in each source view's frame (``models/pixelnerf.py``), and
+composites with the gaps between depths. float32, per tap only.
+
 In bfloat16 (``compute_dtype``) the aggregator and its inputs run in bf16:
 the BSPG patch tables are cast before packing, and the gathered taps, ray
 differences, mask, points and ray directions before the aggregator, whose
@@ -34,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from nerfool_tpu_torch.render.compositor import raw2outputs
+from nerfool_tpu_torch.render.compositor import composite_deltas, raw2outputs
 from nerfool_tpu_torch.render.projection import (
     compute_angle_planes,
     epipolar_gather_components,
@@ -42,6 +51,9 @@ from nerfool_tpu_torch.render.projection import (
     project_points_planes,
 )
 from nerfool_tpu_torch.render.sampling import (
+    pixelnerf_coarse_depths,
+    pixelnerf_depth_samples,
+    pixelnerf_fine_depths,
     sample_along_camera_ray,
     sample_fine_zvals,
 )
@@ -64,7 +76,7 @@ class RenderConfig:
     # depths and draws the fine quantiles (training)
     det: bool = True
     white_bkgd: bool = False
-    backbone: str = "ibrnet"  # 'ibrnet' | 'gnt'
+    backbone: str = "ibrnet"  # 'ibrnet' | 'gnt' | 'pixelnerf'
     single_net: bool = False  # gnt: net_coarse also renders the fine pass
     ret_alpha: bool = True  # gnt: return attention weights as density
     # detach the source cameras before projecting on the per-tap route: the
@@ -97,6 +109,9 @@ class RenderConfig:
     # block-major and taps are rebuilt from per-(block, view) patch rows;
     # None keeps the per-tap gather
     bspg_specs: Optional[tuple] = None
+    # pixelnerf: depths drawn around the coarse depth (their std is
+    # models/pixelnerf.py's DEPTH_STD)
+    n_depth: int = 16
 
     @property
     def hybrid(self):
@@ -198,9 +213,15 @@ def render_rays(nets, ray_batch, featmaps, cfg: RenderConfig, src_rgbs,
         used instead of the generator's
     :param samples: with ``cfg.det`` False, (coarse [R, S], fine [R, I])
         U[0, 1) draws (the coarse depths' jitter, the fine quantiles) used
-        instead of the generator's; either may be None
+        instead of the generator's; either may be None. pixelNeRF: the four
+        draws of ``sample_draws``, or None
     :return: {'outputs_coarse': {...}, 'outputs_fine': {...} | None}
     """
+    if cfg.backbone == "pixelnerf":
+        if cfg.hybrid or cfg.bspg_specs is not None:
+            raise ValueError("pixelNeRF renders per tap, without hybrids")
+        return _render_rays_pixelnerf(nets, ray_batch, featmaps, cfg,
+                                      src_cameras, generator, samples)
     if cfg.hybrid and featmaps_clean is None:
         raise ValueError("hybrid renders need the clean features")
     samples = samples if samples is not None else (None, None)
@@ -276,6 +297,70 @@ def noise_draws(generator, render_cfg: RenderConfig, n_rays, dtype, device):
     draw = lambda k: torch.randn((n_rays, k), generator=generator,
                                  dtype=dtype, device=device)
     return (draw(s), draw(s + i) if i else None)
+
+
+def sample_draws(generator, render_cfg: RenderConfig, n_rays, dtype,
+                 device):
+    """pixelNeRF's draws for ``n_rays`` rays, taken from ``generator`` in
+    this order: the coarse jitter [R, S], the fine quantiles [R, I] and
+    their jitter inside the bin [R, I], all U[0, 1), and the depth-guided
+    samples' standard normal noise [R, D]; None for other backbones. Drawn
+    for the whole batch on every rank of a split, as ``noise_draws``."""
+    if render_cfg.backbone != "pixelnerf":
+        return None
+    s, i, d = render_cfg.n_samples, render_cfg.n_importance, render_cfg.n_depth
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return (torch.rand((n_rays, s), **kw), torch.rand((n_rays, i), **kw),
+            torch.rand((n_rays, i), **kw), torch.randn((n_rays, d), **kw))
+
+
+def _render_rays_pixelnerf(nets, ray_batch, featmaps, cfg, src_cameras,
+                           generator, samples):
+    """pixelNeRF's two levels over the latent map ``featmaps[level]``."""
+    from nerfool_tpu_torch.models.pixelnerf import (DEPTH_STD, latent_taps,
+                                                    view_inputs)
+
+    ray_o, ray_d = ray_batch["ray_o"], ray_batch["ray_d"]
+    near = ray_batch["depth_range"].reshape(-1)[0]
+    far = ray_batch["depth_range"].reshape(-1)[1]
+    if samples is None:
+        samples = sample_draws(generator, cfg, ray_o.shape[0], ray_o.dtype,
+                               ray_o.device)
+    u_coarse, u_fine, u_bin, noise = (x.to(ray_o) for x in samples)
+    cams = src_cameras.detach() if cfg.stop_camera_grad else src_cameras
+    v = cams.shape[0]
+    h, w = cams[0, 0], cams[0, 1]
+
+    def run_level(z, li):
+        pts = z[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
+        with span(GATHER[li]):
+            px, py, _ = project_points_planes(pts.reshape(-1, 3), cams)
+            latent = latent_taps(featmaps[li], px, py, h, w).reshape(
+                (v,) + z.shape + (-1,))
+            x_in = view_inputs(pts, ray_d, cams)
+        with span(AGGREGATE[li]):
+            net = nets["net_coarse" if li == 0 else "net_fine"]
+            raw = net(latent, x_in)
+        with span(COMPOSITE[li]):
+            return composite_deltas(torch.sigmoid(raw[..., :3]),
+                                    torch.relu(raw[..., 3]), z, far,
+                                    cfg.white_bkgd)
+
+    z_coarse = pixelnerf_coarse_depths(near, far, cfg.n_samples, u_coarse)
+    coarse = run_level(z_coarse, 0)
+    ret = {"outputs_coarse": coarse, "outputs_fine": None}
+    if cfg.n_importance > 0 or cfg.n_depth > 0:
+        with span("render.fine_sampler"):
+            parts = [z_coarse]
+            if cfg.n_importance > 0:
+                parts.append(pixelnerf_fine_depths(
+                    coarse["weights"].detach(), near, far, u_fine, u_bin))
+            if cfg.n_depth > 0:
+                parts.append(pixelnerf_depth_samples(
+                    coarse["depth"], near, far, DEPTH_STD, noise))
+            z_fine = torch.sort(torch.cat(parts, dim=-1), dim=-1).values
+        ret["outputs_fine"] = run_level(z_fine, 1)
+    return ret
 
 
 def _two_levels(cfg, run_level, pts, z_vals, ray_o, ray_d, generator,

@@ -7,6 +7,13 @@ coarse depth uniformly between the midpoints of its neighbours and takes
 fine depths at uniform quantiles. The uniform draws come from a
 ``torch.Generator`` or are handed in (``t_rand``, ``u``), so that a test can
 feed the JAX package's draws.
+
+pixelNeRF's sampler (its ``NeRFRenderer``, linear depth) draws at every
+call, evaluation too: the coarse depths jittered in 64 equal strata
+(``pixelnerf_coarse_depths``), fine depths at uniform quantiles of the
+detached coarse weights, each jittered inside its coarse bin
+(``pixelnerf_fine_depths``), and depths drawn around the coarse depth
+(``pixelnerf_depth_samples``). Every draw is handed in.
 """
 from __future__ import annotations
 
@@ -128,3 +135,34 @@ def sample_fine_zvals(z_vals, weights, n_importance, inv_uniform=False,
                                generator=generator, u=u)
     z_all = torch.cat([z_vals, z_samples], dim=-1)
     return torch.sort(z_all, dim=-1).values
+
+
+def pixelnerf_coarse_depths(near, far, n_samples, u):
+    """``n_samples`` strata of [near, far], each at a U[0, 1) offset ``u``
+    [N, n_samples] inside it."""
+    step = 1.0 / n_samples
+    z = torch.linspace(0, 1 - step, n_samples, dtype=u.dtype, device=u.device)
+    z = z[None] + u * step
+    return near * (1 - z) + far * z
+
+
+def pixelnerf_fine_depths(weights, near, far, u, u_bin):
+    """Depths drawn from the coarse weights [N, M] (+1e-5, detached by the
+    caller): the bin of quantile ``u`` [N, K] by its cdf, then ``u_bin``
+    [N, K] of the way into that bin of M equal strata."""
+    m = weights.shape[1]
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+    inds = torch.searchsorted(cdf, u.contiguous(), right=True).to(u.dtype)
+    inds = torch.clamp_min(inds - 1.0, 0.0)
+    z = (inds + u_bin) / m
+    return near * (1 - z) + far * z
+
+
+def pixelnerf_depth_samples(depth, near, far, std, noise):
+    """The depth [N] plus ``std`` times the standard normal ``noise`` [N,
+    K], clamped to [near, far]; differentiable in ``depth``."""
+    z = depth[:, None] + noise * std
+    return torch.maximum(torch.minimum(z, far), near)

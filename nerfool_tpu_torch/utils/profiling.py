@@ -32,6 +32,10 @@ Span names (the renderer's fire inside ``attack.render`` too):
   render.aggregate.coarse, .fine   the aggregator
   render.fine_sampler              the fine depths and points
   render.composite.coarse, .fine   raw output to per-ray outputs
+  pixelnerf.latent  pixelNeRF's encoder levels upsampled and concatenated
+  pixelnerf.views   its MLP's per-view blocks (lin_in, lin_z, blocks
+                    before the views' mean), inside render.aggregate.*
+  pixelnerf.pooled  the mean over the views, the other blocks, lin_out
 """
 from __future__ import annotations
 

@@ -261,9 +261,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_port_config_defaults_equal_the_jax_packages(tmp_path):
     """The port's own flag parser: every flag of the JAX package's parser
     with the same default, from no arguments and from both slice configs;
-    ``port_parser`` adds only the port's five flags and changes one default:
-    whole-frame renders take the per-tap gather unless ``--use_bspg True``
-    (as the JAX evaluator renders per tap off the TPU)."""
+    ``port_parser`` adds only the port's five flags and pixelNeRF's two
+    (no JAX counterpart) and changes one default: whole-frame renders take
+    the per-tap gather unless ``--use_bspg True`` (as the JAX evaluator
+    renders per tap off the TPU)."""
     for argv in ([], ["--config", os.path.join(REPO, "configs/gnt/gnt_full.txt")],
                  ["--config", os.path.join(REPO, "configs/ibrnet/eval_llff.txt"),
                   "--view_specific", "--adv_iters", "1000", "--epsilon", "8",
@@ -272,7 +273,8 @@ def test_port_config_defaults_equal_the_jax_packages(tmp_path):
         assert vars(config_parser().parse_args(argv)) == ref
         got = vars(port_parser().parse_args(argv))
         assert set(got) - set(ref) == {"device", "seed", "max_views",
-                                       "dataset_kwargs", "gnt_fused_vt"}
+                                       "dataset_kwargs", "gnt_fused_vt"} | {
+            "pixelnerf_d_hidden", "pixelnerf_n_depth"}
         assert ref["use_bspg"] is True and got["use_bspg"] is False
         assert {k: got[k] for k in ref if k != "use_bspg"} == {
             k: v for k, v in ref.items() if k != "use_bspg"}
