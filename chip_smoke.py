@@ -185,6 +185,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
      GNT's heads) against float64 through both routes, its 35 + 35 launches
      and its ms through both routes in turns. Alone: ``python3
      chip_smoke.py --conv-only`` (~2 min)
+ 21. K6 (``csrc/linear.cu``, pixelNeRF's ResnetFC products) at the
+     pixelNeRF attack cell's shapes (10 sources, 512 rays, 64 and 96
+     samples, 512 wide): lin_z on the coarse taps, fc_1 on the fine rows,
+     fc_0's and lin_z's input gradients, each against float64 beside
+     cuBLAS's f32 (no more than twice its error), their ms in turns with the
+     plain version's and ``torch.matmul``'s beside the bound; the pixelNeRF
+     attack on the synthetic slice through K6 and the module's layers in
+     turns (26 + 26 launches an iteration, held), a frame through
+     ``Evaluator.render_view`` at render_stride 4 (26 forward launches a
+     chunk, held), three pixelNeRF training steps through the trainer's
+     entry point (26 + 26 launches a step, held) and ResnetFC's every
+     gradient against float64. Alone: ``python3 chip_smoke.py
+     --dense-only`` (~2 min)
 K5's launches are held on the main paths' own runs above, where each is
 counted: 35 forward and 35 input-gradient launches an attack iteration or
 purification step, 35 forward a whole frame, 35 forward and 34 input
@@ -1507,7 +1520,7 @@ def check_view_attention(card, views, samples, render_rays, attack_rays):
 
 def kernel_counts():
     """The launch counts of every wrapper, by kernel name."""
-    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d,
+    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d, linear,
                                        ray_attention as ra,
                                        view_attention as va)
 
@@ -1518,18 +1531,21 @@ def kernel_counts():
             "ray_attention_bwd_dw": ra.ray_attention_bwd.dw_launches,
             "view_attention": va.view_attention.launches,
             "conv2d_forward": conv2d.conv2d_forward.launches,
-            "conv2d_input_grad": conv2d.conv2d_input_grad.launches}
+            "conv2d_input_grad": conv2d.conv2d_input_grad.launches,
+            "dense_forward": linear.dense_forward.launches,
+            "dense_input_grad": linear.dense_input_grad.launches}
 
 
 def zero_kernel_counts():
-    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d,
+    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d, linear,
                                        ray_attention as ra,
                                        view_attention as va)
 
     for fn in (bspg_select.select_taps, chain.gnt_chain,
                ra.ray_attention_fwd, ra.ray_attention_bwd,
                va.view_attention, conv2d.conv2d_forward,
-               conv2d.conv2d_input_grad):
+               conv2d.conv2d_input_grad, linear.dense_forward,
+               linear.dense_input_grad):
         fn.launches = 0
     ra.ray_attention_bwd.dw_launches = 0
 
@@ -1672,12 +1688,14 @@ def universal_slice(uev, card, depth, chunks, n_tables):
                        ray_attention_bwd=ATTACK_ITERS * depth,
                        ray_attention_bwd_dw=0,
                        conv2d_forward=K5_CONVS * (ATTACK_ITERS + 1),
-                       conv2d_input_grad=K5_CONVS * ATTACK_ITERS)
+                       conv2d_input_grad=K5_CONVS * ATTACK_ITERS,
+                       dense_forward=0, dense_input_grad=0)
     want_render = dict(bspg_select=n_tables * chunks, gnt_chain=0,
                        view_attention=chunks * depth,
                        ray_attention_fwd=chunks * depth, ray_attention_bwd=0,
                        ray_attention_bwd_dw=0, conv2d_forward=K5_CONVS,
-                       conv2d_input_grad=0)
+                       conv2d_input_grad=0, dense_forward=0,
+                       dense_input_grad=0)
     if attack != want_attack or render != want_render:
         raise AssertionError(f"universal launches: attack {attack} (expected "
                              f"{want_attack}), render {render} (expected "
@@ -3662,6 +3680,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     conv = check_conv2d(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = check_dense(card)
     s_att, s_ren, s_tr = (split["attack"]["launches"],
                           split["render"]["launches"],
                           split["train"]["launches"])
@@ -3836,7 +3857,22 @@ def main():
         "ms": conv["sums"]["k5_ms"], "plain_ms": conv["sums"]["plain_ms"],
         "bound_ms": conv["sums"]["bound_both_ms"], "bound_by": "operations",
         "library_ms": conv["sums"]["library_ms"], "shapes": conv["rows"],
-        "feature_net": conv["feature_net"]}],
+        "feature_net": conv["feature_net"]}, {
+        "name": "linear", "route": "cuda",
+        "source": "nerfool_tpu_torch/csrc/linear.cu", "replaces": None,
+        "launches": sum(dense["attack"]["launches"].values()),
+        "launches_by_path": {"pixelnerf_attack": dense["attack"]["launches"],
+                             "pixelnerf_frame": dense["frame"]["launches"],
+                             "pixelnerf_train": dense["trainer"]["launches"]},
+        "max_rel_err": dense["worst_err"],
+        "ms": sum(r["ms"] for r in dense["rows"]),
+        "plain_ms": sum(r["plain_ms"] for r in dense["rows"]),
+        "bound_ms": sum(r["bound_ms"] for r in dense["rows"]),
+        "bound_by": "operations",
+        "library_ms": sum(r["library_ms"] for r in dense["rows"]),
+        "shapes": dense["rows"], "attack": dense["attack"],
+        "frame": dense["frame"], "trainer": dense["trainer"],
+        "train": dense["train"]}],
         "attack": {"gnt": {**gnt_attack, **gnt_step, "render": gnt_adv},
                    "ibrnet": {**ibr_attack, "render": ibr_adv},
                    "universal": universal, "small_modes": small_modes,
@@ -4104,6 +4140,284 @@ def check_conv2d(card):
     return {"rows": rows, "sums": sums, "feature_net": nets_out}
 
 
+# ---- phase 21: K6, pixelNeRF's ResnetFC products ----
+
+# the pixelNeRF attack cell's shapes: 10 sources, 512 rays, 64 coarse and
+# 64 + 16 + 16 fine samples, 512 wide
+DENSE_VIEWS, DENSE_RAYS, DENSE_WIDTH = 10, 512, 512
+DENSE_SAMPLES = {"coarse": 64, "fine": 96}
+# the pixelNeRF attack and frame of the phase: the cell's flags on the
+# synthetic slice (378x504, 10 sources), 1 + DENSE_ITERS iterations a route
+DENSE_ITERS = 3
+PIXELNERF_ARGV = [
+    "--eval_dataset", "synthetic", "--backbone", "pixelnerf", "--ckpt_path",
+    "", "--num_source_views", "10", "--N_samples", "64", "--N_importance",
+    "16", "--pixelnerf_n_depth", "16", "--chunk_size", "4096",
+    "--view_specific", "--use_adam", "--adam_lr", "1e-3", "--adv_lr", "1",
+    "--epsilon", "8", "--N_rand", "512"]
+# K6 launches of one attack iteration: each of two nets runs COMBINE_LAYER
+# per-view blocks of three and N_BLOCKS - COMBINE_LAYER pooled blocks of
+# two, forward and input gradient alike; a frame's chunk runs the forwards
+K6_STEP = 26
+
+
+def check_dense(card):
+    """Phase 21: K6 (``ops/linear.py``) at the pixelNeRF attack cell's
+    shapes: ``lin_z`` on the coarse level's taps (the transposed view,
+    M-major) with the block input as addend, ``fc_1`` on the fine level's
+    rows (ReLU, bias, addend), the input gradients of ``fc_0`` (ReLU mask,
+    addend) and of ``lin_z``, each against float64 beside the plain version
+    (cuBLAS's f32, TF32 off); their ms by CUDA events in turns with the
+    plain version's, and ``torch.matmul``'s product alone (``library_ms``),
+    beside the bound (operations as three TF32 products at 495 TFLOP/s).
+    Then the pixelNeRF attack on the synthetic slice through K6 and through
+    the module's layers in turns (its launches, ms an iteration, the first
+    step's loss and gradient), one frame through ``Evaluator.render_view``
+    (launches and the coarse rgb through both routes), three steps of the
+    trainer (launches, losses), and one ResnetFC forward and backward with
+    the parameters requiring gradients against float64."""
+    import torch
+    from nerfool_tpu_torch import eval_adv
+    from nerfool_tpu_torch.attack.attack import (init_attack_state,
+                                                 make_attack_step,
+                                                 select_ray_indices)
+    from nerfool_tpu_torch.engine import Evaluator, build_attack_config
+    from nerfool_tpu_torch.models import pixelnerf
+    from nerfool_tpu_torch.ops import linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    linear.build()
+    log("K6 build", f"csrc/linear.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n = DENSE_WIDTH
+    rel = lambda a, r: float((a.double() - r).abs().max() / r.abs().max())
+    rows = []
+    for level, samples in DENSE_SAMPLES.items():
+        p = DENSE_RAYS * samples
+        m = DENSE_VIEWS * p
+        randn = lambda *shape: torch.randn(*shape, device="cuda",
+                                           generator=gen)
+        taps = randn(DENSE_VIEWS, n, p).transpose(1, 2)
+        h, h2, g, g2 = (randn(DENSE_VIEWS, p, n) for _ in range(4))
+        w = randn(n, n) / math.sqrt(n)
+        b = randn(n)
+        d64 = lambda t: t.double() if torch.is_tensor(t) else t
+        cases = {
+            "lin_z": (linear.dense_forward, linear.dense_plain,
+                      (taps, w, b, h, False), taps),
+            "fc_1": (linear.dense_forward, linear.dense_plain,
+                     (h, w, b, h2, True), h),
+            "fc_0 input gradient": (
+                linear.dense_input_grad, linear.dense_input_grad_plain,
+                (g, w, h, g2), g),
+            "lin_z input gradient": (
+                linear.dense_input_grad, linear.dense_input_grad_plain,
+                (g, w, None, None), g)}
+        for name, (kernel, plain, args, a) in cases.items():
+            ref = plain(*map(d64, args))
+            err, lib_err = rel(kernel(*args), ref), rel(plain(*args), ref)
+            del ref
+            wt = w.t() if kernel is linear.dense_forward else w
+            ms = {"k6": [], "plain": []}
+            for route in ("k6", "plain", "plain", "k6"):
+                fn = kernel if route == "k6" else plain
+                ms[route].append(time_ms(lambda: fn(*args), 10))
+            library = time_ms(lambda: torch.matmul(a, wt), 10)
+            bound = 3 * 2 * m * n * n / PEAK_FLOPS["tf32"] * 1e3
+            row = dict(level=level, product=name, rows=m, k6_err=err,
+                       cublas_err=lib_err, ms=min(ms["k6"]),
+                       ms_turns=ms["k6"], plain_ms=min(ms["plain"]),
+                       library_ms=library, bound_ms=bound,
+                       share=bound / min(ms["k6"]))
+            rows.append(row)
+            log("K6", f"{level} {name}, {m} rows: {row['ms']:.3f} ms "
+                f"({100 * row['share']:.1f}% of {bound:.3f}), plain "
+                f"{row['plain_ms']:.3f}, torch.matmul {library:.3f}; "
+                f"from float64 {err:.2e} (cuBLAS f32 {lib_err:.2e}); {card}")
+            if err > 2 * lib_err:
+                raise AssertionError(f"K6 {level} {name}: {err:.3e} from "
+                                     f"float64, over twice cuBLAS's "
+                                     f"{lib_err:.3e}")
+        del taps, h, h2, g, g2
+        torch.cuda.empty_cache()
+
+    # the attack and a frame, through K6 and the module's layers in turns
+    ev = Evaluator(eval_adv.parse_args(PIXELNERF_ARGV),
+                   dataset_kwargs=SLICE_DATA, device="cuda", seed=0)
+    d = ev.test_dataset[0]
+    tgt, (hh, ww) = ev._make_target(d)
+    src = ev._make_src(d)
+    cfg = build_attack_config(ev.args, hh, ww)
+    step = make_attack_step(ev.bundle, ev._grad_render_cfg(), cfg)
+    takes = linear.takes
+
+    def attack():
+        g0 = torch.Generator(device="cuda").manual_seed(7)
+        state = init_attack_state(g0, cfg, src["rgbs"])
+        for i in range(DENSE_ITERS + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                zero_kernel_counts()
+                t1 = time.perf_counter()
+            sel = select_ray_indices(g0, cfg, "cuda")
+            state, aux = step(state, tgt, src, sel=sel, generator=g0)
+            if i == 0:
+                first = dict(loss=float(aux["loss"]), g=state["m"] / -0.1)
+        torch.cuda.synchronize()
+        return dict(first, ms_per_iter=(time.perf_counter() - t1)
+                    / DENSE_ITERS * 1e3, launches=kernel_counts())
+
+    def frame():
+        ev.generator.manual_seed(11)
+        zero_kernel_counts()
+        with torch.inference_mode():
+            out = ev.render_view(d, src)
+        torch.cuda.synchronize()
+        return out, kernel_counts()
+
+    runs = {}
+    for route in ("k6", "layers", "layers", "k6"):
+        linear.takes = takes if route == "k6" else (
+            lambda t: t.device.type != "cuda" and takes(t))
+        try:
+            runs.setdefault(route, []).append(attack())
+        finally:
+            linear.takes = takes
+    k6, lay = runs["k6"][0], runs["layers"][0]
+    want = {"dense_forward": K6_STEP * DENSE_ITERS,
+            "dense_input_grad": K6_STEP * DENSE_ITERS}
+    got = {k: k6["launches"][k] for k in want}
+    if got != want or any(r["launches"][k] for r in runs["layers"]
+                          for k in want):
+        raise AssertionError(f"K6 launches in {DENSE_ITERS} pixelNeRF "
+                             f"attack iterations {got}, not {want}; the "
+                             f"layers' route {runs['layers'][0]['launches']}")
+    g_rel = float((k6["g"] - lay["g"]).norm() / lay["g"].norm())
+    attack_out = dict(
+        ms_per_iter={r: [x["ms_per_iter"] for x in runs[r]] for r in runs},
+        loss={"k6": k6["loss"], "layers": lay["loss"]},
+        grad_rel_l2=g_rel, launches=got)
+    log("K6 attack", f"pixelNeRF, 378x504, 10 sources, N_rand 512: "
+        f"{attack_out['ms_per_iter']} ms/iter (K6, layers in turns); loss "
+        f"{k6['loss']:.6f} / {lay['loss']:.6f}; first gradient relative L2 "
+        f"{g_rel:.2e}; launches {got}; {card}")
+    if not math.isfinite(g_rel):
+        raise AssertionError(f"K6's first attack gradient: {g_rel}")
+
+    ev.args.render_stride = 4
+    out_k6, launches = frame()
+    linear.takes = lambda t: t.device.type != "cuda" and takes(t)
+    try:
+        out_lay, lay_launches = frame()
+    finally:
+        linear.takes = takes
+    rgb, rgb_lay = out_k6["outputs_coarse"]["rgb"], out_lay[
+        "outputs_coarse"]["rgb"]
+    rays = rgb.numel() // 3
+    chunks = -(-rays // ev.args.chunk_size)
+    frame_out = dict(rays=rays, chunks=chunks,
+                     launches=launches["dense_forward"],
+                     input_grad_launches=launches["dense_input_grad"],
+                     coarse_rgb_max_diff=float((rgb - rgb_lay).abs().max()),
+                     finite=bool(torch.isfinite(rgb).all()))
+    log("K6 frame", f"Evaluator.render_view at render_stride 4: {frame_out}"
+        f"; {card}")
+    if (frame_out["launches"] != K6_STEP * chunks
+            or frame_out["input_grad_launches"] or not frame_out["finite"]
+            or lay_launches["dense_forward"]):
+        raise AssertionError(f"K6 frame: {frame_out}, the layers' route "
+                             f"{lay_launches}")
+    del ev, step, src, tgt
+    torch.cuda.empty_cache()
+
+    # the trainer: DENSE_ITERS steps of pixelNeRF at the slice's size
+    from nerfool_tpu_torch.train.__main__ import main as train_main
+
+    zero_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = train_main([
+            "--train_dataset", "synthetic", "--device", "cuda", "--backbone",
+            "pixelnerf", "--ckpt_path", "", "--n_iters", str(DENSE_ITERS),
+            "--N_samples", "64", "--N_importance", "16",
+            "--pixelnerf_n_depth", "16", "--num_source_views", "10",
+            "--N_rand", "512", "--workers", "0", "--no_reload", "--i_img",
+            "0", "--i_weights", "1000", "--i_print", "1", "--out_dir", tmp,
+            "--dataset_kwargs", json.dumps(SLICE_DATA)])
+    counts = kernel_counts()
+    losses = [h["loss"] for h in trainer.history]
+    trained = dict(losses=losses, launches={
+        k: counts[k] for k in ("dense_forward", "dense_input_grad")})
+    log("K6 trainer", f"pixelNeRF, {DENSE_ITERS} steps at 378x504 with 10 "
+        f"sources, N_rand 512: {trained}; {card}")
+    if (trained["launches"] != {"dense_forward": K6_STEP * DENSE_ITERS,
+                                "dense_input_grad": K6_STEP * DENSE_ITERS}
+            or len(losses) != DENSE_ITERS
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"K6 trainer: {trained}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # what a training step asks of ResnetFC: every parameter's gradient
+    torch.manual_seed(3)
+    net = pixelnerf.ResnetFC(DENSE_WIDTH).cuda()
+    p = DENSE_RAYS * 8
+    taps = torch.randn(DENSE_VIEWS, pixelnerf.LATENT, p, device="cuda",
+                       generator=gen).transpose(1, 2).reshape(
+        DENSE_VIEWS, DENSE_RAYS, 8, pixelnerf.LATENT).requires_grad_(True)
+    x_in = torch.randn(DENSE_VIEWS, DENSE_RAYS, 8, pixelnerf.D_IN,
+                       device="cuda", generator=gen)
+    cot = torch.randn(DENSE_RAYS, 8, 4, device="cuda", generator=gen)
+
+    def grads(module, dtype):
+        out = module(taps.to(dtype), x_in.to(dtype))
+        return torch.autograd.grad((out * cot.to(dtype)).sum(),
+                                   [taps] + list(module.parameters()))
+
+    got = grads(net, torch.float32)
+    linear.takes = lambda t: t.device.type != "cuda" and takes(t)
+    try:
+        lay = grads(net, torch.float32)
+        want = grads(net.double(), torch.float64)
+    finally:
+        linear.takes = takes
+    # largest error as a share of the largest entry, and relative L2: a
+    # ReLU whose input lies within rounding of 0 takes another branch in
+    # f32 than in float64 now and then, and moves a weight gradient's row
+    # by ~1e-4 of its scale on either route
+    l2 = lambda a, r: float((a.double() - r).norm() / r.norm())
+    names = ["latent"] + [k for k, _ in net.named_parameters()]
+    errs = {k: {"k6": (rel(a, c), l2(a, c)), "layers": (rel(b, c), l2(b, c))}
+            for k, a, b, c in zip(names, got, lay, want)}
+    worst = max(errs, key=lambda k: errs[k]["k6"][1])
+    train = {"grad_err": errs, "worst": worst}
+    log("K6 train step", f"ResnetFC forward and backward with every "
+        f"parameter's gradient, {DENSE_VIEWS} x {p} rows, against float64: "
+        f"worst relative L2 {worst} {errs[worst]} (K6, the layers' cuBLAS "
+        f"f32: largest entry share, relative L2); {card}")
+    if errs[worst]["k6"][1] > 1e-3:
+        raise AssertionError(f"K6 train step: {worst} {errs[worst]}")
+    return {"rows": rows, "attack": attack_out, "frame": frame_out,
+            "trainer": trained, "train": train,
+            "worst_err": max(r["k6_err"] for r in rows)}
+
+
+def dense_alone():
+    """Phase 21 alone: ``python3 chip_smoke.py --dense-only``; prints its
+    readings as one JSON line."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: torch.cuda.is_available() is False")
+    card = card_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}; {card}")
+    out = check_dense(card)
+    print(json.dumps({"card": card, "dense": out}))
+
+
 def conv_alone():
     """Phase 20 alone: ``python3 chip_smoke.py --conv-only``; prints its
     readings as one JSON line."""
@@ -4168,6 +4482,8 @@ if __name__ == "__main__":
                    sys.argv[5])
     elif sys.argv[1:2] == ["--conv-only"]:
         conv_alone()
+    elif sys.argv[1:2] == ["--dense-only"]:
+        dense_alone()
     elif sys.argv[1:2] == ["--split-only"]:
         split_alone(sys.argv[2] if len(sys.argv) > 2 else ROOT)
     else:

@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nerfool_tpu_torch.models.layers import Conv2d
+from nerfool_tpu_torch.ops import linear
 from nerfool_tpu_torch.utils.profiling import span
 
 # the stages of torchvision's ResNet-34 that the encoder runs (its
@@ -126,14 +127,22 @@ class SpatialEncoder(nn.Module):
 
 
 class ResnetBlockFC(nn.Module):
-    """``x + fc_1(relu(fc_0(relu(x))))``."""
+    """``x + fc_1(relu(fc_0(relu(x))))``, on ``x + lin_z(latent)`` where
+    ``lin_z`` is given. Where ``ops/linear.takes`` the input (float32 on a
+    card: K6; float32 or float64 on the CPU: its plain versions) the block
+    runs as ``ops/linear.resnet_block``, else through the layers."""
 
     def __init__(self, size):
         super().__init__()
         self.fc_0 = nn.Linear(size, size)
         self.fc_1 = nn.Linear(size, size)
 
-    def forward(self, x):
+    def forward(self, x, lin_z=None, latent=None):
+        if linear.takes(x):
+            return linear.resnet_block(x, self.fc_0, self.fc_1, lin_z,
+                                       latent)
+        if lin_z is not None:
+            x = x + lin_z(latent)
         return x + self.fc_1(F.relu(self.fc_0(F.relu(x))))
 
 
@@ -142,7 +151,10 @@ class ResnetFC(nn.Module):
     blocks ``0 .. COMBINE_LAYER - 1`` per source view, each after adding
     ``lin_z[b]`` of the latent; the mean over the views; the other blocks;
     ``lin_out`` after a ReLU. Returns the raw output (rgb logits, sigma
-    before its ReLU)."""
+    before its ReLU). The blocks' products (``lin_z``, ``fc_0``, ``fc_1``)
+    are K6 for float32 on a card (``ResnetBlockFC``); ``lin_in`` (42 inputs)
+    and ``lin_out`` (4 outputs), under 1% of the products, stay
+    ``nn.Linear``."""
 
     def __init__(self, d_hidden=512):
         super().__init__()
@@ -161,7 +173,7 @@ class ResnetFC(nn.Module):
         with span("pixelnerf.views"):
             h = self.lin_in(x)
             for b in range(COMBINE_LAYER):
-                h = self.blocks[b](h + self.lin_z[b](latent))
+                h = self.blocks[b](h, self.lin_z[b], latent)
         with span("pixelnerf.pooled"):
             h = torch.mean(h, dim=0)
             for blk in self.blocks[COMBINE_LAYER:]:

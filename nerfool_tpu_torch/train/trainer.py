@@ -35,7 +35,8 @@ from nerfool_tpu_torch.attack.attack import (AttackConfig, _frozen,
 from nerfool_tpu_torch.attack.perturb import clamp
 from nerfool_tpu_torch.parallel.distributed import is_main_process
 from nerfool_tpu_torch.render.render_rays import (RenderConfig,
-                                                  noise_draws, render_rays)
+                                                  noise_draws, render_rays,
+                                                  sample_draws)
 from nerfool_tpu_torch.utils.cameras import get_rays, get_rays_at
 
 
@@ -115,14 +116,17 @@ def make_optimizer(cfg: TrainConfig, bundle):
 def render_draws(generator, render_cfg: RenderConfig, n_rays, device,
                  dtype=torch.float32):
     """One render's random draws: {'samples': (coarse jitter [R, S], fine
-    quantiles [R, I] or None) when sampling stochastically, else None;
-    'noise': IBRNet's ``geo_noise`` draws (coarse [R, S], fine [R, S + I]
-    or None), else None}."""
+    quantiles [R, I] or None) when sampling stochastically, pixelNeRF's
+    four draws (``sample_draws``: its sampler draws at every render), else
+    None; 'noise': IBRNet's ``geo_noise`` draws (coarse [R, S], fine [R, S
+    + I] or None), else None}."""
     s, i = render_cfg.n_samples, render_cfg.n_importance
     rand = lambda *shape: torch.rand(shape, generator=generator,
                                      device=device, dtype=dtype)
     samples = None
-    if not render_cfg.det:
+    if render_cfg.backbone == "pixelnerf":
+        samples = sample_draws(generator, render_cfg, n_rays, dtype, device)
+    elif not render_cfg.det:
         samples = (rand(n_rays, s), rand(n_rays, i) if i else None)
     return {"samples": samples, "noise": noise_draws(
         generator, render_cfg, n_rays, dtype, device)}

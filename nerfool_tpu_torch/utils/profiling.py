@@ -85,12 +85,14 @@ class SpanRecord:
 def kernel_launches():
     """Launches of the port's hand-written kernels so far: the sum of their
     wrappers' counters."""
-    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d,
+    from nerfool_tpu_torch.ops import (bspg_select, chain, conv2d, linear,
                                        ray_attention, view_attention)
 
     return (bspg_select.select_taps.launches + chain.gnt_chain.launches
             + conv2d.conv2d_forward.launches
             + conv2d.conv2d_input_grad.launches
+            + linear.dense_forward.launches
+            + linear.dense_input_grad.launches
             + ray_attention.ray_attention_fwd.launches
             + ray_attention.ray_attention_bwd.launches
             + view_attention.view_attention.launches)
