@@ -58,8 +58,8 @@ from nerfool_tpu_torch.attack.pcgrad import pcgrad_combine
 from nerfool_tpu_torch.attack.perturb import clamp, init_delta, project_delta
 from nerfool_tpu_torch.attack.warp import forward_warp
 from nerfool_tpu_torch.render.render_rays import (RenderConfig,
-                                                  noise_draws, render_rays,
-                                                  sample_draws)
+                                                  render_draws, render_rays,
+                                                  share_draws)
 from nerfool_tpu_torch.utils.cameras import get_rays_at, transform_src_cameras
 from nerfool_tpu_torch.utils.profiling import span
 
@@ -282,10 +282,10 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         drawn from ``generator`` when None
       depth_src_id, camera_src_id: the source view each consistency term
         warps; drawn from ``generator`` when None
-      samples: pixelNeRF's sampling draws of the main batch (and of its
-        pseudo-GT render), as ``render_rays.sample_draws`` gives them; drawn
-        from ``generator`` when None (other renders of the step draw their
-        own)
+      samples: the sampling draws of the main batch (and of its pseudo-GT
+        render), ``render_rays.render_draws``' 'samples' (pixelNeRF's four
+        draws, or None); drawn from ``generator`` when None (other renders
+        of the step draw their own)
       pc_order: with ``use_pcgrad`` and no major loss, the order in which
         each loss's gradient is projected against the others; drawn from
         ``generator`` when None
@@ -314,8 +314,6 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
     def render_at(feats, cam, target, src, src_cams, sel, w, generator,
                   rcfg=render_cfg, unit=1, samples=None):
         n = sel.shape[0]
-        rows_of = lambda draws, rows: None if draws is None else tuple(
-            None if x is None else x[rows] for x in draws)
 
         def render(rows=None):
             part = sel if rows is None else sel[rows]
@@ -324,18 +322,13 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
             batch = {"ray_o": rays_o, "ray_d": rays_d,
                      "depth_range": target["depth_range"],
                      "camera": cam[None]}
-            noise, smp = None, samples
-            if rows is not None:
+            draws = {"samples": samples}
+            if rows is not None:  # the whole batch's draws, this rank's rows
                 dtype = torch.promote_types(feats[0].dtype, torch.float32)
-                noise = rows_of(noise_draws(generator, rcfg, n, dtype,
-                                            part.device), rows)
-                if smp is None:
-                    smp = sample_draws(generator, rcfg, n, dtype,
-                                       part.device)
-                smp = rows_of(smp, rows)
+                draws, = share_draws(generator, rcfg, [n], rows, dtype,
+                                     part.device, samples=samples)
             return render_rays(nets, batch, feats, rcfg, src["rgbs"],
-                               src_cams, generator=generator, noise=noise,
-                               samples=smp)
+                               src_cams, generator=generator, **draws)
 
         if split is None:
             return render()
@@ -345,15 +338,6 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         """A per-ray tensor every rank computes in full: its gradient on
         this rank's rays only (identity without a split)."""
         return x if split is None or x is None else split.localize(x)
-
-    def both_levels(fn, ret, *others):
-        """fn summed over the coarse and (when rendered) fine outputs."""
-        total = fn(ret["outputs_coarse"],
-                   *(o["outputs_coarse"] for o in others))
-        if ret["outputs_fine"] is not None:
-            total = total + fn(ret["outputs_fine"],
-                               *(o["outputs_fine"] for o in others))
-        return total
 
     def depth_consistency(feats, ret, target, src, src_cams, draws,
                           generator):
@@ -385,8 +369,8 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         depth_proj = localize(forward_warp(
             sel, None, src["depths"][sid][0], k_src, _c2w(src_cam),
             _k3(tar_cam), _c2w(tar_cam))[3])
-        return both_levels(lambda o: L.smooth_l1(o["depth"], depth_proj,
-                                                 depth_proj > 0), ret)
+        return L.both_levels(lambda o: L.smooth_l1(o["depth"], depth_proj,
+                                                   depth_proj > 0), ret)
 
     def camera_consistency(ret, target, src, src_cams, draws):
         """rgb and depth warped source -> target and target -> source
@@ -460,15 +444,16 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
                         if target.get("depth") is not None else None)
 
         # inserted in JAX's order, which is the order of the sum
-        terms = {"rgb": both_levels(lambda o: L.rgb_criterion(o, gt_rgb), ret)}
+        terms = {"rgb": L.both_levels(lambda o: L.rgb_criterion(o, gt_rgb),
+                                      ret)}
         if cfg.density_loss > 0:
-            terms["density"] = cfg.density_loss * both_levels(
+            terms["density"] = cfg.density_loss * L.both_levels(
                 L.density_loss, ret, ret_gt)
         if cfg.depth_var_loss > 0:
-            terms["depth_var"] = cfg.depth_var_loss * both_levels(
+            terms["depth_var"] = cfg.depth_var_loss * L.both_levels(
                 L.depth_var_loss, ret)
         if cfg.depth_diff_loss > 0:
-            terms["depth_diff"] = cfg.depth_diff_loss * both_levels(
+            terms["depth_diff"] = cfg.depth_diff_loss * L.both_levels(
                 lambda o: L.depth_diff_loss(o, gt_depth), ret)
         if cfg.depth_consistency_loss > 0:
             terms["depth_cons"] = cfg.depth_consistency_loss * \
@@ -485,7 +470,7 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
                         feats, target["camera"], target, src, src_cams,
                         draws["sel_patch"], cfg.w, generator,
                         unit=patch_unit)
-            terms["depth_smooth"] = cfg.depth_smooth_loss * both_levels(
+            terms["depth_smooth"] = cfg.depth_smooth_loss * L.both_levels(
                 lambda o: L.depth_smooth_loss(o["depth"], cfg.patch_size),
                 ret_smooth)
         if cfg.camera_consistency_loss > 0:
@@ -499,9 +484,9 @@ def make_attack_step(bundle, render_cfg: RenderConfig, cfg: AttackConfig,
         caller gave it."""
         if sel is None:
             sel = select_ray_indices(generator, cfg, device)
-        if samples is None:
-            samples = sample_draws(generator, render_cfg, sel.shape[0],
-                                   torch.float32, device)
+        if samples is None:  # the main render's and its pseudo-GT's
+            samples = render_draws(generator, gt_cfg, sel.shape[0],
+                                   torch.float32, device)["samples"]
         if (sel_patch is None and cfg.depth_smooth_loss > 0
                 and not cfg.use_patch_sampling):
             sel_patch = select_ray_indices(

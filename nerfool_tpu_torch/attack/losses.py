@@ -9,6 +9,16 @@ import torch
 TINY = 1e-6
 
 
+def both_levels(fn, ret, *others):
+    """``fn`` summed over the coarse and (when rendered) fine outputs of
+    ``ret``, with those of ``others`` at the same level."""
+    total = fn(ret["outputs_coarse"], *(o["outputs_coarse"] for o in others))
+    if ret["outputs_fine"] is not None:
+        total = total + fn(ret["outputs_fine"],
+                           *(o["outputs_fine"] for o in others))
+    return total
+
+
 def masked_mse(pred, gt, mask=None):
     """Plain mean, or mask-weighted mean over the last axis size."""
     if mask is None:

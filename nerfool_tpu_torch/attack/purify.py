@@ -111,24 +111,20 @@ def make_purify_step(bundle, render_cfg: RenderConfig, cfg: PurifyConfig):
                           render_cfg, src["rgbs"], src["cameras"],
                           generator=generator)
 
-        def both_levels(fn):
-            total = fn(ret["outputs_coarse"])
-            if ret["outputs_fine"] is not None:
-                total = total + fn(ret["outputs_fine"])
-            return total
-
         terms = {}
         if cfg.use_self_purification:
             gt = perturbed[view_id][0].reshape(-1, 3)[sel]
-            terms["rgb"] = both_levels(lambda o: L.rgb_criterion(o, gt))
+            terms["rgb"] = L.both_levels(lambda o: L.rgb_criterion(o, gt),
+                                         ret)
         if cfg.purif_consistency_loss > 0:
             s_cam = src["cameras"][cons_id][0]
             rgb_warped = forward_warp(
                 sel, perturbed[cons_id][0], src["depths"][cons_id][0],
                 s_cam[2:18].reshape(4, 4)[:3, :3], s_cam[18:34].reshape(4, 4),
                 intr[:3, :3], c2w, src2tar=True)[2]
-            terms["camera_cons"] = cfg.purif_consistency_loss * both_levels(
-                lambda o: L.smooth_l1(o["rgb"], rgb_warped, rgb_warped > 0))
+            terms["camera_cons"] = cfg.purif_consistency_loss * L.both_levels(
+                lambda o: L.smooth_l1(o["rgb"], rgb_warped, rgb_warped > 0),
+                ret)
         return terms
 
     def step(state, target, src, delta, generator=None, sel=None,

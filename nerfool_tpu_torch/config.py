@@ -15,6 +15,7 @@ Flags of dispatch formulations the port does not have (``--scan_group``,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import shlex
 import sys
 
@@ -36,6 +37,14 @@ def on_off_auto(v):
     if v.lower() in ("auto", "on", "off"):
         return v.lower()
     return "on" if str2bool(v) else "off"
+
+
+def from_flags(cls, args, **given):
+    """The dataclass ``cls`` with the fields ``given`` and every other
+    field read from the parsed flag of its name."""
+    return cls(**given, **{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(cls)
+                           if f.name not in given})
 
 
 class ConfigArgumentParser(argparse.ArgumentParser):

@@ -16,32 +16,17 @@ optimized over streamed train views, then added to ``delta``), then
 / ``--use_clean_density`` render the test views as hybrids of the attacked
 and the clean sources' features; ``--geo_noise`` adds noise to IBRNet's
 sigma in the attack's renders and the evaluator's, drawn from the
-evaluator's generator. Renders are measured with PSNR and SSIM in the
-backbone's protocol (TF's for IBRNet and pixelNeRF, ``img2psnr`` and
-windowed SSIM for GNT), and with LPIPS when ``--lpips_weights`` names a
-weights file (IBRNet's and pixelNeRF's convention scales [0, 1] images to
-[-1, 1], GNT's feeds them raw; without weights LPIPS reads NaN, as in the
-JAX evaluator). pixelNeRF (``--backbone pixelnerf``, no JAX counterpart)
-runs the same attack and frames in float32 on the per-tap gather; its
-sampler draws at every render, from the evaluator's generator. With an
+evaluator's generator. Renders are measured with PSNR, SSIM and, when
+``--lpips_weights`` names a weights file, LPIPS (else NaN, as in the JAX
+evaluator), in the backbone's protocol (``backbones/``). With an
 ``out_dir`` the evaluator writes the JAX evaluator's image dumps
 (``utils/vis.py``).
 
-The attack runs in float32 on the per-tap gather. ``--gnt_fused_attack``
-routes the differentiated GNT step through the ray-attention kernel
-(``ops/ray_attention.py``, forward and backward), ``--gnt_fused_attn on``
-the no-grad f32 GNT renders, ``--gnt_fused_vt`` their view attention
-through its forward-only kernel (``ops/view_attention.py``; ``auto``, the
-default, = on a CUDA device); on the CPU each takes its kernel's plain
-version.
-
-Both backbones render in float32 or bfloat16 (``--compute_dtype``: the
-aggregator and its inputs), and ``--feature_dtype bfloat16`` runs the
-feature net's convolutions in bf16 with f32 outputs. ``--gnt_fused_chain``
-resolves as in the JAX evaluator: ``auto`` runs bf16 whole-frame GNT renders
-on a CUDA device through the whole-chain kernel (``ops/chain.py``), ``on``
-forces the chain (its plain version on the CPU), ``off`` keeps the module
-path. f32 renders take the module path either way.
+The attack runs in float32 on the per-tap gather. The backbone's render
+configs choose the kernel routes of the attack step and of whole frames
+(``backbones/gnt.py``); ``--compute_dtype bfloat16`` runs IBRNet's and
+GNT's aggregators in bf16, ``--feature_dtype bfloat16`` the feature net's
+convolutions (with f32 outputs).
 
 Whole-frame renders take the per-tap gather by default; ``--use_bspg
 True`` takes the block segment-patch gather: it is planned once over every
@@ -52,7 +37,8 @@ do, and the evaluator prints one line naming the reason, once per reason: a
 loader without ``target_cameras()``, a camera set no patch size covers, a
 frame of another size than the planned one, or the camera-pose attack
 (``--perturb_camera``), which moves the source cameras out of the planned
-set. The route is chosen before any launch.
+set, or a backbone that gathers per tap (pixelNeRF). The route is chosen
+before any launch.
 
 Launched as one process per card (``torchrun``: ``WORLD_SIZE`` > 1 in the
 environment), the evaluator joins the process group
@@ -77,6 +63,7 @@ import warnings
 import numpy as np
 import torch
 
+from nerfool_tpu_torch import backbones
 from nerfool_tpu_torch.attack.attack import (
     AttackConfig,
     init_attack_state,
@@ -88,11 +75,10 @@ from nerfool_tpu_torch.attack.purify import (
     make_purify_step,
 )
 from nerfool_tpu_torch.attack.geo_interp import sample_unseen_pose
-from nerfool_tpu_torch.config import on_off_auto
+from nerfool_tpu_torch.config import from_flags
 from nerfool_tpu_torch.data import dataset_dict
 from nerfool_tpu_torch.data.base import Loader
 from nerfool_tpu_torch.device import resolve_device
-from nerfool_tpu_torch.metrics.image import img2psnr, psnr, ssim, ssim_windowed
 from nerfool_tpu_torch.metrics.lpips import LPIPS, load_lpips_weights
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.resunet import feature_hw
@@ -102,82 +88,47 @@ from nerfool_tpu_torch.parallel.distributed import (initialize,
 from nerfool_tpu_torch.parallel.mesh import ray_split
 from nerfool_tpu_torch.render.render_image import render_single_image
 from nerfool_tpu_torch.render.render_rays import RenderConfig
-from nerfool_tpu_torch.utils.cameras import get_rays, transform_src_cameras
+from nerfool_tpu_torch.utils.cameras import (frame_batch,
+                                             transform_src_cameras)
 from nerfool_tpu_torch.utils.logging import save_run_config
 from nerfool_tpu_torch.utils.profiling import span
 from nerfool_tpu_torch.utils.vis import colorize_np, to8b, write_png
 
 
-def render_config_from_args(args) -> RenderConfig:
-    if args.backbone not in ("ibrnet", "gnt", "pixelnerf"):
-        raise ValueError(f"unknown backbone {args.backbone!r}")
+def render_config_from_args(args, use=None, device=None) -> RenderConfig:
+    """The flags' render config for ``use``: 'frame' (whole-frame renders
+    on ``device``, which it needs, before any BSPG plan), 'attack' (the
+    differentiated attack step), 'train', or None (the flags alone). The
+    backbone (``backbones/``) adds its own fields and refuses what it
+    cannot render."""
+    if use == "frame" and device is None:
+        raise ValueError("a frame's render config needs its device")
+    bb = backbones.of(args.backbone)
     if args.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--compute_dtype {args.compute_dtype} (float32 or "
                          "bfloat16)")
-    gnt = args.backbone == "gnt"
-    if args.backbone == "pixelnerf" and (
-            args.compute_dtype != "float32" or args.use_clean_color
-            or args.use_clean_density):
-        raise ValueError("pixelNeRF renders in float32, without hybrids")
-    return RenderConfig(n_samples=args.N_samples,
-                        n_importance=args.N_importance,
-                        inv_uniform=bool(args.inv_uniform),
-                        det=bool(args.det),
-                        white_bkgd=bool(args.white_bkgd),
-                        backbone=args.backbone,
-                        single_net=gnt and bool(args.single_net),
-                        ret_alpha=not gnt or bool(args.ret_alpha),
-                        stop_camera_grad=not gnt and not getattr(
-                            args, "perturb_camera_no_detach", False),
-                        geo_noise=float(args.geo_noise or 0.0),
-                        use_clean_color=bool(args.use_clean_color),
-                        use_clean_density=bool(args.use_clean_density),
-                        compute_dtype=args.compute_dtype,
-                        n_depth=getattr(args, "pixelnerf_n_depth", 16))
-
-
-def frame_render_config(args, device) -> RenderConfig:
-    """Render config of whole-frame renders on ``device``, before any BSPG
-    plan: ``--gnt_fused_chain`` (auto = on a CUDA device), ``--gnt_fused_attn
-    on`` and ``--gnt_fused_vt`` (auto = on a CUDA device) for GNT. The
-    view-attention kernel has no backward, so the attack step's config
-    never carries it."""
-    gnt = args.backbone == "gnt"
-    cuda = torch.device(device).type == "cuda"
-    chain = getattr(args, "gnt_fused_chain", "auto")
-    vt = on_off_auto(getattr(args, "gnt_fused_vt", "auto"))
-    return dataclasses.replace(
-        render_config_from_args(args),
-        gnt_fused_chain=gnt and (chain == "on" or (chain == "auto" and cuda)),
-        gnt_fused_attn=gnt and getattr(args, "gnt_fused_attn", "auto") == "on",
-        gnt_fused_vt=gnt and (vt == "on" or (vt == "auto" and cuda)))
+    cfg = RenderConfig(n_samples=args.N_samples,
+                       n_importance=args.N_importance,
+                       inv_uniform=bool(args.inv_uniform),
+                       det=bool(args.det),
+                       white_bkgd=bool(args.white_bkgd),
+                       backbone=args.backbone,
+                       stop_camera_grad=not getattr(
+                           args, "perturb_camera_no_detach", False),
+                       geo_noise=float(args.geo_noise or 0.0),
+                       use_clean_color=bool(args.use_clean_color),
+                       use_clean_density=bool(args.use_clean_density),
+                       compute_dtype=args.compute_dtype)
+    return bb.render_config(cfg, args, use, device)
 
 
 def build_attack_config(args, h, w) -> AttackConfig:
-    return AttackConfig(
-        h=h, w=w,
-        epsilon=float(args.epsilon), adv_lr=args.adv_lr,
-        adv_iters=args.adv_iters, use_adam=args.use_adam,
-        adam_lr=args.adam_lr, lr_step_size=args.lr_step_size,
-        lr_gamma=args.lr_gamma, n_rand=args.N_rand,
-        sample_mode=args.sample_mode, center_ratio=args.center_ratio,
-        use_patch_sampling=args.use_patch_sampling,
-        patch_size=args.patch_size,
-        use_pseudo_gt=args.use_pseudo_gt or args.use_unseen_views,
-        density_loss=args.density_loss, depth_var_loss=args.depth_var_loss,
-        depth_diff_loss=args.depth_diff_loss,
-        depth_smooth_loss=args.depth_smooth_loss,
-        depth_consistency_loss=args.depth_consistency_loss,
-        ds_rgb=args.ds_rgb, resize_factor=args.resize_factor,
-        camera_consistency_loss=args.camera_consistency_loss,
-        cam_src2tar=args.cam_src2tar, cam_tar2src=args.cam_tar2src,
-        cam_depth=args.cam_depth,
-        perturb_camera_no_detach=args.perturb_camera_no_detach,
-        use_pcgrad=args.use_pcgrad, major_loss=args.major_loss,
-        perturb_camera=args.perturb_camera,
-        perturb_camera_no_opt=args.perturb_camera_no_opt,
-        zero_camera_init=args.zero_camera_init,
-        rot_epsilon=args.rot_epsilon, trans_epsilon=args.trans_epsilon)
+    """The flags' attack config for ``h`` x ``w`` targets (``--N_rand``
+    rays; ``--use_unseen_views`` implies the pseudo ground truth)."""
+    return from_flags(
+        AttackConfig, args, h=h, w=w, n_rand=args.N_rand,
+        epsilon=float(args.epsilon),
+        use_pseudo_gt=args.use_pseudo_gt or args.use_unseen_views)
 
 
 def save_attack_state(path, state, meta=None):
@@ -202,8 +153,6 @@ def load_attack_state(path, device="cpu"):
 class Evaluator:
     def __init__(self, args, bundle=None, dataset_kwargs=None, device="cuda",
                  seed=0):
-        args.det = True  # the reference forces deterministic sampling
-        self.args = args
         # one process per card: a launcher's WORLD_SIZE > 1 joins the group
         self.split = None
         if getattr(args, "shard_rays", True):
@@ -212,15 +161,10 @@ class Evaluator:
             self.split = ray_split()
         self.device = resolve_device(
             local_device(device) if self.split is not None else device)
-        self.render_cfg = render_config_from_args(args)
+        self.dataset_kwargs = dataset_kwargs or {}
+        self.retarget(args)
         self.bundle = bundle if bundle is not None else create_model(
             args=args, seed=seed, device=self.device)
-        self.dataset_kwargs = dataset_kwargs or {}
-        self.test_dataset = self._dataset("test")
-        # n_src -> (spec_feat, spec_rgb), or the reason no plan exists
-        self._bspg_specs = {}
-        self._bspg_hw = None
-        self._per_tap_said = set()
         # the attack's random draws (delta's init, the ray subsets)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
@@ -234,10 +178,11 @@ class Evaluator:
         keeping the model bundle, the generator and the dataset keywords.
         The BSPG plans depend on the cameras, so they are dropped and made
         again for the new scene on first use."""
-        args.det = True
+        args.det = True  # the reference forces deterministic sampling
         self.args = args
         self.render_cfg = render_config_from_args(args)
         self.test_dataset = self._dataset("test")
+        # n_src -> (spec_feat, spec_rgb), or the reason no plan exists
         self._bspg_specs = {}
         self._bspg_hw = None
         self._per_tap_said = set()
@@ -285,15 +230,14 @@ class Evaluator:
     def view_render_cfg(self, n_src):
         """Render config for whole-frame renders with ``n_src`` source views;
         plans BSPG on first use (numpy, host), or takes the per-tap gather
-        where no plan can be made (``frame_render_config`` for the fused
-        routes)."""
+        where no plan can be made, or the backbone renders per tap."""
         args = self.args
-        base = frame_render_config(args, self.device)
+        base = render_config_from_args(args, "frame", self.device)
         if not getattr(args, "use_bspg", True):
             return base
-        if args.backbone == "pixelnerf":
-            return self._per_tap(base, "pixelNeRF gathers its latent map "
-                                 "per tap")
+        reason = backbones.of(args.backbone).PER_TAP
+        if reason is not None:
+            return self._per_tap(base, reason)
         if getattr(args, "perturb_camera", False):
             return self._per_tap(base, "--perturb_camera moves the source "
                                  "cameras out of the BSPG plan")
@@ -362,14 +306,8 @@ class Evaluator:
         self._bspg_hw = other._bspg_hw
 
     def _grad_render_cfg(self):
-        """Render config of the differentiated attack step: with
-        ``--gnt_fused_attack`` GNT's ray attention through the fused kernel
-        (its plain version on the CPU)."""
-        args = self.args
-        return dataclasses.replace(
-            self.render_cfg, gnt_fused_attn=(
-                args.backbone == "gnt"
-                and bool(getattr(args, "gnt_fused_attack", False))))
+        """Render config of the differentiated attack step."""
+        return render_config_from_args(self.args, "attack", self.device)
 
     def attack_view_specific(self, data, verbose=False, delta=None):
         """Optimize ``delta`` against one test view's own source set for
@@ -397,10 +335,7 @@ class Evaluator:
                       f"loss={float(aux['loss']):.5f} "
                       f"({(time.perf_counter() - t0) / (i + 1) * 1e3:.0f} "
                       "ms/iter)", flush=True)
-        self.last_attack = dict(
-            self._loop_record(t0, losses), state=state,
-            terms=tuple(k for k in (aux or {}) if k != "loss"))
-        return self._finalize(state, src, cfg)
+        return self._finalize(state, src, cfg, t0, losses, aux)
 
     def _loop_record(self, t0, losses):
         """Host seconds since ``t0`` ending in a device synchronize, and the
@@ -487,15 +422,16 @@ class Evaluator:
                     "iters_done": done,
                     "generator": self.generator.get_state(),
                     "pose_rng": rng.get_state()})
+        return self._finalize(state, src, cfg, t0, losses, aux)
+
+    def _finalize(self, state, src, cfg, t0, losses, aux):
+        """After the attack loop begun at ``t0`` (``last_attack``): the
+        attacked ``delta`` after the defenses (purification, then the noise
+        defense), the sources, and the cameras moved by the camera-pose
+        attack. ``last_defenses`` names the defenses run."""
         self.last_attack = dict(
             self._loop_record(t0, losses), state=state,
             terms=tuple(k for k in (aux or {}) if k != "loss"))
-        return self._finalize(state, src, cfg)
-
-    def _finalize(self, state, src, cfg):
-        """The attacked ``delta`` after the defenses (purification, then
-        the noise defense), the sources, and the cameras moved by the
-        camera-pose attack. ``last_defenses`` names the defenses run."""
         args = self.args
         delta = state["delta"]
         src_cameras = src["cameras"]
@@ -521,16 +457,8 @@ class Evaluator:
         it = iter(Loader(self._dataset("train"), shuffle=True, seed=1,
                          num_workers=args.workers, infinite=True))
         _, (h, w) = self._make_target(next(it))
-        cfg = PurifyConfig(
-            h=h, w=w, purif_epsilon=args.purif_epsilon,
-            purif_iters=args.purif_iters, adam_lr=args.adam_lr or 1e-3,
-            lr_step_size=args.lr_step_size, lr_gamma=args.lr_gamma,
-            n_rand=args.N_rand, sample_mode=args.sample_mode,
-            center_ratio=args.center_ratio,
-            use_patch_sampling=args.use_patch_sampling,
-            patch_size=args.patch_size,
-            use_self_purification=args.use_self_purification,
-            purif_consistency_loss=args.purif_consistency_loss)
+        cfg = from_flags(PurifyConfig, args, h=h, w=w, n_rand=args.N_rand,
+                         adam_lr=args.adam_lr or 1e-3)
         init_state, step = make_purify_step(self.bundle,
                                             self._grad_render_cfg(), cfg)
         state = init_state(self.generator, src["rgbs"], delta)
@@ -556,17 +484,7 @@ class Evaluator:
         args = self.args
         if src_cameras is None:
             src_cameras = src["cameras"]
-        cam = np.asarray(data["camera"]).reshape(-1)[:34]
-        h, w = int(cam[0]), int(cam[1])
-        cam_t = self._tensor(cam)
-        rays_o, rays_d = get_rays(h, w, cam_t[2:18].reshape(4, 4),
-                                  cam_t[18:34].reshape(4, 4),
-                                  render_stride=args.render_stride)
-        batch = {
-            "ray_o": rays_o, "ray_d": rays_d,
-            "depth_range": self._tensor(data["depth_range"]).reshape(1, 2),
-            "camera": cam_t[None],
-        }
+        batch, (h, w) = frame_batch(data, self._tensor, args.render_stride)
         with span("eval.features"):
             feats = self.bundle.extract_features(
                 src["rgbs"] if delta is None else src["rgbs"] + delta)
@@ -598,7 +516,8 @@ class Evaluator:
                   "weights with python -m "
                   "nerfool_tpu_torch.export_lpips_weights)", file=sys.stderr)
             return None
-        model = LPIPS(normalize=self.args.backbone != "gnt")
+        model = LPIPS(
+            normalize=backbones.of(self.args.backbone).LPIPS_NORMALIZE)
         return model.load_params(load_lpips_weights(path)).to(
             self.device).eval()
 
@@ -649,8 +568,8 @@ class Evaluator:
         checkpointed to and resumed from ``out_dir/attack_state.pt``."""
         args = self.args
         scene = args.eval_scenes[0] if args.eval_scenes else args.eval_dataset
-        psnr_fn, ssim_fn = ((img2psnr, ssim_windowed)
-                            if args.backbone == "gnt" else (psnr, ssim))
+        bb = backbones.of(args.backbone)
+        psnr_fn, ssim_fn = bb.psnr, bb.ssim
         lpips_fn = self._build_lpips()
         writes = bool(out_dir) and is_main_process()  # rank 0 alone writes
         if writes:

@@ -1,9 +1,7 @@
 """Model bundle (port of ``nerfool_tpu/models/bundle.py``): builds the IBRNet,
-GNT or pixelNeRF modules, random-initializes them from a seeded
-``torch.Generator`` or loads reference-layout state_dicts, and runs the
-feature extraction. pixelNeRF (``models/pixelnerf.py``; no JAX counterpart)
-holds its encoder as the feature net and ``mlp_coarse`` / ``mlp_fine`` as
-the aggregators; its flat checkpoint is split by module on loading.
+GNT or pixelNeRF modules (each backbone's ``build``, ``backbones/``),
+random-initializes them from a seeded ``torch.Generator`` or loads
+reference-layout state_dicts, and runs the feature extraction.
 """
 from __future__ import annotations
 
@@ -15,11 +13,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from nerfool_tpu_torch.models.gnt import GNTAggregator
-from nerfool_tpu_torch.models.ibrnet import IBRNetAggregator
-from nerfool_tpu_torch.models import pixelnerf
-from nerfool_tpu_torch.models.resunet import ResUNet
-
+from nerfool_tpu_torch import backbones
 
 @dataclasses.dataclass
 class ModelBundle:
@@ -85,46 +79,23 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
         coarse_only = args.coarse_only
         ckpt_path = args.ckpt_path or ckpt_path
         feature_dtype = getattr(args, "feature_dtype", feature_dtype)
-        if backbone == "gnt":  # single_net is a GNT-stack concept
-            netwidth = args.netwidth
-            trans_depth = args.trans_depth
-            single_net = bool(args.single_net)
-            ret_alpha = bool(args.ret_alpha)
-        if backbone == "pixelnerf":
-            pixelnerf_d_hidden = getattr(args, "pixelnerf_d_hidden",
-                                         pixelnerf_d_hidden)
-    if backbone not in ("ibrnet", "gnt", "pixelnerf"):
-        raise ValueError(f"unknown backbone {backbone!r}")
-    if backbone == "pixelnerf" and feature_dtype not in (None, "", "float32"):
-        raise ValueError("pixelNeRF runs in float32")
-    single_net = single_net and backbone == "gnt"
+    bb = backbones.of(backbone)
+    opts = dict(netwidth=netwidth, trans_depth=trans_depth,
+                single_net=single_net, ret_alpha=ret_alpha,
+                pixelnerf_d_hidden=pixelnerf_d_hidden)
+    if args is not None:
+        opts.update({k: getattr(args, k) for k in bb.FLAGS
+                     if hasattr(args, k)})
     if feature_dtype not in (None, "", "float32", "bfloat16"):
         raise ValueError(f"feature_dtype {feature_dtype!r} (float32 or "
                          "bfloat16)")
     feat_dt = torch.bfloat16 if feature_dtype == "bfloat16" else None
 
     with torch.random.fork_rng(devices=[]):  # module defaults draw globally
-        if backbone == "pixelnerf":
-            feature_net = pixelnerf.SpatialEncoder()
-            mlp = lambda: pixelnerf.ResnetFC(pixelnerf_d_hidden)
-            net_coarse = mlp()
-            net_fine = None if coarse_only else mlp()
-        else:
-            feature_net = ResUNet(coarse_feat_dim, fine_feat_dim, coarse_only,
-                                  single_net, compute_dtype=feat_dt)
-        if backbone == "ibrnet":
-            net_coarse = IBRNetAggregator(coarse_feat_dim, anti_alias_pooling)
-            net_fine = (None if coarse_only
-                        else IBRNetAggregator(fine_feat_dim,
-                                              anti_alias_pooling))
-        elif backbone == "gnt":
-            net_coarse = GNTAggregator(coarse_feat_dim, netwidth, trans_depth,
-                                       ret_alpha=ret_alpha)
-            net_fine = (None if single_net
-                        else GNTAggregator(fine_feat_dim, netwidth,
-                                           trans_depth, ret_alpha=True))
-    nets = {"feature_net": feature_net, "net_coarse": net_coarse,
-            "net_fine": net_fine}
+        built = bb.build(coarse_feat_dim, fine_feat_dim, anti_alias_pooling,
+                         coarse_only, feat_dt, **opts)
+    nets = {name: m for name, m in zip(
+        ("feature_net", "net_coarse", "net_fine"), built) if m is not None}
 
     if state_dicts is None and ckpt_path:
         if not os.path.exists(ckpt_path):
@@ -133,20 +104,16 @@ def create_model(args=None, backbone="ibrnet", coarse_feat_dim=32,
                 "for a seeded random init")
         state_dicts = torch.load(ckpt_path, map_location="cpu",
                                  weights_only=True)
-        if backbone == "pixelnerf" and "feature_net" not in state_dicts:
-            state_dicts = pixelnerf.split_checkpoint(state_dicts)
+        state_dicts = bb.checkpoint_state(state_dicts)
     if state_dicts is not None:
         for name, module in nets.items():
-            if module is not None:
-                module.load_state_dict(state_dicts[name])
+            module.load_state_dict(state_dicts[name])
     else:
         gen = torch.Generator().manual_seed(int(seed))
         for module in nets.values():
-            if module is not None:
-                _seeded_init_(module, gen)
+            _seeded_init_(module, gen)
 
     dev = torch.device(device)
     for module in nets.values():
-        if module is not None:
-            module.to(dev).eval()
-    return ModelBundle(feature_net, net_coarse, net_fine, dev)
+        module.to(dev).eval()
+    return ModelBundle(*built, dev)

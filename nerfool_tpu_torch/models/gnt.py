@@ -92,9 +92,8 @@ class ViewAttention(nn.Module):
     (``ops/view_attention.view_attention_plain``, differentiable tensor
     ops). ``fused`` routes the forward through the kernel's wrapper
     instead (the CUDA kernel on the card), which is forward only and raises
-    where autograd would need its gradient; ``lane_pack`` names the TPU
-    kernel's lane-packed formulation of the same function. float64 input
-    keeps the module path.
+    where autograd would need its gradient. float64 input keeps the module
+    path.
     """
 
     def __init__(self, dim):
@@ -106,7 +105,7 @@ class ViewAttention(nn.Module):
         self.attn_fc = _mlp2(dim, dim // 8, dim)
         self.out_fc = nn.Linear(dim, dim)
 
-    def forward(self, q, k, pos, mask, fused=False, lane_pack=False):
+    def forward(self, q, k, pos, mask, fused=False):
         """:param q: [R, S, D]; k: [V, R, S, D]; pos: [V, R, S, 4];
         mask: [V, R, S, 1]
         :return: [R, S, D]
@@ -125,7 +124,7 @@ class ViewAttention(nn.Module):
         out = va.view_attention(
             q.reshape(r * s, d), k.reshape(v, r * s, d),
             pos.reshape(v, r * s, pos.shape[-1]), mask.reshape(v, r * s, 1),
-            *weights, lane_pack=lane_pack)
+            *weights)
         return out.reshape(r, s, d)
 
 
@@ -139,9 +138,9 @@ class ViewTransformer(nn.Module):
         self.ff = FeedForward(dim, 4 * dim)
         self.attn = ViewAttention(dim)
 
-    def forward(self, q, k, pos, mask, fused=False, lane_pack=False):
+    def forward(self, q, k, pos, mask, fused=False):
         x = self.attn(layer_norm(q, self.attn_norm), k, pos, mask,
-                      fused=fused, lane_pack=lane_pack) + q
+                      fused=fused) + q
         return self.ff(layer_norm(x, self.ff_norm)) + x
 
 
@@ -262,7 +261,7 @@ class GNTAggregator(nn.Module):
         return torch.cat([rgb, attn], dim=1) if self.ret_alpha else rgb
 
     def chain(self, rgb_feat, ray_diff, mask, pts_emb, views_emb,
-              fused_attn=False, fused_vt=False, fused_vt_lp=False):
+              fused_attn=False, fused_vt=False):
         """The ``trans_depth`` blocks: what the chain kernel (``ops/chain.py``)
         computes, and its plain version (``fused_attn`` and ``fused_vt``
         off).
@@ -274,8 +273,7 @@ class GNTAggregator(nn.Module):
         q = torch.max(x, dim=0).values  # max-pool over views
         attn = None
         for i in range(self.trans_depth):
-            q = self.view_crosstrans[i](q, x, ray_diff, mask, fused=fused_vt,
-                                        lane_pack=fused_vt_lp)
+            q = self.view_crosstrans[i](q, x, ray_diff, mask, fused=fused_vt)
             if i % 2 == 0:  # replaces q, no residual
                 q = mlp2(torch.cat([q, pts_emb, views_emb], dim=-1),
                          self.q_fcs[i])
@@ -283,7 +281,7 @@ class GNTAggregator(nn.Module):
         return q, attn
 
     def forward(self, rgb_feat, ray_diff, mask, pts, ray_d, fused_attn=False,
-                fused_vt=False, fused_vt_lp=False):
+                fused_vt=False):
         """
         :param rgb_feat: [V, R, S, 3 + in_feat_ch]; ray_diff: [V, R, S, 4];
             mask: [V, R, S, 1]
@@ -291,13 +289,10 @@ class GNTAggregator(nn.Module):
         :param fused_attn: every ray attention through the fused kernel
             (``RenderConfig.gnt_fused_attn``)
         :param fused_vt: every view attention through the fused kernel,
-            forward only (``RenderConfig.gnt_fused_vt``); ``fused_vt_lp``:
-            its lane-packed formulation, the same function, meaningful only
-            with ``fused_vt``
+            forward only (``RenderConfig.gnt_fused_vt``)
         :return: [R, 3], or [R, 3 + S] under ``ret_alpha``
         """
         pts_emb, views_emb = self.embeddings(pts, ray_d)
         return self.head(*self.chain(
             rgb_feat, ray_diff, mask, pts_emb, views_emb,
-            fused_attn=fused_attn, fused_vt=fused_vt,
-            fused_vt_lp=fused_vt_lp))
+            fused_attn=fused_attn, fused_vt=fused_vt))

@@ -22,8 +22,7 @@ Forward only, as the TPU kernel: it raises when autograd would need a
 gradient through it (the attack differentiates the module path). CUDA tensors
 go through the kernel (built by nvcc at first use) or raise; CPU tensors take
 ``view_attention_plain``. Nothing falls back from the kernel to the plain
-version. ``lane_pack`` selects the TPU kernel's lane-packed formulation,
-which computes the same function: both map to the one CUDA kernel.
+version.
 """
 from __future__ import annotations
 
@@ -187,14 +186,12 @@ def weight_blobs(dtype, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0, wa1, ba1, wo,
 
 
 def view_attention(qln, k, pos, mask, wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0,
-                   wa1, ba1, wo, bo, lane_pack=False):
+                   wa1, ba1, wo, bo):
     """The view attention on ``k``'s device (see the module docstring): the
     CUDA kernel for CUDA tensors (counted in ``view_attention.launches``),
     the plain version for CPU ones. Forward only: raises ``RuntimeError``
     when grad mode is on and an operand requires grad.
 
-    :param lane_pack: the TPU kernel's lane-packed formulation, the same
-        function; accepted and ignored
     :return: [N, D] in ``qln``'s dtype
     """
     weights = (wq, wkv, wp0, bp0, wp1, bp1, wa0, ba0, wa1, ba1, wo, bo)

@@ -12,9 +12,9 @@ take the per-tap gather, as in JAX.
 Given a ``RaySplit`` (``parallel/mesh.py``) each rank of the group renders
 a contiguous share of the chunk list (on the BSPG route whole ray blocks,
 since a chunk is) and the shares are gathered back in block-major order, so
-that every rank holds the whole frame. ``geo_noise`` draws are then taken
+that every rank holds the whole frame. The renders' draws are then taken
 for every chunk on every rank, in the order the one-process loop takes
-them, and each rank uses its chunks' draws.
+them, and each rank uses its chunks' draws (``render_rays.share_draws``).
 """
 from __future__ import annotations
 
@@ -23,13 +23,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from nerfool_tpu_torch.render.render_rays import (
-    RenderConfig,
-    make_bspg_tables,
-    noise_draws,
-    sample_draws,
-    render_rays,
-)
+from nerfool_tpu_torch import backbones
+from nerfool_tpu_torch.render.gathered import make_bspg_tables
+from nerfool_tpu_torch.render.render_rays import (RenderConfig, render_rays,
+                                                  share_draws)
+from nerfool_tpu_torch.utils.cameras import frame_batch
 from nerfool_tpu_torch.utils.profiling import span
 
 _said_chunks = set()  # (chunk_size, bh, bw) already rounded down aloud
@@ -70,14 +68,13 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                         split=None):
     """Render a full frame; outputs reshaped to (H', W', ...).
     ``featmaps_clean``: the clean branch of hybrid renders; ``generator``:
-    the source of the ``geo_noise`` draws (and of pixelNeRF's samples);
-    ``split``: a
-    ``parallel.mesh.RaySplit`` sharing the chunks among the ranks of a group
-    (None: one process).
+    the source of the renders' draws (``render_rays.render_draws``);
+    ``split``: a ``parallel.mesh.RaySplit`` sharing the chunks among the
+    ranks of a group (None: one process).
 
-    IBRNet's coarse rgb is painted white where the ray mask is empty (the
-    reference's contract); its fine rgb is not. GNT and pixelNeRF outputs
-    carry no mask and are not painted.
+    The backbone's ``PAINT_EMPTY_COARSE`` (IBRNet's, the reference's
+    contract) paints the coarse rgb white where the ray mask is empty; the
+    fine rgb is not painted.
     """
     hs = len(range(0, h, render_stride))
     ws = len(range(0, w, render_stride))
@@ -100,15 +97,13 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
     dtype = torch.promote_types(featmaps[0].dtype, torch.float32)
 
     def render_rows(rows):
-        # a split draws every chunk's noise (pixelNeRF: its samples) in the
-        # one-process order and keeps its own share's
-        noise, samples = {}, {}
-        for i in range(0, n, chunk_size) if split is not None else ():
-            m = min(chunk_size, n - i)
-            c = noise_draws(generator, cfg, m, dtype, ray_o.device)
-            d = sample_draws(generator, cfg, m, dtype, ray_o.device)
-            if rows.start <= i < rows.stop:
-                noise[i], samples[i] = c, d
+        # a split draws every chunk's draws in the one-process order and
+        # keeps its own share's
+        draws = [None] * -(-n // chunk_size)
+        if split is not None:
+            draws = share_draws(generator, cfg, [
+                min(chunk_size, n - i) for i in range(0, n, chunk_size)],
+                rows, dtype, ray_o.device)
         chunks = []
         for i in range(rows.start, rows.stop, chunk_size):
             batch = dict(ray_batch)
@@ -120,8 +115,7 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                                           tables=tables,
                                           featmaps_clean=featmaps_clean,
                                           generator=generator,
-                                          noise=noise.get(i),
-                                          samples=samples.get(i)))
+                                          **(draws[i // chunk_size] or {})))
         return chunks
 
     # a split concatenates each rank's chunks before the gather
@@ -130,6 +124,7 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
     else:
         chunks = [split.render(lambda rows: _cat(render_rows(rows)), n,
                                chunk_size)]
+    paint = backbones.of(cfg.backbone).PAINT_EMPTY_COARSE
     with span("render.assemble"):
         flat = chunks[0] if len(chunks) == 1 else _cat(chunks)
         ret = {}
@@ -142,12 +137,27 @@ def render_single_image(nets, ray_batch, featmaps, cfg: RenderConfig, h, w,
                 if inv is not None:
                     x = x[inv]  # block-major -> raster
                 imgs[k] = x.reshape((hs, ws) + x.shape[1:])
-            if cfg.backbone == "ibrnet" and level == "outputs_coarse":
+            if level == "outputs_coarse" and paint:
                 imgs["rgb"] = torch.where(imgs["mask"][..., None],
                                           imgs["rgb"],
                                           torch.ones_like(imgs["rgb"]))
             ret[level] = imgs
     return ret
+
+
+def render_sample(bundle, data, cfg: RenderConfig, chunk_size):
+    """The whole frame of a dataset sample ``data`` (camera, depth range,
+    sources) on the bundle's device, without gradients: (outputs, (h,
+    w))."""
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=bundle.device)
+    batch, (h, w) = frame_batch(data, t)
+    src_rgbs = t(data["src_rgbs"])
+    with torch.no_grad():
+        return render_single_image(
+            bundle.nets, batch, bundle.extract_features(src_rgbs), cfg, h, w,
+            src_rgbs, t(data["src_cameras"]).reshape(-1, 34),
+            chunk_size=chunk_size), (h, w)
 
 
 def _cat(chunks):

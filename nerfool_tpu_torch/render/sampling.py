@@ -4,50 +4,37 @@ Deterministic sampling (``det=True``, the evaluators') spaces coarse depths
 evenly in z or in 1/z and takes fine depths from the inverse CDF at evenly
 spaced quantiles. Stochastic sampling (``det=False``, training) jitters each
 coarse depth uniformly between the midpoints of its neighbours and takes
-fine depths at uniform quantiles. The uniform draws come from a
-``torch.Generator`` or are handed in (``t_rand``, ``u``), so that a test can
-feed the JAX package's draws.
-
-pixelNeRF's sampler (its ``NeRFRenderer``, linear depth) draws at every
-call, evaluation too: the coarse depths jittered in 64 equal strata
-(``pixelnerf_coarse_depths``), fine depths at uniform quantiles of the
-detached coarse weights, each jittered inside its coarse bin
-(``pixelnerf_fine_depths``), and depths drawn around the coarse depth
-(``pixelnerf_depth_samples``). Every draw is handed in.
+fine depths at uniform quantiles. The uniform draws are handed in
+(``t_rand``, ``u``: ``render_rays.render_draws``' or, in a test, the JAX
+package's). pixelNeRF's sampler is its backbone's
+(``backbones/pixelnerf.py``).
 """
 from __future__ import annotations
 
 import torch
 
 
-def _uniform(shape, like, generator, given):
-    """``given`` (cast to ``like``'s dtype and device), else a U[0, 1) draw
-    of ``generator``."""
-    if given is not None:
-        if tuple(given.shape) != tuple(shape):
-            raise ValueError(f"draws of shape {tuple(given.shape)}, the "
-                             f"sampler needs {tuple(shape)}")
-        return given.to(like)
-    return torch.rand(shape, dtype=like.dtype, device=like.device,
-                      generator=generator)
+def _uniform(shape, like, given):
+    """The U[0, 1) draws ``given``, cast to ``like``'s dtype and device."""
+    got = None if given is None else tuple(given.shape)
+    if got != tuple(shape):
+        raise ValueError(f"draws of shape {got}, the sampler needs "
+                         f"{tuple(shape)}")
+    return given.to(like)
 
 
 def sample_along_camera_ray(ray_o, ray_d, depth_range, n_samples,
-                            inv_uniform=False, det=True, generator=None,
-                            t_rand=None):
+                            inv_uniform=False, det=True, t_rand=None):
     """Depths between near and far: evenly spaced, or jittered in their
     strata when ``det`` is False.
 
     :param ray_o, ray_d: [N, 3]
     :param depth_range: [1, 2] (near, far), both > 0
     :param inv_uniform: space the samples evenly in inverse depth
-    :param generator: source of the jitter when ``det`` is False
-    :param t_rand: [N, n_samples] U[0, 1) jitter used instead of the
-        generator's
+    :param t_rand: [N, n_samples] U[0, 1) jitter, when ``det`` is False
     :return: (pts [N, n_samples, 3], z_vals [N, n_samples])
     """
-    near = depth_range.reshape(-1)[0]
-    far = depth_range.reshape(-1)[1]
+    near, far = depth_range.reshape(-1)[:2]
     n = ray_d.shape[0]
     steps = torch.arange(n_samples, dtype=ray_d.dtype, device=ray_d.device)
     if inv_uniform:
@@ -62,28 +49,31 @@ def sample_along_camera_ray(ray_o, ray_d, depth_range, n_samples,
         mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
         upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
         lower = torch.cat([z_vals[:, :1], mids], dim=-1)
-        t = _uniform(z_vals.shape, z_vals, generator, t_rand)
+        t = _uniform(z_vals.shape, z_vals, t_rand)
         z_vals = lower + (upper - lower) * t
     pts = z_vals[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
     return pts, z_vals
 
 
-def sample_pdf(bins, weights, n_samples, det=True, generator=None, u=None):
+def weights_cdf(weights):
+    """The cdf [N, M + 1] (from 0) of the weights [N, M] + 1e-5."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    return torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+
+
+def sample_pdf(bins, weights, n_samples, det=True, u=None):
     """Inverse-CDF sampling at evenly spaced quantiles, or at uniform ones
     when ``det`` is False.
 
     :param bins: [N, M+1] bin edges (ascending)
     :param weights: [N, M] unnormalized bin weights
-    :param generator: source of the quantiles when ``det`` is False
-    :param u: [N, n_samples] U[0, 1) quantiles used instead of the
-        generator's
+    :param u: [N, n_samples] U[0, 1) quantiles, when ``det`` is False
     :return: [N, n_samples]
     """
     m = weights.shape[1]
-    weights = weights + 1e-5
-    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # [N, M+1]
+    cdf = weights_cdf(weights)
 
     if det:
         # i / (n-1) in the working dtype: the quantiles jnp.linspace(0, 1,
@@ -93,7 +83,7 @@ def sample_pdf(bins, weights, n_samples, det=True, generator=None, u=None):
                          device=bins.device) / (n_samples - 1)
         u = u[None, :].expand(bins.shape[0], n_samples)
     else:
-        u = _uniform((bins.shape[0], n_samples), bins, generator, u)
+        u = _uniform((bins.shape[0], n_samples), bins, u)
 
     # rank of u among the first M cdf entries: above in [1, M]
     above = torch.sum((u[:, :, None] >= cdf[:, None, :m]).to(torch.int64),
@@ -112,12 +102,11 @@ def sample_pdf(bins, weights, n_samples, det=True, generator=None, u=None):
 
 
 def sample_fine_zvals(z_vals, weights, n_importance, inv_uniform=False,
-                      det=True, generator=None, u=None):
+                      det=True, u=None):
     """Coarse depths merged with importance samples, sorted ascending.
 
     Mid-point bins, edge weights dropped; with ``inv_uniform`` the bins live
-    in 1/z (flipped so they ascend). ``det``, ``generator`` and ``u`` go to
-    ``sample_pdf``.
+    in 1/z (flipped so they ascend). ``det`` and ``u`` go to ``sample_pdf``.
 
     :return: z_all [N, n_samples + n_importance]
     """
@@ -127,42 +116,11 @@ def sample_fine_zvals(z_vals, weights, n_importance, inv_uniform=False,
         inv_mid = 0.5 * (inv_z[:, 1:] + inv_z[:, :-1])
         inv_samples = sample_pdf(torch.flip(inv_mid, dims=[1]),
                                  torch.flip(w, dims=[1]), n_importance,
-                                 det=det, generator=generator, u=u)
+                                 det=det, u=u)
         z_samples = 1.0 / inv_samples
     else:
         z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
-        z_samples = sample_pdf(z_mid, w, n_importance, det=det,
-                               generator=generator, u=u)
+        z_samples = sample_pdf(z_mid, w, n_importance, det=det, u=u)
     z_all = torch.cat([z_vals, z_samples], dim=-1)
     return torch.sort(z_all, dim=-1).values
 
-
-def pixelnerf_coarse_depths(near, far, n_samples, u):
-    """``n_samples`` strata of [near, far], each at a U[0, 1) offset ``u``
-    [N, n_samples] inside it."""
-    step = 1.0 / n_samples
-    z = torch.linspace(0, 1 - step, n_samples, dtype=u.dtype, device=u.device)
-    z = z[None] + u * step
-    return near * (1 - z) + far * z
-
-
-def pixelnerf_fine_depths(weights, near, far, u, u_bin):
-    """Depths drawn from the coarse weights [N, M] (+1e-5, detached by the
-    caller): the bin of quantile ``u`` [N, K] by its cdf, then ``u_bin``
-    [N, K] of the way into that bin of M equal strata."""
-    m = weights.shape[1]
-    weights = weights + 1e-5
-    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
-    inds = torch.searchsorted(cdf, u.contiguous(), right=True).to(u.dtype)
-    inds = torch.clamp_min(inds - 1.0, 0.0)
-    z = (inds + u_bin) / m
-    return near * (1 - z) + far * z
-
-
-def pixelnerf_depth_samples(depth, near, far, std, noise):
-    """The depth [N] plus ``std`` times the standard normal ``noise`` [N,
-    K], clamped to [near, far]; differentiable in ``depth``."""
-    z = depth[:, None] + noise * std
-    return torch.maximum(torch.minimum(z, far), near)

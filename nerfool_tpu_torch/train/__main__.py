@@ -29,7 +29,6 @@ of one rank trains as without the flag.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 
 from nerfool_tpu_torch.config import port_parser
@@ -71,9 +70,7 @@ def main(argv=None):
     sample = dataset[0]
     h, w = int(sample["camera"][0]), int(sample["camera"][1])
     bundle = create_model(args=args, seed=args.seed, device=device)
-    render_cfg = dataclasses.replace(
-        render_config_from_args(args),
-        gnt_fused_attn=args.backbone == "gnt" and args.gnt_fused_attn == "on")
+    render_cfg = render_config_from_args(args, "train", device)
     cfg = train_config_from_args(args, h, w, sample["src_rgbs"].shape[0])
     out_dir = os.path.join(args.out_dir, args.expname)
     if main:

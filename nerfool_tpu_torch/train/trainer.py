@@ -5,9 +5,9 @@ features, renders the subset with stochastic sampling, sums the masked-MSE
 criterion of both levels (plus the depth-variance regularizer) and takes one
 Adam step with a learning rate per parameter group on a staircase decay.
 
-All of a step's random draws are made in one place (``draw_train_step``):
-the ray indices, the adversarial ``delta``'s start, and each inner
-iteration's and the outer render's sampling and noise draws, from one
+All of a step's random draws are made in one place (``step.draw``): the
+ray indices, the adversarial ``delta``'s start, and each inner iteration's
+and the outer render's draws (``render_rays.render_draws``), from one
 ``torch.Generator``, or handed in by the caller. The inner loop renders
 without ``geo_noise`` and its loss has no depth-variance term (both apply
 to the outer step only, as in the reference); the perturbation is detached
@@ -29,15 +29,16 @@ import time
 import numpy as np
 import torch
 
+from nerfool_tpu_torch import backbones
 from nerfool_tpu_torch.attack import losses as L
 from nerfool_tpu_torch.attack.attack import (AttackConfig, _frozen,
                                              select_ray_indices)
 from nerfool_tpu_torch.attack.perturb import clamp
+from nerfool_tpu_torch.config import from_flags
 from nerfool_tpu_torch.parallel.distributed import is_main_process
 from nerfool_tpu_torch.render.render_rays import (RenderConfig,
-                                                  noise_draws, render_rays,
-                                                  sample_draws)
-from nerfool_tpu_torch.utils.cameras import get_rays, get_rays_at
+                                                  render_draws, render_rays)
+from nerfool_tpu_torch.utils.cameras import get_rays_at
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +49,7 @@ class TrainConfig:
     sample_mode: str = "uniform"  # 'uniform' | 'center'
     center_ratio: float = 0.8
     lrate_feature: float = 1e-3
-    lrate_mlp: float = 5e-4  # the aggregators' rate (aggregator_lr)
+    lrate_mlp: float = 5e-4  # the aggregators' rate (the backbone's LR_FLAG)
     lrate_decay_factor: float = 0.5
     lrate_decay_steps: int = 50000
     depth_var_loss: float = 0.0
@@ -59,26 +60,15 @@ class TrainConfig:
     adv_lr: float = 2.0
 
 
-def aggregator_lr(args):
-    """The aggregators' learning rate: ``--lrate_gnt`` for GNT,
-    ``--lrate_mlp`` for IBRNet, as in the reference's two stacks."""
-    return args.lrate_gnt if args.backbone == "gnt" else args.lrate_mlp
-
-
 def train_config_from_args(args, h, w, n_src) -> TrainConfig:
     """The flags' ``TrainConfig`` for ``h`` x ``w`` views with ``n_src``
     source views: ``N_rand`` scaled by the source-view count, as the
     reference does."""
-    return TrainConfig(
-        h=h, w=w,
+    return from_flags(
+        TrainConfig, args, h=h, w=w,
         n_rand=int(1.0 * args.N_rand * args.num_source_views / max(n_src, 1)),
-        sample_mode=args.sample_mode, center_ratio=args.center_ratio,
-        lrate_feature=args.lrate_feature, lrate_mlp=aggregator_lr(args),
-        lrate_decay_factor=args.lrate_decay_factor,
-        lrate_decay_steps=args.lrate_decay_steps,
-        depth_var_loss=args.depth_var_loss,
-        use_adv_train=args.use_adv_train, adv_iters=args.adv_iters,
-        epsilon=float(args.epsilon), adv_lr=args.adv_lr)
+        lrate_mlp=getattr(args, backbones.of(args.backbone).LR_FLAG),
+        epsilon=float(args.epsilon))
 
 
 def select_rays(generator, cfg: TrainConfig, device="cpu"):
@@ -111,25 +101,6 @@ def make_optimizer(cfg: TrainConfig, bundle):
         optimizer, lambda t: cfg.lrate_decay_factor ** (
             t // cfg.lrate_decay_steps))
     return optimizer, scheduler
-
-
-def render_draws(generator, render_cfg: RenderConfig, n_rays, device,
-                 dtype=torch.float32):
-    """One render's random draws: {'samples': (coarse jitter [R, S], fine
-    quantiles [R, I] or None) when sampling stochastically, pixelNeRF's
-    four draws (``sample_draws``: its sampler draws at every render), else
-    None; 'noise': IBRNet's ``geo_noise`` draws (coarse [R, S], fine [R, S
-    + I] or None), else None}."""
-    s, i = render_cfg.n_samples, render_cfg.n_importance
-    rand = lambda *shape: torch.rand(shape, generator=generator,
-                                     device=device, dtype=dtype)
-    samples = None
-    if render_cfg.backbone == "pixelnerf":
-        samples = sample_draws(generator, render_cfg, n_rays, dtype, device)
-    elif not render_cfg.det:
-        samples = (rand(n_rays, s), rand(n_rays, i) if i else None)
-    return {"samples": samples, "noise": noise_draws(
-        generator, render_cfg, n_rays, dtype, device)}
 
 
 def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig,
@@ -175,10 +146,10 @@ def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig,
                            dtype=dt)
             out["delta0"] = (2.0 * u - 1.0) * (cfg.epsilon / 255.0)
             out["inner"] = [render_draws(generator, inner_cfg, cfg.n_rand,
-                                         dev, dt)
+                                         dt, dev)
                             for _ in range(cfg.adv_iters)]
-        out["outer"] = render_draws(generator, render_cfg, cfg.n_rand, dev,
-                                    dt)
+        out["outer"] = render_draws(generator, render_cfg, cfg.n_rand, dt,
+                                    dev)
         return out
 
     def render_loss(src_rgbs_input, batch, sel, rdraws, inner=False):
@@ -192,17 +163,12 @@ def make_train_step(bundle, render_cfg: RenderConfig, cfg: TrainConfig,
         rb = {"ray_o": rays_o, "ray_d": rays_d,
               "depth_range": batch["depth_range"], "camera": cam[None]}
         ret = render_rays(nets, rb, feats, rcfg, batch["src_rgbs"],
-                          batch["src_cameras"], noise=rdraws["noise"],
-                          samples=rdraws["samples"])
+                          batch["src_cameras"], **rdraws)
         gt = batch["rgb"][sel]
-        loss = L.rgb_criterion(ret["outputs_coarse"], gt)
-        if ret["outputs_fine"] is not None:
-            loss = loss + L.rgb_criterion(ret["outputs_fine"], gt)
+        loss = L.both_levels(lambda o: L.rgb_criterion(o, gt), ret)
         if not inner and cfg.depth_var_loss > 0:
-            dv = L.depth_var_loss(ret["outputs_coarse"])
-            if ret["outputs_fine"] is not None:
-                dv = dv + L.depth_var_loss(ret["outputs_fine"])
-            loss = loss + cfg.depth_var_loss * dv
+            loss = loss + cfg.depth_var_loss * L.both_levels(
+                L.depth_var_loss, ret)
         psnr = -10.0 * torch.log(loss + 1e-6) / math.log(10.0)
         return loss, psnr
 
@@ -347,27 +313,12 @@ class Trainer:
         """Render one whole view (deterministic sampling, no noise) and
         write the panels gt_rgb, pred_{coarse,fine} and depth_{coarse,fine}
         (the reference's log_view_to_tb)."""
-        from nerfool_tpu_torch.render.render_image import render_single_image
+        from nerfool_tpu_torch.render.render_image import render_sample
         from nerfool_tpu_torch.utils.vis import colorize_np
 
-        t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                      device=self.device)
-        cam = t(np.asarray(data["camera"]).reshape(-1)[:34])
-        h, w = int(cam[0]), int(cam[1])
-        rays_o, rays_d = get_rays(h, w, cam[2:18].reshape(4, 4),
-                                  cam[18:34].reshape(4, 4))
-        batch = {"ray_o": rays_o, "ray_d": rays_d,
-                 "depth_range": t(data["depth_range"]).reshape(1, 2),
-                 "camera": cam[None]}
-        src_rgbs = t(data["src_rgbs"])
-        src_cams = t(data["src_cameras"]).reshape(-1, 34)
         vcfg = dataclasses.replace(self.render_cfg, det=True, geo_noise=0.0,
                                    bspg_specs=None)
-        with torch.no_grad():
-            feats = self.bundle.extract_features(src_rgbs)
-            out = render_single_image(self.bundle.nets, batch, feats, vcfg,
-                                      h, w, src_rgbs, src_cams,
-                                      chunk_size=self.chunk_size)
+        out, (h, w) = render_sample(self.bundle, data, vcfg, self.chunk_size)
         if data.get("rgb") is not None:
             logger.add_image(f"{prefix}/gt_rgb",
                              np.asarray(data["rgb"]).reshape(h, w, 3), step)

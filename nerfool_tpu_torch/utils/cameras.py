@@ -5,6 +5,7 @@ A camera is a 34-vector ``[H, W, K.flatten()(16), c2w.flatten()(16)]`` with a
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -15,6 +16,20 @@ def parse_camera(cameras):
     intrinsics = cameras[..., 2:18].reshape(cameras.shape[:-1] + (4, 4))
     c2w = cameras[..., 18:34].reshape(cameras.shape[:-1] + (4, 4))
     return w, h, intrinsics, c2w
+
+
+def frame_batch(data, tensor, render_stride=1):
+    """``render_rays``' ray batch of the whole frame of a dataset sample
+    ``data``, its camera and depth range made tensors by ``tensor``; and
+    the frame's (h, w)."""
+    cam = np.asarray(data["camera"]).reshape(-1)[:34]
+    h, w = int(cam[0]), int(cam[1])
+    cam = tensor(cam)
+    rays_o, rays_d = get_rays(h, w, cam[2:18].reshape(4, 4),
+                              cam[18:34].reshape(4, 4),
+                              render_stride=render_stride)
+    return {"ray_o": rays_o, "ray_d": rays_d, "camera": cam[None],
+            "depth_range": tensor(data["depth_range"]).reshape(1, 2)}, (h, w)
 
 
 def get_rays(h, w, intrinsics, c2w, render_stride=1):

@@ -31,7 +31,8 @@ from nerfool_tpu_torch.ops import bspg as t_bspg
 from nerfool_tpu_torch.models.convert import gnt_state_dict, params_from_flax
 from nerfool_tpu_torch.models.gnt import GNTAggregator
 from nerfool_tpu_torch.ops import chain
-from nerfool_tpu_torch.render.render_rays import RenderConfig, _shade
+from nerfool_tpu_torch.backbones.gnt import shade
+from nerfool_tpu_torch.render.render_rays import RenderConfig
 
 REL = 1e-5  # f32, relative to the output scale
 
@@ -192,13 +193,13 @@ def test_shade_routes_chain_only_in_bf16():
     nets = {"net_coarse": net, "net_fine": net}
     cfg = RenderConfig(backbone="gnt", gnt_fused_chain=True)
     with torch.no_grad():
-        a = _shade(cfg, nets, 0, *args)
+        a = shade(cfg, nets, 0, *args)
         b = net(*args)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         bf = RenderConfig(backbone="gnt", gnt_fused_chain=True,
                           compute_dtype="bfloat16")
         before = chain.gnt_chain.launches
-        got = _shade(bf, nets, 0, *args)
+        got = shade(bf, nets, 0, *args)
         assert got.dtype == torch.float32  # promoted back
         ref = chain.fused_chain_aggregate(
             net, *(t.bfloat16() for t in args)).float()

@@ -1400,7 +1400,7 @@ def test_view_attention_cpu_launches_nothing():
     uniform 1 / V weights: finite, and equal to the mean over the views."""
     args = _va_case(3, 15, masked_rows=4)
     before = va.view_attention.launches
-    out = va.view_attention(*args, lane_pack=True)
+    out = va.view_attention(*args)
     assert va.view_attention.launches == before
     torch.testing.assert_close(out, va.view_attention_plain(*args), rtol=0,
                                atol=0)

@@ -27,6 +27,7 @@ from nerfbench.reference import pixelnerf as ref
 from nerfbench.reference.render import rays_at
 from nerfbench.scene import Rig
 from nerfbench.tests.tiny import tiny_cell
+from nerfool_tpu_torch.backbones import pixelnerf as pixelnerf_backbone
 from nerfool_tpu_torch.config import port_parser
 from nerfool_tpu_torch.engine import Evaluator, render_config_from_args
 from nerfool_tpu_torch.models import pixelnerf
@@ -179,8 +180,8 @@ def _train_mode_batchnorm(monkeypatch):
 
 
 def _detached_depth_samples(monkeypatch):
-    real = rr.pixelnerf_depth_samples
-    monkeypatch.setattr(rr, "pixelnerf_depth_samples",
+    real = pixelnerf_backbone.depth_samples
+    monkeypatch.setattr(pixelnerf_backbone, "depth_samples",
                         lambda depth, *a: real(depth.detach(), *a))
 
 
@@ -208,7 +209,8 @@ def test_render_view_frame_matches_reference(tmp_path):
         ret = ev.render_view(rig.views[0], src)
     hs, ws = 12, 16  # 48 x 64 at stride 4: one chunk of 192 rays
     cfg = render_config_from_args(args)
-    draws = rr.sample_draws(gen, cfg, hs * ws, torch.float32, "cpu")
+    draws = rr.render_draws(gen, cfg, hs * ws, torch.float32,
+                            "cpu")["samples"]
     yy, xx = torch.meshgrid(torch.arange(0, 48, 4), torch.arange(0, 64, 4),
                             indexing="ij")
     rays_o, rays_d = rays_at((yy * 64 + xx).reshape(-1), view["camera"])

@@ -29,7 +29,8 @@ from nerfool_tpu_torch.attack import attack as t_attack
 from nerfool_tpu_torch.models.bundle import create_model
 from nerfool_tpu_torch.models.gnt import RayAttention
 from nerfool_tpu_torch.ops import ray_attention as ra
-from nerfool_tpu_torch.render.render_rays import RenderConfig, _shade
+from nerfool_tpu_torch.backbones.gnt import shade
+from nerfool_tpu_torch.render.render_rays import RenderConfig
 
 # the test tier runs several worker processes on a few cores: two math
 # threads per process instead of one per core keeps them from thrashing
@@ -180,7 +181,7 @@ def test_aggregator_fused_attn_setting():
         for fused in (False, True):
             cfg = RenderConfig(backbone="gnt", single_net=True,
                                gnt_fused_attn=fused)
-            raw = _shade(cfg, tb.nets, 0, *args)
+            raw = shade(cfg, tb.nets, 0, *args)
             torch.testing.assert_close(raw, ref, atol=1e-5 * fused,
                                        rtol=1e-5 * fused)
 

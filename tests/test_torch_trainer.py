@@ -95,12 +95,10 @@ def test_stochastic_coarse_samples_match_jax(inv_uniform):
     det = tsamp.sample_along_camera_ray(_t(o), _t(d), _t(dr), 16,
                                         inv_uniform=inv_uniform)[1].numpy()
     assert np.abs(z - det).max() > 1e-3
-    # a generator draws the same shape, and differently per seed
-    g = [tsamp.sample_along_camera_ray(
-        _t(o), _t(d), _t(dr), 16, inv_uniform=inv_uniform, det=False,
-        generator=torch.Generator().manual_seed(s))[1] for s in (0, 0, 1)]
-    torch.testing.assert_close(g[0], g[1], rtol=0, atol=0)
-    assert float((g[0] - g[2]).abs().max()) > 1e-3
+    # the jitter is handed in (render_rays.render_draws draws it)
+    with pytest.raises(ValueError, match="shape None"):
+        tsamp.sample_along_camera_ray(_t(o), _t(d), _t(dr), 16,
+                                      inv_uniform=inv_uniform, det=False)
 
 
 def test_stochastic_sample_pdf_matches_jax():

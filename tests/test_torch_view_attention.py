@@ -29,7 +29,8 @@ from nerfool_tpu_torch.engine import Evaluator
 from nerfool_tpu_torch.models.convert import gnt_state_dict
 from nerfool_tpu_torch.models.gnt import GNTAggregator
 from nerfool_tpu_torch.ops import view_attention as va
-from nerfool_tpu_torch.render.render_rays import RenderConfig, _shade
+from nerfool_tpu_torch.backbones.gnt import shade
+from nerfool_tpu_torch.render.render_rays import RenderConfig
 
 # the test tier runs several worker processes on a few cores: two math
 # threads per process instead of one per core keeps them from thrashing
@@ -137,8 +138,9 @@ def test_fully_masked_rows_finite_and_equal(nets):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
 def test_lane_packed_odd_rows_match(nets, dtype, tol):
-    """``lane_pack=True`` with an odd row count (the TPU kernel pads a row):
-    the same function, so the port's wrapper gives it the same answer."""
+    """The TPU kernel's lane-packed body (``lane_pack=True``) with an odd
+    row count (it pads a row): the same function, so the port's wrapper,
+    which has one formulation, gives it the same answer."""
     _, params, _ = nets
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     q, k, pos, mask = _va_inputs(np.random.RandomState(7), v=4, r=3, s=5)
@@ -150,7 +152,7 @@ def test_lane_packed_odd_rows_match(nets, dtype, tol):
                                *(jnp.asarray(a, jdt) for a in w),
                                lane_pack=True)
     got = va.view_attention(*(_t(a, tdt) for a in flat),
-                            *(_t(a) for a in w), lane_pack=True)
+                            *(_t(a) for a in w))
     assert got.shape == (n, D)
     assert _rel_err(got.float().numpy(), ref) < tol
 
@@ -170,7 +172,7 @@ def test_f64_keeps_the_module_path(nets, monkeypatch):
         np.random.RandomState(4), v=3, r=2, s=8))
     attn = net64.view_crosstrans[0].attn
     with torch.no_grad():
-        got = attn(q, k, pos, mask, fused=True, lane_pack=True)
+        got = attn(q, k, pos, mask, fused=True)
         ref = attn(q, k, pos, mask)
     assert got.dtype == torch.float64
     assert torch.equal(got, ref)
@@ -180,7 +182,8 @@ def test_f64_keeps_the_module_path(nets, monkeypatch):
 def test_fused_aggregator_matches_plain_and_jax(nets, lane_pack, monkeypatch):
     """The whole aggregator at depth 2 with ``fused_attn`` and ``fused_vt``
     against its own module path, and against the JAX aggregator through both
-    Pallas kernels in interpret mode."""
+    Pallas kernels in interpret mode (``lane_pack``: the JAX view-attention
+    kernel's lane-packed body, the same function)."""
     mod, params, net = nets
     inputs = _agg_inputs(np.random.RandomState(5))
     jref = mod.clone(fused_attn=True, fused_vt=True,
@@ -194,12 +197,10 @@ def test_fused_aggregator_matches_plain_and_jax(nets, lane_pack, monkeypatch):
                         lambda *a, **k: (calls.append(1), real(*a, **k))[1])
     with torch.no_grad():
         ref = net(*tin)
-        only_lp = net(*tin, fused_vt_lp=True)  # meaningless without fused_vt
         assert not calls
-        got = net(*tin, fused_attn=True, fused_vt=True, fused_vt_lp=lane_pack)
+        got = net(*tin, fused_attn=True, fused_vt=True)
     assert len(calls) == 2  # one per depth, through the wrapper
     assert real.launches == launches  # CPU: no launch
-    assert torch.equal(only_lp, ref)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=5e-5, rtol=1e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(jref), atol=5e-5,
                                rtol=1e-4)
@@ -224,21 +225,19 @@ def test_shade_passes_the_render_configs_flags(nets, monkeypatch):
     real = va.view_attention
 
     def spy(*a, **k):
-        seen.append(k.get("lane_pack"))
+        seen.append(1)
         return real(*a, **k)
 
     monkeypatch.setattr(va, "view_attention", spy)
     inputs = [_t(a) for a in _agg_inputs(np.random.RandomState(8))]
     base = dict(n_samples=S, backbone="gnt", single_net=True)
-    for kw, expect in (({}, []), ({"gnt_fused_vt": True}, [False, False]),
-                       ({"gnt_fused_vt": True, "gnt_fused_vt_lp": True},
-                        [True, True]),
-                       ({"gnt_fused_vt_lp": True}, [])):
+    for fused, calls in ((False, 0), (True, net.trans_depth)):
         seen.clear()
         with torch.no_grad():
-            raw = _shade(RenderConfig(**base, **kw), {"net_coarse": net}, 0,
-                         *inputs)
-        assert seen == expect and raw.shape == (R, 3 + S)
+            raw = shade(RenderConfig(**base, gnt_fused_vt=fused),
+                        {"net_coarse": net}, 0, *inputs)
+        # the kernel's wrapper once per depth, or never
+        assert len(seen) == calls and raw.shape == (R, 3 + S)
 
 
 def test_evaluator_reads_the_flag_for_renders_only(tmp_path):
